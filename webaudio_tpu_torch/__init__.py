@@ -15,8 +15,10 @@ A port of `webaudio_tpu` (JAX) to PyTorch, for NVIDIA Hopper GPUs:
 
 The public API mirrors the JAX package: `OfflineAudioContext(channels,
 length, sample_rate, device=...)`, the `create_*` factories, `connect`,
-`start`, AudioParam automation, `suspend_sync` and `start_rendering_sync`.
-This package never imports `jax` or `webaudio_tpu`.
+`start`, AudioParam automation, `suspend_sync` and `start_rendering_sync`;
+`GraphBatch` and `MixedGraphBatch` render many graphs in one block walk,
+with dithered int16 and u-law bounces on the device.  This package never
+imports `jax` or `webaudio_tpu`.
 """
 
 from .constants import (  # noqa: F401
@@ -30,5 +32,6 @@ from .ops.cuda_lib import KernelError  # noqa: F401
 from .ops.mixing import ChannelCountMode, ChannelInterpretation  # noqa: F401
 from .context.base import BaseAudioContext, AudioContextState  # noqa: F401
 from .context.offline import OfflineAudioContext  # noqa: F401
+from .parallel.batch import GraphBatch, MixedGraphBatch  # noqa: F401
 
 __version__ = "0.1.0"

@@ -176,8 +176,7 @@ class OfflineAudioContext(BaseAudioContext):
     def _merge_states(self, states, cg):
         """Carry states across re-plans: keep state for surviving nodes,
         init fresh ones."""
-        init = {_compiler._k(nid): k.init_state()
-                for nid, k in cg.kernels.items()}
+        init = _compiler.zero_states(cg)
         if states is None:
             return init
         merged = {}

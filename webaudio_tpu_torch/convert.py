@@ -1,4 +1,5 @@
-"""Carry resources and render states over from the JAX package.
+"""Carry resources and render states over from the JAX package, and stage
+them for the block walk.
 
 The engine has no learned weights.  What one render hands the next is:
 
@@ -13,6 +14,11 @@ Both arrive as trees of dicts whose leaves are numpy arrays (a JAX tree
 converts with `jax.tree_util.tree_map(np.asarray, tree)`, which this
 module does not import).  Leaves keep their dtype: f64 stays f64,
 complex64 stays complex64, bool stays bool.
+
+The block walk (`graph/compiler.py`) renders N instances at once: every
+state leaf carries a leading instance axis of N, and every resource leaf a
+leading axis of 1 (shared by all instances) or N (one per instance), the
+written-out form of the JAX package's `vmap(in_axes=(0, 0, res_axes))`.
 """
 
 from __future__ import annotations
@@ -21,19 +27,73 @@ import numpy as np
 import torch
 
 
-def to_torch_tree(tree, device):
-    """Copy a tree of dicts with numpy leaves onto `device` as torch
-    tensors of the same dtypes; None leaves stay None."""
+def tree_map(fn, tree):
+    """Apply fn to every non-None leaf of a tree of dicts."""
     if tree is None:
         return None
     if isinstance(tree, dict):
-        return {k: to_torch_tree(v, device) for k, v in tree.items()}
-    return torch.from_numpy(np.array(tree)).to(device)
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def upload(arr: np.ndarray, device) -> torch.Tensor:
+    """Copy a host array to `device` from a snapshot that nothing else
+    touches: on CUDA through a fresh pinned buffer and a non-blocking copy
+    (the host may overwrite `arr` while the copy is in flight, and the
+    copy does not wait for work already queued on the stream); on the CPU
+    as a plain copy."""
+    device = torch.device(device)
+    src = torch.from_numpy(np.ascontiguousarray(arr))
+    if device.type != "cuda":
+        return src.clone()
+    pinned = torch.empty(src.shape, dtype=src.dtype, pin_memory=True)
+    pinned.copy_(src)
+    return pinned.to(device, non_blocking=True)
+
+
+def to_torch_tree(tree, device):
+    """Copy a tree of dicts with numpy leaves onto `device` as torch
+    tensors of the same dtypes; None leaves stay None."""
+    return tree_map(lambda x: torch.from_numpy(np.array(x)).to(device), tree)
+
+
+def stage_resources(tree: dict, device, batched=frozenset()) -> dict:
+    """Stage a `collect_resources` tree ({node_key: {leaf_key: array}}) for
+    the block walk: leaves named in `batched` as (node_key, leaf_key)
+    already carry their leading instance axis; every other leaf is shared
+    and gets a leading axis of 1."""
+    return {nk: {lk: upload(v if (nk, lk) in batched else np.asarray(v)[None],
+                            device)
+                 for lk, v in leaves.items()}
+            for nk, leaves in tree.items()}
+
+
+def batch_states(states: dict, n: int) -> dict:
+    """Unbatched states (each kernel's `init_state()`) -> the walk's states:
+    every leaf repeated along a new leading instance axis of n."""
+    return tree_map(lambda x: x.unsqueeze(0).repeat((n,) + (1,) * x.dim()),
+                    states)
+
+
+def stack_states(member_states: list) -> dict:
+    """Stack the unbatched states of N members (same structure) along a new
+    leading instance axis."""
+    first = member_states[0]
+    if isinstance(first, dict):
+        return {k: stack_states([m[k] for m in member_states]) for k in first}
+    if first is None:
+        return None
+    return torch.stack(member_states)
+
+
+def unbatch_states(states: dict) -> dict:
+    """The only instance's states, without the instance axis."""
+    return tree_map(lambda x: x[0], states)
 
 
 def resources_from_jax(tree, device):
-    """A JAX `collect_resources` tree (numpy leaves) -> the port's staged
-    resources on `device`."""
+    """A JAX `collect_resources` tree (numpy leaves) -> the port's
+    resources on `device`, without the instance axis."""
     return to_torch_tree(tree, device)
 
 

@@ -21,6 +21,10 @@
 // the samples, so the curve is loaded at most 1056 times per launch, from
 // L2 after the first block.
 //
+// A batch whose instances carry their own curves passes an (R, n) table and
+// the row length: sample i reads row i / row_len, through the read-only
+// cache, so one launch shapes every instance.
+//
 // Bit-exact against the plain PyTorch version
 // (webaudio_tpu_torch/ops/curve_kernel.py::curve_lookup_reference): every
 // operation is written with an explicit round-to-nearest intrinsic so that
@@ -73,38 +77,46 @@ __global__ void curve_lookup_shared(const float* __restrict__ x,
   }
 }
 
+// kRows: curve is an (R, n) table and sample i reads row i / row_len
+template <bool kRows>
 __global__ void curve_lookup_global(const float* __restrict__ x,
                                     const float* __restrict__ curve,
                                     float* __restrict__ y, long long m,
-                                    int n, float half_nm1) {
+                                    int n, float half_nm1, long long row_len) {
   const float n_m1 = static_cast<float>(n - 1);
   const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
   for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
                      threadIdx.x;
        i < m; i += stride) {
+    const float* c = kRows ? curve + (i / row_len) * n : curve;
     const Tap t = locate(__ldg(x + i), n, half_nm1, n_m1);
-    y[i] = lerp(t.f, __ldg(curve + t.k), __ldg(curve + t.k + 1));
+    y[i] = lerp(t.f, __ldg(c + t.k), __ldg(c + t.k + 1));
   }
 }
 
 }  // namespace
 
-// x, y: m contiguous f32 on the device; curve: n >= 2 contiguous f32.
-// Launches on `stream` and returns cudaGetLastError() (0 on success).
+// x, y: m contiguous f32 on the device; curve: n >= 2 contiguous f32, or
+// with row_len > 0 an (m / row_len, n) table whose row r shapes samples
+// [r * row_len, (r + 1) * row_len).  Launches on `stream` and returns
+// cudaGetLastError() (0 on success).
 extern "C" int curve_lookup_f32(const float* x, const float* curve, float* y,
                                 long long m, int n, float half_nm1,
-                                void* stream) {
+                                long long row_len, void* stream) {
   if (m <= 0) return static_cast<int>(cudaGetLastError());
   long long blocks = (m + kThreads - 1) / kThreads;
   if (blocks > kMaxBlocks) blocks = kMaxBlocks;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (n <= kSharedMaxN) {
+  if (row_len > 0) {
+    curve_lookup_global<true><<<static_cast<unsigned>(blocks), kThreads, 0,
+                                s>>>(x, curve, y, m, n, half_nm1, row_len);
+  } else if (n <= kSharedMaxN) {
     const size_t smem = static_cast<size_t>(n) * sizeof(float);
     curve_lookup_shared<<<static_cast<unsigned>(blocks), kThreads, smem, s>>>(
         x, curve, y, m, n, half_nm1);
   } else {
-    curve_lookup_global<<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(
-        x, curve, y, m, n, half_nm1);
+    curve_lookup_global<false><<<static_cast<unsigned>(blocks), kThreads, 0,
+                                 s>>>(x, curve, y, m, n, half_nm1, 0);
   }
   return static_cast<int>(cudaGetLastError());
 }

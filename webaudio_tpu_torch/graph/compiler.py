@@ -3,17 +3,26 @@
 This replaces the reference's per-quantum interpreted executor
 (reference: src/render/graph.rs:490-587, src/render/thread.rs:260-396) with
 plan-then-run: the node DAG is ordered once, every node contributes a
-functional ``process`` over (channels, frames) tensors, and a Python loop
-runs the whole topology block by block:
+functional ``process`` over (instances, channels, frames) tensors, and a
+Python loop runs the whole topology block by block:
 
     (states, frame0), (param rows) -> (states', dest block)
 
 Ported from `webaudio_tpu/graph/compiler.py`.  The acyclic block plan
 (block size, padding) is the JAX package's, unchanged.  Each block runs
 eagerly on the context's device; node states are dicts of tensors carried
-from one block to the next.  Feedback cycles, the two-rate cycle compiler
-and source fusion are not ported yet: a graph that needs one raises
-`NotSupportedError`.
+from one block to the next.
+
+There is one block walk, and it renders N instances of the graph at once:
+the JAX package's `vmap` over `scan_render` written out as a leading
+instance axis.  Signals are (N, C, B), dense params (N, 1, B), constant
+params shared 0-d tensors, every state leaf (N, ...), and every resource
+leaf (1, ...) when the instances share it or (N, ...) when each has its
+own (`convert.stage_resources`).  `render_compiled` (the offline context)
+runs it with N = 1; `parallel/batch.py::GraphBatch` with N instances.
+
+Feedback cycles, the two-rate cycle compiler and source fusion are not
+ported yet: a graph that needs one raises `NotSupportedError`.
 """
 
 from __future__ import annotations
@@ -27,7 +36,7 @@ import torch
 from ..constants import (
     RENDER_QUANTUM_SIZE, DEFAULT_QUANTA_PER_BLOCK, NotSupportedError,
 )
-from ..convert import to_torch_tree
+from ..convert import batch_states, stage_resources, unbatch_states
 from ..ops.cuda_lib import KernelError
 from ..ops.mixing import (
     ChannelInterpretation, computed_number_of_channels, sum_inputs,
@@ -53,13 +62,16 @@ class RenderContext:
 class BlockScope:
     """Per-block values available to kernels (the analog of
     AudioWorkletGlobalScope, reference: src/render/processor.rs:20-27).
-    `frame0` is a host int; `t_idx` and `active_mask` are device tensors."""
+    `frame0` and the instance count `n` are host ints; `t_idx` and
+    `active_mask` are device tensors shared by all instances."""
 
-    __slots__ = ("frame0", "frames", "device", "_t_idx", "node_resources")
+    __slots__ = ("frame0", "frames", "n", "device", "_t_idx",
+                 "node_resources")
 
-    def __init__(self, frame0: int, frames: int, device):
+    def __init__(self, frame0: int, frames: int, n: int, device):
         self.frame0 = int(frame0)
         self.frames = frames
+        self.n = n
         self.device = device
         self._t_idx = None
         # this node's staged resources (audio buffers, IR spectra, curves)
@@ -85,12 +97,17 @@ class Kernel:
     """Per-node functional processor.
 
     `process` maps (scope, state, inputs, params) -> (state', [outputs]).
-    inputs: list over input ports of (C_in, B) f32 tensors (pre-mixed
-    fan-in).  params: dict name -> () or (B,) f32 (clamped, audio input
-    summed).  A kernel returns new tensors and never writes into its inputs
-    or its old state."""
+    inputs: list over input ports of (N, C_in, B) f32 tensors (pre-mixed
+    fan-in).  params: dict name -> () or (N, 1, B) f32 (clamped, audio
+    input summed).  state: the `init_state()` tree with a leading N on
+    every leaf.  `scope.node_resources` holds the `resources()` leaves with
+    a leading axis of 1 (shared) or N (per instance).  Outputs are
+    (N, C, B), or (1, C, B) when every instance's output is the same.  A
+    kernel returns new tensors and never writes into its inputs or its old
+    state."""
 
     def init_state(self):
+        """One instance's initial state (the walk adds the instance axis)."""
         return None
 
     def resources(self):
@@ -112,6 +129,9 @@ class CompiledGraph:
     block_frames: int
     total_frames: int
     device: torch.device
+    sample_rate: float
+    in_counts: dict
+    out_counts: dict
     resource_cache: Any = None
     failed: dict = field(default_factory=dict)
     dense_params: list = field(default_factory=list)  # packed row order
@@ -296,15 +316,18 @@ def compile_graph(nodes: dict, edges: list[Edge], sample_rate: float,
                 min(max(plan.scalar, p.min_value), p.max_value),
                 dtype=torch.float32, device=device)
 
-    def silence(channels):
-        return torch.zeros((channels, block_frames), dtype=torch.float32,
-                           device=device)
-
     def block_fn(states, frame0, xs_params, resources):
-        """One block: run every node in topological order."""
-        scope = BlockScope(frame0, block_frames, device)
+        """One block of N instances: run every node in topological order.
+        xs_params: (N, P, B) dense param rows; returns (states', the
+        destination's (N, C, B) output)."""
+        n = xs_params.shape[0]
+        scope = BlockScope(frame0, block_frames, n, device)
         signals: dict = {}
         new_states = dict(states)
+
+        def silence(channels):
+            return torch.zeros((n, channels, block_frames),
+                               dtype=torch.float32, device=device)
 
         def gather_inputs(nid, node):
             ins = []
@@ -313,7 +336,8 @@ def compile_graph(nodes: dict, edges: list[Edge], sample_rate: float,
                         for e in in_edges[nid][i]
                         if (e.src, e.src_output) in signals]
                 ins.append(sum_inputs(sigs, in_counts[nid][i],
-                                      interp_of[nid], block_frames, device))
+                                      interp_of[nid], block_frames, device,
+                                      batch=n))
             return ins
 
         def gather_params(nid, node):
@@ -322,15 +346,17 @@ def compile_graph(nodes: dict, edges: list[Edge], sample_rate: float,
                 if (nid, pname) in constants:
                     val = constants[(nid, pname)]
                 else:
-                    val = xs_params[dense_index[(nid, pname)]]       # (B,)
+                    i = dense_index[(nid, pname)]
+                    val = xs_params[:, i:i + 1, :]                   # (N, 1, B)
                 aedges = param_edges.get((nid, pname))
                 if aedges:
                     sigs = [signals[s] for s in aedges if s in signals]
                     audio = sum_inputs(sigs, 1, ChannelInterpretation.SPEAKERS,
-                                       block_frames, device)[0]
+                                       block_frames, device, batch=n)
                     if not p.automation_rate.is_a_rate:
-                        q = audio.reshape(-1, RENDER_QUANTUM_SIZE)[:, :1]
-                        audio = q.expand(q.shape[0], RENDER_QUANTUM_SIZE).reshape(-1)
+                        q = audio.reshape(n, 1, -1, RENDER_QUANTUM_SIZE)[..., :1]
+                        audio = q.expand(n, 1, q.shape[2], RENDER_QUANTUM_SIZE
+                                         ).reshape(n, 1, block_frames)
                     val = p.clamp(val + audio)
                 elif (nid, pname) not in constants:
                     val = torch.clamp(val, *p.f32_bounds())
@@ -356,7 +382,8 @@ def compile_graph(nodes: dict, edges: list[Edge], sample_rate: float,
                 st, outs = kern.process(scope, states.get(_k(nid)), ins, prm)
                 new_states[_k(nid)] = st
                 for oi, o in enumerate(outs):
-                    signals[(nid, oi)] = o
+                    # an output shared by all instances broadcasts (a view)
+                    signals[(nid, oi)] = o.expand((n,) + o.shape[1:])
             except (NotSupportedError, KernelError):
                 raise
             except Exception as exc:
@@ -372,13 +399,14 @@ def compile_graph(nodes: dict, edges: list[Edge], sample_rate: float,
     return CompiledGraph(
         block_fn=block_fn, order=ordered.order, kernels=kernels,
         param_plan=param_plan, block_frames=block_frames,
-        total_frames=total_frames, device=device, failed=failed,
+        total_frames=total_frames, device=device, sample_rate=sample_rate,
+        in_counts=in_counts, out_counts=out_counts, failed=failed,
         dense_params=dense_params)
 
 
 def collect_resources(cg: CompiledGraph) -> dict:
-    """Gather each kernel's static data (numpy; staged once per compiled
-    graph, reused across renders)."""
+    """Gather each kernel's static data (numpy, one instance's; staged once
+    per compiled graph, reused across renders)."""
     out = {}
     for nid, kern in cg.kernels.items():
         r = kern.resources()
@@ -389,6 +417,11 @@ def collect_resources(cg: CompiledGraph) -> dict:
 
 def _k(nid: int) -> str:
     return f"n{nid}"
+
+
+def zero_states(cg: CompiledGraph) -> dict:
+    """One instance's zero states for every kernel."""
+    return {_k(nid): k.init_state() for nid, k in cg.kernels.items()}
 
 
 def pack_dense_params(cg: CompiledGraph, padded: int,
@@ -406,42 +439,61 @@ def pack_dense_params(cg: CompiledGraph, padded: int,
     return rows
 
 
+def block_rows(packed: np.ndarray, block_frames: int) -> np.ndarray:
+    """(..., P, padded) dense rows -> (..., nb, P, B): the layout the block
+    walk reads block b from."""
+    *lead, P, padded = packed.shape
+    nb = padded // block_frames
+    return np.swapaxes(packed.reshape(*lead, P, nb, block_frames), -3, -2)
+
+
 def _pad_len(total_frames: int, block_frames: int) -> int:
     nb = -(-total_frames // block_frames)
     return nb * block_frames
 
 
+def scan_render(cg: CompiledGraph, states: dict, frame0s, xs: torch.Tensor,
+                resources: dict):
+    """The block walk over a whole render: N instances, block by block.
+
+    states: leaves (N, ...); frame0s: host ints, one per block; xs:
+    (N, nb, P, B) dense rows on the device; resources: staged with their
+    leading 1 or N axis.  Returns (final states, (N, C, nb*B) output)."""
+    outs = []
+    for b, frame0 in enumerate(frame0s):
+        states, out = cg.block_fn(states, frame0, xs[:, b], resources)
+        outs.append(out)
+    return states, torch.cat(outs, dim=-1)
+
+
 def render_args(cg: CompiledGraph, total_frames: int, start_frame: int = 0,
                 init_states: Optional[dict] = None):
-    """Stage (init_states, frame0s, xs_params, resources) for the block
-    loop: dense params as one (nb, P, B) f32 tensor on the device, zero
-    states for every kernel unless given, resources staged once per
-    compiled graph."""
+    """Stage (states, frame0s, xs, resources) for `scan_render` with one
+    instance: dense params as one (1, nb, P, B) f32 tensor on the device,
+    zero states for every kernel unless given (unbatched, as
+    `zero_states` returns them), resources staged once per compiled
+    graph."""
     B = cg.block_frames
     padded = _pad_len(total_frames, B)
     nb = padded // B
-    packed = pack_dense_params(cg, padded)                   # (P, padded)
-    xs_params = torch.from_numpy(
-        packed.reshape(len(cg.dense_params), nb, B).transpose(1, 0, 2).copy()
-    ).to(cg.device)
+    xs = torch.from_numpy(block_rows(pack_dense_params(cg, padded), B)[None]
+                          .copy()).to(cg.device)
     frame0s = [start_frame + b * B for b in range(nb)]
     if init_states is None:
-        init_states = {_k(nid): k.init_state() for nid, k in cg.kernels.items()}
+        init_states = zero_states(cg)
     if cg.resource_cache is None:
-        cg.resource_cache = to_torch_tree(collect_resources(cg), cg.device)
-    return init_states, frame0s, xs_params, cg.resource_cache
+        cg.resource_cache = stage_resources(collect_resources(cg), cg.device)
+    return batch_states(init_states, 1), frame0s, xs, cg.resource_cache
 
 
 def render_compiled(cg: CompiledGraph, total_frames: int,
                     start_frame: int = 0, init_states: Optional[dict] = None):
-    """Execute a compiled graph over [start_frame, start_frame+total_frames).
+    """Execute a compiled graph over [start_frame, start_frame+total_frames)
+    as one instance of the block walk.
 
     Returns `(output (C, padded_frames) tensor on the device, final_states)`
-    where padded_frames rounds total_frames up to the block size."""
-    states, frame0s, xs_params, resources = render_args(
-        cg, total_frames, start_frame, init_states)
-    outs = []
-    for b, frame0 in enumerate(frame0s):
-        states, out = cg.block_fn(states, frame0, xs_params[b], resources)
-        outs.append(out)
-    return torch.cat(outs, dim=1), states
+    where padded_frames rounds total_frames up to the block size and the
+    states carry no instance axis."""
+    final, out = scan_render(cg, *render_args(cg, total_frames, start_frame,
+                                              init_states))
+    return out[0], unbatch_states(final)

@@ -10,7 +10,11 @@ reference: src/node/biquad_filter.rs.  Coefficient formulas are the spec's
   (the reference recomputes them per sample too, biquad_filter.rs:834-855),
   then a log-depth f64 scan for the AR(2) recurrence.
 
-Ported from `webaudio_tpu/nodes/biquad_filter.py`.
+Ported from `webaudio_tpu/nodes/biquad_filter.py`.  Both paths take a
+leading instance axis: the LTI path keeps one FDL state per instance
+against IR spectra shared by all (or one per instance, stacked by
+MixedGraphBatch); the a-rate path computes coefficients from (N, 1, B)
+param rows and scans (N, C, B) in f64.
 """
 
 from __future__ import annotations
@@ -207,26 +211,27 @@ class _BiquadARateKernel(Kernel):
                                   device=self.device)}
 
     def process(self, scope, state, inputs, params):
-        x = inputs[0]
+        x = inputs[0]                                   # (N, C, B)
         f = _computed_freq(params["frequency"], params["detune"], _TorchOps)
-        B = x.shape[1]
-        b0, b1, b2, a1, a2 = [
-            torch.broadcast_to(c, (B,)) for c in _coefs_generic(
-                _TorchOps, self.filter_type, self.sample_rate, f,
-                params["gain"], params["q"])]
-        xy = state["xy"]
+        B = x.shape[-1]
+        coefs = _coefs_generic(_TorchOps, self.filter_type, self.sample_rate,
+                               f, params["gain"], params["q"])
+        # each coefficient is () or (N, 1, B); give them one shape
+        shape = torch.broadcast_shapes(*(c.shape for c in coefs))
+        b0, b1, b2, a1, a2 = [torch.broadcast_to(c, shape) for c in coefs]
+        xy = state["xy"]                                # (N, C, 4)
         frc = recurrence.biquad_forcing(
-            x, b0, b1, b2, xy[:, 0:1], xy[:, 1:2])      # (C, B)
+            x, b0, b1, b2, xy[..., 0:1], xy[..., 1:2])  # (N, C, B)
         # the AR(2) scan runs in f64: resonant poles amplify the f32
         # rounding of the log-depth composition above the 1e-4 deviation
         # budget (the reference uses f64 state too, biquad_filter.rs:857-896)
         y = recurrence.recurrence_2nd_order(
             a1.double(), a2.double(), frc.double(),
-            xy[:, 2:3].double(), xy[:, 3:4].double())
+            xy[..., 2:3].double(), xy[..., 3:4].double())
         new_xy = torch.stack(
-            [x[:, -1], x[:, -2] if B >= 2 else xy[:, 0],
-             y[:, -1].float(), y[:, -2].float() if B >= 2 else xy[:, 2]],
-            dim=1)
+            [x[..., -1], x[..., -2] if B >= 2 else xy[..., 0],
+             y[..., -1].float(), y[..., -2].float() if B >= 2 else xy[..., 2]],
+            dim=-1)
         return {"xy": new_xy}, [y.float()]
 
 

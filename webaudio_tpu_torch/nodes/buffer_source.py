@@ -14,9 +14,13 @@ closed-form tensor math for a constant compound rate
   from an integral position (the reference's fast track), and a pair-row
   gather + linear interpolation otherwise.
 
-Ported from `webaudio_tpu/nodes/buffer_source.py`.  Automated (k-rate)
-playback rate or detune needs the masked-cumsum playhead, which is not
-ported yet and raises `NotSupportedError`.
+Ported from `webaudio_tpu/nodes/buffer_source.py`.  The playhead is
+shared by every instance of a batched render; the buffer layouts are
+staged with a leading axis of 1 (one buffer for all instances) or N (one
+per instance, `GraphBatch.override_buffer`), and the fetch returns
+(1 or N, C, B).  Automated (k-rate) playback rate or detune needs the
+masked-cumsum playhead, which is not ported yet and raises
+`NotSupportedError`.
 """
 
 from __future__ import annotations
@@ -52,6 +56,11 @@ def _loop_wrap(pos, ls, le, loop_len):
 
 
 class _BufferSourceKernel(Kernel):
+    # data_host is only ever read through the staged-resource path
+    # (data_rows/edge_vals/_read_resources), so MixedGraphBatch may bucket
+    # same-shape different-content buffers together and stack them
+    _fp_staged_attrs = ("data_host",)
+
     def __init__(self, node: "AudioBufferSourceNode", rc):
         self.sample_rate = rc.sample_rate
         self.device = rc.device
@@ -127,9 +136,15 @@ class _BufferSourceKernel(Kernel):
         wrap = int(math.ceil(self.loop_start * self.buf_rate))
         res = {"data_rows": pair_rows(self.data_host),
                "edge_vals": edge_vals(self.data_host, self.loop, wrap)}
-        if self.read_mode == "aligned":
-            res["data_tiled"] = self._tiled_data()
+        res.update(self._read_resources())
         return res
+
+    def _read_resources(self) -> dict:
+        """Data-derived layouts of the aligned read (also rebuilt by
+        GraphBatch.override_buffer for per-instance audio)."""
+        if self.read_mode == "aligned":
+            return {"data_tiled": self._tiled_data()}
+        return {}
 
     def _tiled_data(self):
         """(C, T) layout for the aligned unit-step slice fetch.
@@ -157,8 +172,8 @@ class _BufferSourceKernel(Kernel):
 
     def process(self, scope, state, inputs, params):
         if not self.has_buffer:
-            return state, [torch.zeros((1, scope.frames), dtype=torch.float32,
-                                       device=scope.device)]
+            return state, [torch.zeros((1, 1, scope.frames),
+                                       dtype=torch.float32, device=scope.device)]
         return self._process_closed_form(scope, state)
 
     def _entered(self, pos, offset_pos, ls, le, rate):
@@ -231,8 +246,8 @@ class _BufferSourceKernel(Kernel):
             pos_end = torch.where(entered_end,
                                   _loop_wrap(pos_end, ls, le, loop_len), pos_end)
         new_state = {
-            "buffer_time": pos_end,
-            "elapsed": end_rel * abs(rate) + delta_elapsed,
+            "buffer_time": pos_end.repeat(scope.n),
+            "elapsed": (end_rel * abs(rate) + delta_elapsed).repeat(scope.n),
             "entered": state["entered"],
         }
         return new_state, [out]
@@ -248,20 +263,19 @@ class _BufferSourceKernel(Kernel):
         k = (playhead - floored).to(torch.float32)
         beyond = prev_i + 1 >= self.buf_len
         a, b = gather_pairs(scope.node_resources["data_rows"], prev_i)
-        edge_c = scope.node_resources["edge_vals"][:, None]   # (C, 1)
+        edge_c = scope.node_resources["edge_vals"][..., None]  # (R, C, 1)
         if self.loop:
             # end-of-buffer neighbor wraps into the loop
             # (reference: audio_buffer_source.rs:772-795)
-            b = torch.where(beyond[None, :], edge_c, b)
+            b = torch.where(beyond, edge_c, b)
         else:
             # non-looping end-of-buffer (reference: rs:795-815): read 0 when
             # k ~= 1 or the buffer has a single sample, otherwise linearly
             # extrapolate from the last two samples (WebAudio issue #2032)
-            edge = torch.where(((k >= 1.0 - 1e-6) | (prev_i == 0))[None, :],
-                               0.0, edge_c)
-            b = torch.where(beyond[None, :], edge, b)
-        out = a * (1.0 - k) + b * k
-        return torch.where(valid[None, :], out, 0.0).to(torch.float32)
+            edge = torch.where((k >= 1.0 - 1e-6) | (prev_i == 0), 0.0, edge_c)
+            b = torch.where(beyond, edge, b)
+        out = a * (1.0 - k) + b * k                           # (R, C, B)
+        return torch.where(valid, out, 0.0).to(torch.float32)
 
     def _fetch_aligned(self, scope, valid):
         """Aligned unit-step fetch: the block's samples are
@@ -270,7 +284,7 @@ class _BufferSourceKernel(Kernel):
         of the pre-tiled layout (_tiled_data).  Pre-start and out-of-range
         positions read tiled data or pad zeros and are masked by `valid`
         exactly like the gather path."""
-        tiled = scope.node_resources["data_tiled"]           # (C, T)
+        tiled = scope.node_resources["data_tiled"]           # (R, C, T)
         start_i = min(self.start_frame, 2**31 - 1)
         raw = scope.frame0 - start_i + self.aligned_off
         if self.loop:
@@ -278,8 +292,8 @@ class _BufferSourceKernel(Kernel):
         else:
             pad = self.aligned_pad
             s = min(max(raw, -pad), self.buf_len) + pad
-        out = tiled[:, s:s + scope.frames]
-        return torch.where(valid[None, :], out, 0.0).to(torch.float32)
+        out = tiled[..., s:s + scope.frames]
+        return torch.where(valid, out, 0.0).to(torch.float32)
 
 
 class AudioBufferSourceNode(AudioScheduledSourceNode):

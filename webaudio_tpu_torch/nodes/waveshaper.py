@@ -34,10 +34,14 @@ class _WaveShaperKernel(Kernel):
         return None if self.curve is None else {"curve": self.curve}
 
     def process(self, scope, state, inputs, params):
-        x = inputs[0]
+        x = inputs[0]                                  # (N, C, B)
         if self.curve is None:
             return state, [x]  # passthrough (reference: waveshaper.rs:420-427)
-        return state, [curve_lookup(scope.node_resources["curve"], x.contiguous())]
+        # (1 or N, n): one curve for all, or one per instance (a
+        # MixedGraphBatch bucket whose members' curves differ); one launch
+        # shapes every instance's samples either way
+        curves = scope.node_resources["curve"]
+        return state, [curve_lookup(curves, x.contiguous())]
 
 
 class WaveShaperNode(AudioNode):

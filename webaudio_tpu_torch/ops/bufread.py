@@ -42,10 +42,13 @@ def edge_vals(data: np.ndarray, loop: bool = False,
 
 
 def gather_pairs(rows: torch.Tensor, idx: torch.Tensor):
-    """rows (L, 2C), integer idx of any shape -> (a, b) each (C, *idx.shape):
-    a = data[:, idx], b = data[:, idx + 1] (b undefined at idx == L-1)."""
-    C = rows.shape[1] // 2
-    flat = rows[idx.reshape(-1)]                     # (N, 2C)
-    g = flat.reshape(idx.shape + (2, C))
-    g = torch.movedim(g, (-2, -1), (0, 1))           # (2, C, *idx.shape)
+    """rows (..., L, 2C), integer idx of any shape -> (a, b) each
+    (..., C, *idx.shape): a = data[..., :, idx], b = data[..., :, idx + 1]
+    (b undefined at idx == L-1).  Leading axes of rows (per-instance
+    buffers, or a shared one with a leading 1) share the one idx."""
+    lead = rows.shape[:-2]
+    C = rows.shape[-1] // 2
+    flat = rows[..., idx.reshape(-1), :]             # (..., M, 2C)
+    g = flat.reshape(lead + idx.shape + (2, C))
+    g = torch.movedim(g, (-2, -1), (0, len(lead) + 1))  # (2, ..., C, *idx.shape)
     return g[0], g[1]

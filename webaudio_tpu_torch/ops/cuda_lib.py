@@ -24,7 +24,8 @@ BUILD_DIR = _PKG / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
-_lock = threading.Lock()
+_lock = threading.Lock()                       # guards _source_locks
+_source_locks: dict[str, threading.Lock] = {}
 _libs: dict[str, ctypes.CDLL] = {}
 
 
@@ -49,8 +50,11 @@ def _nvcc() -> str:
 
 def load_library(source: str) -> ctypes.CDLL:
     """Compile `csrc/<source>` (once per process and source hash) and
-    return the loaded library."""
+    return the loaded library.  Threads loading different sources run
+    their `nvcc`s at the same time."""
     with _lock:
+        lock = _source_locks.setdefault(source, threading.Lock())
+    with lock:
         lib = _libs.get(source)
         if lib is not None:
             return lib

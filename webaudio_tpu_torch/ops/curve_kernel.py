@@ -35,13 +35,18 @@ def _half_nm1(n: int) -> float:
 
 def curve_lookup_reference(curve: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """Plain gather + lerp (`_apply_curve_gather` in torch): curve (n,) f32,
-    x any shape f32 -> the shaped x."""
-    n = curve.shape[0]
+    x any shape f32 -> the shaped x.  An (R, n) curve table shapes x[r]
+    through row r (x has R rows on its leading axis)."""
+    n = curve.shape[-1]
     v = (x + 1.0) * _half_nm1(n)
     v = torch.clamp(v, 0.0, float(n - 1))                    # keeps NaN
     k = torch.nan_to_num(torch.floor(v), nan=0.0).to(torch.int64)
     k = torch.clamp(k, max=n - 2)
     f = v - k.to(torch.float32)
+    if curve.dim() == 2:
+        rows = torch.arange(curve.shape[0], device=curve.device)
+        k = k + (rows * n).reshape(-1, *(1,) * (x.dim() - 1))
+        curve = curve.reshape(-1)
     return (1.0 - f) * curve[k] + f * curve[k + 1]
 
 
@@ -51,15 +56,18 @@ def _launcher():
     fn = lib.curve_lookup_f32
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                    ctypes.c_longlong, ctypes.c_int, ctypes.c_float,
-                   ctypes.c_void_p]
+                   ctypes.c_longlong, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
 def curve_lookup(curve: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """Shape x through curve.  CUDA tensors go through the hand-written
-    kernel (each launch adds one to `curve_lookup.launches`); CPU tensors
-    take `curve_lookup_reference`."""
+    """Shape x through curve: (n,), or an (R, n) table whose row r shapes
+    x[r] (x has R rows on its leading axis; a (1, n) table is one curve).
+    CUDA tensors go through the hand-written kernel (each launch adds one
+    to `curve_lookup.launches`); CPU tensors take `curve_lookup_reference`."""
+    if curve.dim() == 2 and curve.shape[0] == 1:
+        curve = curve[0]
     if x.device.type == "cpu" and curve.device.type == "cpu":
         return curve_lookup_reference(curve, x)
     if x.device.type != "cuda" or curve.device != x.device:
@@ -71,15 +79,22 @@ def curve_lookup(curve: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     if x.dtype != torch.float32 or curve.dtype != torch.float32:
         raise KernelError(f"curve_lookup: needs f32, got x {x.dtype}, "
                           f"curve {curve.dtype}")
-    if curve.dim() != 1 or not 2 <= curve.shape[0] < 2**31:
-        raise KernelError(f"curve_lookup: curve must be 1-d with 2 <= n < "
-                          f"2**31, got shape {tuple(curve.shape)}")
+    if curve.dim() not in (1, 2) or not 2 <= curve.shape[-1] < 2**31:
+        raise KernelError(f"curve_lookup: curve must be (n,) or (R, n) with "
+                          f"2 <= n < 2**31, got shape {tuple(curve.shape)}")
+    row_len = 0
+    if curve.dim() == 2:
+        if x.dim() == 0 or x.shape[0] != curve.shape[0]:
+            raise KernelError(f"curve_lookup: a {tuple(curve.shape)} curve "
+                              f"table needs x with {curve.shape[0]} rows, got "
+                              f"{tuple(x.shape)}")
+        row_len = x.numel() // curve.shape[0]
     if not (x.is_contiguous() and curve.is_contiguous()):
         raise KernelError("curve_lookup: x and curve must be contiguous")
-    n = curve.shape[0]
+    n = curve.shape[-1]
     y = torch.empty(x.shape, dtype=torch.float32, device=x.device)
     rc = _launcher()(x.data_ptr(), curve.data_ptr(), y.data_ptr(),
-                     x.numel(), n, _half_nm1(n),
+                     x.numel(), n, _half_nm1(n), row_len,
                      torch.cuda.current_stream(x.device).cuda_stream)
     check(rc, "curve_lookup launch")
     curve_lookup.launches += 1

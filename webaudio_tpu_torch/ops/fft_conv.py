@@ -66,47 +66,51 @@ def init_state(channels: int, k_partitions: int, partition: int,
 def partitioned_conv_block(state, x, h_spectra, partition: int):
     """Convolve one block through the frequency-domain delay line.
 
-    state: {"spectra": (C, K-1, P+1) c64, "tail": (C, P) f32}
-    x: (C, B) f32 with B a multiple of P
-    h_spectra: (C, K, P+1) complex64 (or (1, K, P+1) broadcast over C)
+    state: {"spectra": (..., C, K-1, P+1) c64, "tail": (..., C, P) f32}
+    x: (..., C, B) f32 with B a multiple of P; the leading axes (an
+    instance axis) ride along
+    h_spectra: (..., C_h, K, P+1) complex64, broadcast against x's leading
+    axes and channels (C_h is C or 1; a leading axis is N or 1)
 
-    Returns (new_state, y (C, B) f32).
+    Returns (new_state, y (..., C, B) f32).
     """
-    C, B = x.shape
+    lead = x.shape[:-1]                                       # (..., C)
+    B = x.shape[-1]
     P = partition
     J = B // P
-    K = h_spectra.shape[1]
+    K = h_spectra.shape[-2]
 
     # overlap-save segments: for chunk j, fft of [prev P samples, chunk]
-    ext = torch.cat([state["tail"], x], dim=1)                # (C, B + P)
-    segs = torch.stack([ext[:, : J * P].reshape(C, J, P),
-                        ext[:, P:].reshape(C, J, P)], dim=2).reshape(C, J, 2 * P)
-    X = torch.fft.rfft(segs, dim=-1)                          # (C, J, P+1) c64
+    ext = torch.cat([state["tail"], x], dim=-1)               # (..., C, B + P)
+    segs = torch.stack([ext[..., : J * P].reshape(lead + (J, P)),
+                        ext[..., P:].reshape(lead + (J, P))],
+                       dim=-2).reshape(lead + (J, 2 * P))
+    X = torch.fft.rfft(segs, dim=-1)                          # (..., C, J, P+1)
 
     # delay line: past K-1 spectra followed by this block's J spectra
-    Xfull = torch.cat([state["spectra"], X], dim=1)           # (C, K-1+J, P+1)
+    Xfull = torch.cat([state["spectra"], X], dim=-2)          # (..., C, K-1+J, P+1)
 
     # Y[j] = sum_k H[k] * Xfull[j + K-1 - k]
-    Hb = h_spectra.expand((C,) + tuple(h_spectra.shape[1:]))
     if K * J <= 512:
         # J*K elementwise MACs over static slices: the windowed
-        # (C, J, K, P+1) intermediate is never materialized
+        # (..., C, J, K, P+1) intermediate is never materialized
         Y = None
         for k in range(K):
-            term = Hb[:, k, None, :] * Xfull[:, K - 1 - k: K - 1 - k + J, :]
+            term = h_spectra[..., k, None, :] * \
+                Xfull[..., K - 1 - k: K - 1 - k + J, :]
             Y = term if Y is None else Y + term
     else:
         jj = torch.arange(J, device=x.device)[:, None]
         kk = torch.arange(K, device=x.device)[None, :]
-        win = Xfull[:, jj + (K - 1) - kk, :]                  # (C, J, K, P+1)
-        Y = torch.einsum("cjkf,ckf->cjf", win, Hb)
+        win = Xfull[..., jj + (K - 1) - kk, :]                # (..., C, J, K, P+1)
+        Y = torch.einsum("...jkf,...kf->...jf", win, h_spectra)
 
-    y = torch.fft.irfft(Y, n=2 * P, dim=-1)[:, :, P:]         # overlap-save
-    y = y.reshape(C, B).to(torch.float32)
+    y = torch.fft.irfft(Y, n=2 * P, dim=-1)[..., P:]          # overlap-save
+    y = y.reshape(lead + (B,)).to(torch.float32)
 
     new_state = {
-        "spectra": Xfull[:, Xfull.shape[1] - (K - 1):, :] if K > 1
+        "spectra": Xfull[..., Xfull.shape[-2] - (K - 1):, :] if K > 1
         else state["spectra"],
-        "tail": ext[:, B:],
+        "tail": ext[..., B:],
     }
     return new_state, y

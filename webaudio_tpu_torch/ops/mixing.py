@@ -3,7 +3,8 @@
 The reference performs speaker-layout aware up/down mixing per render
 quantum with copy-on-write channel vectors (reference:
 src/render/quantum.rs:285-535).  Here the same rules are expressed as pure
-functions over `(channels, frames)` f32 tensors.  For the enumerated speaker
+functions over `(..., channels, frames)` f32 tensors (an optional leading
+instance axis rides along).  For the enumerated speaker
 layouts the mix is a constant matrix multiply; everything else is
 silence-padding / truncation.  Ported from `webaudio_tpu/ops/mixing.py`:
 `mix_matrix` stays numpy, `mix` and `sum_inputs` take torch tensors.
@@ -122,23 +123,23 @@ def mix_matrix(c_in: int, c_out: int, interpretation: ChannelInterpretation) -> 
 
 def mix(signal: torch.Tensor, c_out: int,
         interpretation: ChannelInterpretation) -> torch.Tensor:
-    """Mix a `(c_in, frames)` signal to `c_out` channels.
+    """Mix a `(..., c_in, frames)` signal to `c_out` channels.
 
     Identity and silence-pad cases avoid the matmul; the general case is a
     small constant matmul on the signal's device.
     """
-    c_in = signal.shape[0]
+    c_in = signal.shape[-2]
     if c_in == c_out:
         return signal
     m = mix_matrix(c_in, c_out, interpretation)
     # Fast paths for pure selection matrices (padding / truncation / dup).
     if c_out < c_in and np.array_equal(m, np.eye(c_out, c_in, dtype=np.float32)):
-        return signal[:c_out]
+        return signal[..., :c_out, :]
     if c_out > c_in and np.array_equal(m, np.eye(c_out, c_in, dtype=np.float32)):
-        pad = signal.new_zeros((c_out - c_in, signal.shape[1]))
-        return torch.cat([signal, pad], dim=0)
+        pad = signal.new_zeros(signal.shape[:-2] + (c_out - c_in, signal.shape[-1]))
+        return torch.cat([signal, pad], dim=-2)
     if (c_in, c_out) == (1, 2) and interpretation == ChannelInterpretation.SPEAKERS:
-        return torch.cat([signal, signal], dim=0)
+        return torch.cat([signal, signal], dim=-2)
     return torch.from_numpy(m).to(signal.device) @ signal
 
 
@@ -164,14 +165,18 @@ def sum_inputs(
     interpretation: ChannelInterpretation,
     frames: int,
     device: torch.device | str,
+    batch: int | None = None,
 ) -> torch.Tensor:
     """Fan-in: mix each incoming signal to ``c_out`` then sum.  An input
-    with no signals is f32 silence on `device`.
+    with no signals is f32 silence on `device`, shaped (c_out, frames), or
+    (batch, c_out, frames) when `batch` is given.
 
     reference: src/render/quantum.rs:532-569 (`AudioRenderQuantum::add`).
     """
     if not signals:
-        return torch.zeros((c_out, frames), dtype=torch.float32, device=device)
+        lead = () if batch is None else (batch,)
+        return torch.zeros(lead + (c_out, frames), dtype=torch.float32,
+                           device=device)
     acc = mix(signals[0], c_out, interpretation)
     for s in signals[1:]:
         acc = acc + mix(s, c_out, interpretation)
