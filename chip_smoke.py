@@ -70,15 +70,52 @@ the dither and u-law kernels:
      the dither and u-law kernels against their plain versions at
      (512, 98304) as device time from CUDA-graph replay.
 
-Prints the measurements, a {"kernels": [...]} line and the card's name and
-power limit, then as its last line {"ok": true, "device": {...}}.  Exits
-non-zero, printing no result, if CUDA is unavailable or any phase fails.
-Imports nothing of JAX.
+Then granular synthesis (source fusion, grain lanes), with the grain
+kernels: benches/suite.py::case_granular_grains at full width (10 s,
+44.1 kHz, stereo, the suite's synthetic 2 s stereo sample sin(0.05 n);
+grains of 90 ms with linear attack/release envelopes at rates 0.9-1.1):
+
+  k. the grouped-lerp kernel (K3/K4/K7) against its plain version, bit for
+     bit, at (g, w) = (16, 21) and (128, 192), 5 rows of 441,088 samples,
+     1, 2 and 3 channels, with and without a whole-buffer wrap; the grain
+     bank kernel (K2) bit for bit on the 400-grain case's own inputs
+     (captured from its render) and on synthetic lanes whose grains cross
+     both buffer ends; a non-contiguous input or a wrong dtype raises;
+  l. the 400-grain case through start_rendering_sync on the card: one
+     block of 441,088 frames, read mode "fused" (K2, counted), against the
+     port's CPU render (3e-5 absolute, error energy <= 1e-9 of the
+     signal's: the JAX suite's fused-vs-grouped_t bound) and a numpy f64
+     oracle that sums every grain directly (1e-4 x peak); then forced
+     WEBAUDIO_GRAIN_READ=grouped_v, window, grouped_pl (each counting K3's
+     kernel) and gather, each held to the fused render at 3e-5 / 1e-9;
+  m. the 800-grain case, as l; then for both cases: start_rendering_sync
+     end to end (CUDA events, one warm-up, median of 5), the block loop on
+     a compiled plan, host planning (fusion with the lane plan, the lane
+     plan alone, the per-lane envelope splicing, compile_graph), the
+     device-busy share (torch.profiler), and K2 and K3 at the path's
+     shapes against their plain versions and their bound (CUDA-graph
+     replay);
+  n. a MixedGraphBatch of 64 granular contexts (2 s, 80 grains: the
+     400-grain case's density) that differ only in each grain's buffer
+     offset: one bucket, every output within 1e-6 x peak of its own
+     start_rendering_sync.
+
+Prints the measurements, a {"kernels": [...]} line (each kernel's launches
+on its path, error against its plain version, device time, the plain
+version's, the least time the card could take (`bound_ms`: the larger of
+the bytes it must move at 3.35 TB/s and its f32 operations at 67 TFLOP/s)
+and one PyTorch call's time where one computes the same function) and the
+card's name and power limit, then as its last line {"ok": true, "device":
+{...}}.  Exits non-zero, printing no result, if CUDA is unavailable or any
+phase fails.  Imports nothing of JAX.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
+import math
+import os
 import statistics
 import subprocess
 import sys
@@ -101,6 +138,21 @@ BIG_BATCH = 1024
 QUANT_SHAPE = (512, 98304)
 MIXED_PER_TOPOLOGY = 32
 DEVICE = "cuda"              # where the batch phases g-i render
+GRAIN_FS = 44100.0
+GRAIN_SECONDS = 10.0
+GRAIN_FRAMES = int(GRAIN_FS * GRAIN_SECONDS)
+GRAIN_BLOCK = 441088         # the plan's one block (3,446 quanta)
+MIXED_GRAIN_CONTEXTS = 64
+HBM_BYTES_PER_S = 3.35e12    # H100 SXM, NVIDIA data sheet
+F32_OPS_PER_S = 67e12        # f32 outside the tensor cores
+
+
+def _bound(nbytes, ops):
+    """(ms, what bounds it): the larger of moving `nbytes` at the HBM rate
+    and doing `ops` f32 operations at the f32 peak."""
+    b_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    o_ms = ops / F32_OPS_PER_S * 1e3
+    return (b_ms, "bytes") if b_ms >= o_ms else (o_ms, "operations")
 
 
 def _curve(n, rng=None):
@@ -360,7 +412,25 @@ def phase_e(wt, ck, compiler):
           f"+ y out), plain {p_ms * 1000:.2f} us; called from Python back to "
           f"back: kernel {k_host * 1000:.2f} us, plain {p_host * 1000:.2f} us",
           flush=True)
-    return k_ms, p_ms
+
+    # yardstick: grid_sample's 1-D linear mode with align_corners=True maps
+    # x in [-1, 1] onto [0, n - 1] and lerps, with border clamping; it
+    # computes the curve lookup if it gives the same numbers
+    grid = torch.stack([xd.reshape(1, 1, -1), torch.zeros_like(
+        xd.reshape(1, 1, -1))], dim=-1)                   # (1, 1, M, 2)
+    img = curve.reshape(1, 1, 1, -1)
+
+    def library():
+        return torch.nn.functional.grid_sample(
+            img, grid, mode="bilinear", padding_mode="border",
+            align_corners=True)
+
+    lib_err = float((library().reshape(2, -1) - kernel()).abs().max())
+    lib_ms = statistics.median(_graph_ms(library, 100) for _ in range(3))
+    print(f"e. grid_sample (1-D linear, align_corners) at the same shape: "
+          f"{lib_ms * 1000:.2f} us, max |grid_sample - kernel| "
+          f"{lib_err:.3e}", flush=True)
+    return k_ms, p_ms, lib_ms, lib_err
 
 
 def _host(t):
@@ -610,16 +680,16 @@ def _rates(name, batch, ms):
           f"wall s, {batch * 1000.0 / ms:.1f} graphs/s", flush=True)
 
 
-def _busy_share(fn, reps=3):
+def _profile(calls):
+    """(device-busy us, wall us, top ops by device us per call) over the
+    calls, run back to back under torch.profiler."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
-    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in range(reps):
+        for fn in calls:
             fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
@@ -630,8 +700,14 @@ def _busy_share(fn, reps=3):
     ops = sorted((e for e in rows if e.device_type == DeviceType.CPU
                   and e.self_device_time_total > 0),
                  key=lambda e: -e.self_device_time_total)[:6]
-    return busy_us, wall_us, [(e.key, e.self_device_time_total / reps)
+    return busy_us, wall_us, [(e.key, e.self_device_time_total / len(calls))
                               for e in ops]
+
+
+def _busy_share(fn, reps=3):
+    fn()
+    torch.cuda.synchronize()
+    return _profile([fn] * reps)
 
 
 def phase_j(wt, gb, filt, dither):
@@ -690,6 +766,486 @@ def phase_j(wt, gb, filt, dither):
     return times
 
 
+# --- granular synthesis, k-n ------------------------------------------------
+
+
+def _grain_sample():
+    # benches/suite.py:509-511: the synthetic 2 s stereo sample
+    return np.sin(np.arange(2 * 44100) * 0.05, dtype=np.float32)[None] \
+        .repeat(2, 0)
+
+
+def _grain_schedule(n_grains, seconds, offsets=None):
+    """benches/suite.py::case_granular_grains' grains as (when, offset,
+    rate), drawn from RandomState(1) in the suite's order; `offsets`
+    replaces the offsets."""
+    rng = np.random.RandomState(1)
+    out = []
+    for i in range(n_grains):
+        when = i * (seconds - 0.2) / n_grains
+        offset = 0.3 + 2.0 * (i / n_grains) + rng.rand() * 0.05
+        rate = float(0.9 + 0.2 * rng.rand())
+        out.append((when, float(offset if offsets is None else offsets[i]),
+                    rate))
+    return out
+
+
+def granular_context(wt, device, n_grains, seconds=GRAIN_SECONDS,
+                     offsets=None):
+    """benches/suite.py::case_granular_grains: one buffer source and one
+    gain envelope (0 -> 0.4 -> 0 over 90 ms) per grain, into the
+    destination; 2 channels, 44.1 kHz."""
+    ctx = wt.OfflineAudioContext(2, int(GRAIN_FS * seconds), GRAIN_FS,
+                                 device=device)
+    sample = wt.AudioBuffer.from_array(_grain_sample(), GRAIN_FS)
+    for when, offset, rate in _grain_schedule(n_grains, seconds, offsets):
+        src = ctx.create_buffer_source(playback_rate=rate)
+        src.buffer = sample
+        env = ctx.create_gain(gain=0.0)
+        env.gain.set_value_at_time(0.0, when)
+        env.gain.linear_ramp_to_value_at_time(0.4, when + 0.045)
+        env.gain.linear_ramp_to_value_at_time(0.0, when + 0.09)
+        src.connect(env)
+        env.connect(ctx.destination)
+        src.start(when, offset, 0.09)
+    return ctx
+
+
+def grain_oracle(wt, n_grains, seconds=GRAIN_SECONDS):
+    """Every grain summed directly in numpy float64: the sub-sample start,
+    the playhead in buffer samples, the duration limit in buffer time and
+    the two-tap lerp with the non-looping end-of-buffer rule (reference
+    audio_buffer_source.rs:795-815), times the grain's own envelope as its
+    AudioParam compiles it (the reference's automation places a ramp's
+    end on the quantum grid, up to a sample away from the analytic
+    breakpoint; the fused bank splices the same values per lane)."""
+    fs = GRAIN_FS
+    x = _grain_sample().astype(np.float64)
+    L = x.shape[1]
+    edge = (2.0 * x[:, L - 1] - x[:, L - 2])[:, None]
+    frames = int(fs * seconds)
+    envs = [n.gain for n in granular_context(
+        wt, "cpu", n_grains, seconds)._nodes.values()
+        if type(n).__name__ == "GainNode"]
+    out = np.zeros((2, frames))
+    for (when, offset, rate), env in zip(
+            _grain_schedule(n_grains, seconds), envs):
+        rate = float(np.float32(rate))           # an AudioParam holds f32
+        f = when * fs
+        if abs(f - round(f)) <= 1.5e-8 * max(abs(f), 1.0):
+            f = round(f)
+        start = math.ceil(f)
+        delta = start / fs - when
+        pos0 = min(max(offset + delta * rate, 0.0), L / fs) * fs
+        n = np.arange(int(0.09 * fs / rate) + 4)
+        t = start + n
+        pos = pos0 + rate * n
+        ok = ((t < frames) & (n * rate + abs(delta * rate) * fs < 0.09 * fs)
+              & (pos >= 0.0) & (pos < L))
+        t, pos = t[ok], pos[ok]
+        k = np.floor(pos).astype(np.int64)
+        fr = pos - k
+        nxt = np.where(k + 1 < L, x[:, np.minimum(k + 1, L - 1)],
+                       np.where((fr >= 1.0 - 1e-6) | (k == 0), 0.0, edge))
+        smp = x[:, k] * (1.0 - fr) + nxt * fr
+        gain = env.compile_for_render(fs, frames).dense
+        out[:, t] += smp * gain[t]
+    return out
+
+
+@contextlib.contextmanager
+def _grain_read(mode):
+    """WEBAUDIO_GRAIN_READ=mode for the block (None: unset, i.e. auto)."""
+    old = os.environ.pop("WEBAUDIO_GRAIN_READ", None)
+    if mode is not None:
+        os.environ["WEBAUDIO_GRAIN_READ"] = mode
+    try:
+        yield
+    finally:
+        os.environ.pop("WEBAUDIO_GRAIN_READ", None)
+        if old is not None:
+            os.environ["WEBAUDIO_GRAIN_READ"] = old
+
+
+@contextlib.contextmanager
+def _recording(module, name):
+    """Wrap module.name so each call's arguments are recorded (the kernel
+    still launches and counts); yields the list of calls."""
+    calls = []
+    orig = getattr(module, name)
+
+    def spy(*args):
+        calls.append(args)
+        return orig(*args)
+
+    setattr(module, name, spy)
+    try:
+        yield calls
+    finally:
+        setattr(module, name, orig)
+
+
+def _fused_kernel(compiler, ctx):
+    cg = compiler.compile_graph(dict(ctx._nodes), list(ctx._edges),
+                                ctx.sample_rate, ctx.length,
+                                ctx._destination.node_id, ctx.device)
+    fused = [k for k in cg.kernels.values()
+             if type(k).__name__ == "_FusedVoicesKernel"]
+    if len(fused) != 1:
+        raise AssertionError(f"expected one fused bank, got {len(fused)}")
+    return cg, fused[0]
+
+
+def _check_render(name, got, want):
+    """The JAX suite's bound between grain read modes: 3e-5 absolute, and
+    an error energy at most 1e-9 of the signal's."""
+    err = float(np.abs(got - want).max())
+    energy = float(np.sum((got.astype(np.float64) - want) ** 2)
+                   / np.sum(want.astype(np.float64) ** 2))
+    ok = (got.shape == want.shape and bool(np.isfinite(got).all())
+          and err <= 3e-5 and energy <= 1e-9)
+    print(f"{name}: max_abs_err {err:.3e} (limit 3e-5), error energy "
+          f"{energy:.3e} of the signal's (limit 1e-9) -> "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise AssertionError(f"{name}: {err}, {energy}")
+    return err
+
+
+def _equal(name, got, want):
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    same = torch.equal(got, want)
+    print(f"{name}: bit-equal {same} max_abs_err {err:.3e}", flush=True)
+    if not same:
+        raise AssertionError(f"{name}: kernel differs from plain")
+    return err
+
+
+def phase_k(wt, gr, fusion, KernelError):
+    rng = np.random.default_rng(SEED + 4)
+    L, R, B = 2 * 44100, 5, GRAIN_BLOCK
+    worst = {"grain_bank": 0.0, "grouped_lerp": 0.0}
+    for g, w in ((16, 21), (128, 192)):
+        # playheads monotone within each g-sample group, as a lane's are
+        base = rng.integers(0, L - w, size=(R, B // g))
+        step = rng.random((R, B // g)) * ((w - 3) / g)
+        pif = base[:, :, None] + np.arange(g) * step[:, :, None]
+        pi = np.floor(pif).astype(np.int32).reshape(1, R, B)
+        fr = torch.from_numpy((pif - np.floor(pif)).astype(np.float32)
+                              .reshape(1, R, B)).cuda()
+        for C in (1, 2, 3):
+            ext = torch.from_numpy(rng.standard_normal(
+                (1, C, L + w + 2)).astype(np.float32)).cuda()
+            for wrap in (0, L):
+                p = torch.from_numpy(pi + (3 * L if wrap else 0)).cuda()
+                got = gr.grouped_lerp(ext, p, fr, g, w, wrap)
+                worst["grouped_lerp"] = max(worst["grouped_lerp"], _equal(
+                    f"k. grouped_lerp (g, w) = ({g}, {w}), C = {C}, "
+                    f"wrap {wrap}, {R} x {B}", got,
+                    gr.grouped_lerp_reference(ext, p, fr, g, w, wrap)))
+
+    with _grain_read(None), _recording(fusion, "grain_bank") as calls:
+        granular_context(wt, "cuda", 400).start_rendering_sync()
+    args = calls[-1]
+    worst["grain_bank"] = _equal(
+        f"k. grain_bank on the 400-grain case's inputs, gain "
+        f"{tuple(args[8].shape)}", gr.grain_bank(*args),
+        gr.grain_bank_reference(*args))
+
+    # synthetic lanes: grains that start and stop inside quanta, quanta
+    # without a grain, playheads that begin before sample 0 and run past
+    # the buffer's end every fourth quantum
+    K, nq = 5, B // 128
+    sv = rng.integers(-300, B, (K, nq))
+    base = rng.integers(-150, L + 20, (K, nq))
+    base[:, ::4] = L - 60
+    base[:, 1::7] = -40
+    data = _grain_sample()
+    ext = np.zeros((2, L + 41), np.float32)
+    ext[:, :L] = data
+    ext[:, L] = 2.0 * data[:, L - 1] - data[:, L - 2]
+    synth = [torch.from_numpy(np.ascontiguousarray(a))[None].cuda() for a in (
+        ext, ext[:, L],
+        (rng.random((K, nq)) > 0.15).astype(np.int32), sv.astype(np.int32),
+        (sv + rng.integers(0, 600, (K, nq))).astype(np.int32),
+        base.astype(np.int32), rng.random((K, nq)).astype(np.float32),
+        rng.uniform(0.9, 1.0995, (K, nq)).astype(np.float32),
+        rng.uniform(-0.2, 1.3, (K, B)).astype(np.float32))]
+    synth += [0, L, 0.0, 1.0]
+    worst["grain_bank"] = max(worst["grain_bank"], _equal(
+        "k. grain_bank on synthetic lanes crossing both buffer ends",
+        gr.grain_bank(*synth), gr.grain_bank_reference(*synth)))
+
+    ext2 = torch.zeros((1, 2, 100), device="cuda")
+    p2 = torch.zeros((1, 2, 64), dtype=torch.int32, device="cuda")
+    f2 = torch.zeros((1, 2, 64), device="cuda")
+    bad = [
+        ("grouped_lerp, non-contiguous pi", lambda: gr.grouped_lerp(
+            ext2, p2.transpose(1, 2), f2.transpose(1, 2), 16, 21)),
+        ("grouped_lerp, f64 fr", lambda: gr.grouped_lerp(
+            ext2, p2, f2.double(), 16, 21)),
+        ("grouped_lerp, pi on the cpu", lambda: gr.grouped_lerp(
+            ext2, p2.cpu(), f2, 16, 21)),
+        ("grain_bank, non-contiguous gain", lambda: gr.grain_bank(
+            *args[:8], args[8].transpose(1, 2), *args[9:])),
+        ("grain_bank, int64 ok", lambda: gr.grain_bank(
+            args[0], args[1], args[2].long(), *args[3:])),
+    ]
+    for what, call in bad:
+        try:
+            call()
+        except KernelError as exc:
+            print(f"k. {what} raises: {exc}", flush=True)
+        else:
+            raise AssertionError(f"{what} did not raise")
+    return worst
+
+
+def phase_l(wt, gr, compiler, fusion, n, phase="l"):
+    label = f"{phase}. {n} grains"
+    with _grain_read(None):
+        ctx = granular_context(wt, "cuda", n)
+        cg, kern = _fused_kernel(compiler, ctx)
+        print(f"{label}: plan {cg.block_frames}-frame blocks, V {kern.V}, "
+              f"K {kern.K} lanes of {kern.lane_start.shape[1]} slots, read "
+              f"mode {kern.read_mode} (g, w) = ({kern.win_Qs}, "
+              f"{kern.win_W})", flush=True)
+        if kern.read_mode != "fused" or cg.block_frames != GRAIN_BLOCK:
+            raise AssertionError("the granular case did not plan K2 over "
+                                 "one 441,088-frame block")
+        gr.grain_bank.launches = 0
+        gr.grouped_lerp.launches = 0
+        out = ctx.start_rendering_sync().to_array()
+        launches = {"grain_bank": gr.grain_bank.launches,
+                    "grouped_lerp": gr.grouped_lerp.launches}
+        segs = ctx.render_stats["segments"]
+        print(f"{label}: start_rendering_sync launched {launches}, segments "
+              f"{segs}", flush=True)
+        if launches["grain_bank"] < 1 or any(s["failed"] for s in segs):
+            raise AssertionError("K2 did not launch on the granular path")
+        cpu = granular_context(wt, "cpu", n).start_rendering_sync() \
+            .to_array()
+    _check_render(f"{label}: cuda vs the port's cpu render", out, cpu)
+    oracle = grain_oracle(wt, n)
+    err = _check_close(f"{label}: vs the numpy f64 oracle", out, oracle,
+                       1e-4)
+    print(f"{label}: oracle error {err / np.abs(oracle).max():.3e} x peak",
+          flush=True)
+    lerp = 0
+    for mode in ("grouped_v", "window", "grouped_pl", "gather"):
+        with _grain_read(mode):
+            ctx = granular_context(wt, "cuda", n)
+            _, kern = _fused_kernel(compiler, ctx)
+            gr.grouped_lerp.launches = 0
+            forced = ctx.start_rendering_sync().to_array()
+            moved = gr.grouped_lerp.launches
+        print(f"{label}, WEBAUDIO_GRAIN_READ={mode}: read mode "
+              f"{kern.read_mode} (g, w) = ({kern.win_Qs}, {kern.win_W}), "
+              f"grouped_lerp launches {moved}", flush=True)
+        if kern.read_mode != mode or (mode != "gather") != (moved > 0):
+            raise AssertionError(f"{mode}: not read through its route")
+        lerp += moved
+        _check_render(f"{label}, {mode} vs fused", forced, out)
+    launches["grouped_lerp"] = lerp
+    return {"n": n, "launches": launches}
+
+
+def _kernel_vs_plain(kern, plain, reps):
+    """Device ms per call of the kernel and of its plain version, from
+    CUDA-graph replay, in turns: plain, kernel, kernel, plain, twice."""
+    k_dev, p_dev = [], []
+    for _ in range(2):
+        p_dev.append(_graph_ms(plain, 5))
+        k_dev.append(_graph_ms(kern, reps))
+        k_dev.append(_graph_ms(kern, reps))
+        p_dev.append(_graph_ms(plain, 5))
+    return statistics.median(k_dev), statistics.median(p_dev)
+
+
+def _nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors
+               if isinstance(t, torch.Tensor))
+
+
+def phase_m(wt, gr, compiler, fusion, cases):
+    out = {"grain_bank": {}, "grouped_lerp": {}}
+    for case in cases:
+        n = case["n"]
+        label = f"m. {n} grains"
+        with _grain_read(None):
+            runs = []
+            for i in range(6):
+                ctx = granular_context(wt, "cuda", n)
+                torch.cuda.synchronize()
+                start = torch.cuda.Event(enable_timing=True)
+                stop = torch.cuda.Event(enable_timing=True)
+                start.record()
+                ctx.start_rendering_sync()
+                stop.record()
+                torch.cuda.synchronize()
+                if i:                          # the first run is warm-up
+                    runs.append(start.elapsed_time(stop))
+            e2e = statistics.median(runs)
+            print(f"{label}: start_rendering_sync median {e2e:.3f} ms of "
+                  f"{['%.3f' % r for r in runs]} -> realtime factor "
+                  f"{GRAIN_SECONDS * 1000.0 / e2e:.1f}x", flush=True)
+
+            ctx = granular_context(wt, "cuda", n)
+            dest = ctx._destination.node_id
+            t0 = time.perf_counter()
+            nodes2, _, _ = fusion.fuse_sources(
+                dict(ctx._nodes), list(ctx._edges), dest,
+                sample_rate=GRAIN_FS)
+            t_fuse = time.perf_counter() - t0
+            (fnode,) = [v for v in nodes2.values()
+                        if type(v).__name__ == "_FusedVoicesNode"]
+            t0 = time.perf_counter()
+            fusion._plan_grain_lanes(fnode.sources, GRAIN_FS)
+            t_lane = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            for p in fnode.params.values():
+                p.compile_for_render(GRAIN_FS, GRAIN_BLOCK, 0)
+            t_splice = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            cg = compiler.compile_graph(dict(ctx._nodes), list(ctx._edges),
+                                        GRAIN_FS, GRAIN_FRAMES, dest, "cuda")
+            t_compile = time.perf_counter() - t0
+            # the offline context then advances every member's timeline to
+            # the segment's end (its control-side state after the render)
+            t0 = time.perf_counter()
+            ctx._advance_param_state(GRAIN_FRAMES)
+            t_advance = time.perf_counter() - t0
+            print(f"{label}: host planning (host clock): fuse_sources with "
+                  f"the lane plan {t_fuse * 1e3:.3f} ms, the lane plan alone "
+                  f"{t_lane * 1e3:.3f} ms, splicing {len(fnode.params)} lane "
+                  f"envelopes {t_splice * 1e3:.3f} ms, compile_graph "
+                  f"{t_compile * 1e3:.3f} ms; advancing the {3 * n} param "
+                  f"timelines to the render's end {t_advance * 1e3:.3f} ms",
+                  flush=True)
+
+            compiler.render_compiled(cg, GRAIN_FRAMES)
+            loop = [_events_ms(lambda: compiler.render_compiled(
+                cg, GRAIN_FRAMES), 5) for _ in range(3)]
+            loop_ms = statistics.median(loop)
+            print(f"{label}: block loop on a compiled plan median "
+                  f"{loop_ms:.3f} ms of {['%.3f' % r for r in loop]} (5 "
+                  f"renders each) -> realtime factor "
+                  f"{GRAIN_SECONDS * 1000.0 / loop_ms:.1f}x", flush=True)
+
+            ctxs = [granular_context(wt, "cuda", n) for _ in range(3)]
+            for what, calls in (
+                    ("start_rendering_sync", [c.start_rendering_sync
+                                              for c in ctxs]),
+                    ("block loop", [lambda: compiler.render_compiled(
+                        cg, GRAIN_FRAMES)] * 3)):
+                busy, wall, top = _profile(calls)
+                if busy > 0:
+                    print(f"{label}: profiler over 3 x {what}: device busy "
+                          f"{busy / 1000:.3f} ms of {wall / 1000:.3f} ms "
+                          f"wall ({100.0 * busy / wall:.1f}% busy); device "
+                          f"us per call by op: "
+                          f"{[(k, round(t, 1)) for k, t in top]}",
+                          flush=True)
+                else:
+                    print(f"{label}: profiler saw no device time over "
+                          f"{what}: busy share not measured", flush=True)
+
+            with _recording(fusion, "grain_bank") as calls:
+                granular_context(wt, "cuda", n).start_rendering_sync()
+        a = calls[-1]
+        k_ms, p_ms = _kernel_vs_plain(lambda: gr.grain_bank(*a),
+                                      lambda: gr.grain_bank_reference(*a), 20)
+        _, K, nq = a[2].shape
+        B, C = nq * 128, a[0].shape[1]
+        b = _bound(_nbytes(*a) + C * B * 4, (14 + 8 * C) * K * B)
+        print(f"{label}: grain_bank (K2) at K {K}, B {B}, C {C}: device time "
+              f"kernel {k_ms * 1000:.2f} us, plain {p_ms * 1000:.2f} us, "
+              f"bound {b[0] * 1000:.2f} us ({b[1]}; "
+              f"{(_nbytes(*a) + C * B * 4) / 1e6:.2f} MB)", flush=True)
+        key = "" if n == 400 else "_800"
+        out["grain_bank"].update({f"ms{key}": k_ms, f"plain_ms{key}": p_ms,
+                                  f"bound_ms{key}": b[0],
+                                  f"bound_by{key}": b[1]})
+
+        with _grain_read("grouped_v"), \
+                _recording(fusion, "grouped_lerp") as calls:
+            granular_context(wt, "cuda", n).start_rendering_sync()
+        a = calls[-1]
+        ext, pi, fr, g, w = a[:5]
+        k_ms, p_ms = _kernel_vs_plain(lambda: gr.grouped_lerp(*a),
+                                      lambda: gr.grouped_lerp_reference(*a),
+                                      20)
+        _, R, B = pi.shape
+        C, Lx = ext.shape[1], ext.shape[2]
+        b = _bound(_nbytes(ext, pi, fr) + C * R * B * 4, (8 + 3 * C) * R * B)
+        # yardstick: grid_sample's linear mode with align_corners=True at
+        # the positions pi + fr (the group's row clip never binds on the
+        # path, so the contract is the lerp at pi + fr); the positions
+        # reach it as f32 coordinates, so it is not bit-equal
+        pos = pi.double() + fr.double()
+        grid = torch.stack([pos / (Lx - 1) * 2.0 - 1.0,
+                            torch.zeros_like(pos)], -1).float() \
+            .reshape(1, 1, R * B, 2)
+        img = ext.reshape(1, C, 1, Lx)
+
+        def library():
+            return torch.nn.functional.grid_sample(
+                img, grid, mode="bilinear", padding_mode="border",
+                align_corners=True)
+
+        lib_err = float((library().reshape(1, C, R, B)
+                         - gr.grouped_lerp(*a)).abs().max())
+        lib_ms = statistics.median(_graph_ms(library, 20) for _ in range(3))
+        print(f"{label}: grouped_lerp (K3) at (g, w) = ({g}, {w}), {R} x {B}, "
+              f"C {C}: device time kernel {k_ms * 1000:.2f} us, plain "
+              f"{p_ms * 1000:.2f} us, bound {b[0] * 1000:.2f} us ({b[1]}); "
+              f"grid_sample {lib_ms * 1000:.2f} us, max |grid_sample - "
+              f"kernel| {lib_err:.3e}", flush=True)
+        if n == 400:
+            out["grouped_lerp"].update({
+                "ms": k_ms, "plain_ms": p_ms, "bound_ms": b[0],
+                "bound_by": b[1], "library_ms": lib_ms,
+                "library_err": lib_err})
+    return out
+
+
+def phase_n(wt, gr):
+    rng = np.random.default_rng(SEED + 5)
+    n, seconds = 80, 2.0
+    # offsets that keep every grain inside the 2 s sample, so the grains'
+    # audible ends (and so the lanes) do not depend on them
+    offsets = [0.1 + 1.5 * np.arange(n) / n + 0.05 * rng.random(n)
+               for _ in range(MIXED_GRAIN_CONTEXTS)]
+    with _grain_read(None):
+        ctxs = [granular_context(wt, DEVICE, n, seconds, o) for o in offsets]
+        t0 = time.perf_counter()
+        mb = wt.MixedGraphBatch(ctxs)
+        t1 = time.perf_counter()
+        gr.grain_bank.launches = 0
+        outs = mb.render()
+        t2 = time.perf_counter()
+        print(f"n. MixedGraphBatch of {len(ctxs)} granular contexts ({n} "
+              f"grains, {seconds} s): {mb.num_buckets} bucket(s), planned "
+              f"in {t1 - t0:.3f} s, rendered and fetched in {t2 - t1:.3f} s "
+              f"(host clock), grain_bank launches {gr.grain_bank.launches}",
+              flush=True)
+        if mb.num_buckets != 1 or gr.grain_bank.launches < 1:
+            raise AssertionError("the granular corpus did not form one "
+                                 "bucket through K2")
+        worst = 0.0
+        for o, got in zip(offsets, outs):
+            want = granular_context(wt, DEVICE, n, seconds, o) \
+                .start_rendering_sync().to_array()
+            peak = float(np.abs(want).max())
+            err = float(np.abs(got - want).max())
+            worst = max(worst, err / peak)
+            if got.shape != want.shape or not err <= 1e-6 * peak:
+                raise AssertionError(f"n. {err} > 1e-6 x {peak}")
+    print(f"n. every output vs its own start_rendering_sync: worst "
+          f"{worst:.3e} x peak (limit 1e-6) -> ok", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; nothing was run",
@@ -700,6 +1256,8 @@ def main() -> int:
     from webaudio_tpu_torch.ops import cuda_lib
     from webaudio_tpu_torch.ops import curve_kernel as ck
     from webaudio_tpu_torch.ops import dither
+    from webaudio_tpu_torch.graph import fusion
+    from webaudio_tpu_torch.ops import grain_read as gr
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -711,6 +1269,7 @@ def main() -> int:
         list(pool.map(cuda_lib.load_library, sources))   # all at once
     ck._launcher()
     dither._launchers()
+    gr._launchers()
     print(f"build: {', '.join(sources)} built and loaded in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
 
@@ -718,7 +1277,7 @@ def main() -> int:
     offline_launches = phase_b(wt, ck)
     phase_c(wt)
     phase_d(wt)
-    k_ms, p_ms = phase_e(wt, ck, compiler)
+    k_ms, p_ms, k1_lib_ms, k1_lib_err = phase_e(wt, ck, compiler)
     q_err = phase_f(dither, wt.KernelError)
 
     # the batch path, g-i: every count from 0
@@ -729,24 +1288,70 @@ def main() -> int:
     phase_h(gb, filt, rows, dither)
     launches = phase_i(wt, kernels)
     times = phase_j(wt, gb, filt, dither)
+    del gb
+    torch.cuda.empty_cache()
 
+    # granular synthesis, k-n
+    grain_err = phase_k(wt, gr, fusion, wt.KernelError)
+    l400 = phase_l(wt, gr, compiler, fusion, 400)
+    l800 = phase_l(wt, gr, compiler, fusion, 800, phase="m")
+    grain_times = phase_m(wt, gr, compiler, fusion, (l400, l800))
+    phase_n(wt, gr)
+
+    n_q = QUANT_SHAPE[0] * QUANT_SHAPE[1]
+    k1_bound = _bound(KERNEL_SAMPLES * 8 + CURVE_POINTS * 4,
+                      11 * KERNEL_SAMPLES)
+    k5_bound = _bound(n_q * 6, 25 * n_q)
+    k6_bound = _bound(n_q * 5, 50 * n_q)
+    k2, k3 = grain_times["grain_bank"], grain_times["grouped_lerp"]
     print(json.dumps({"kernels": [
         {"name": "curve_lookup", "route": "cuda",
          "source": "webaudio_tpu_torch/csrc/curve_lookup.cu",
          "replaces": "webaudio_tpu/ops/curve_kernel.py:164",
+         "also_replaces": ["webaudio_tpu/ops/curve_kernel.py:268",
+                           "webaudio_tpu/ops/curve_kernel.py:224"],
          "launches": launches["curve_lookup"],
          "launches_offline_path": offline_launches, "max_abs_err": max_err,
-         "ms": k_ms, "plain_ms": p_ms},
+         "ms": k_ms, "plain_ms": p_ms, "bound_ms": k1_bound[0],
+         "bound_by": k1_bound[1], "library_ms": k1_lib_ms,
+         "library_max_abs_err": k1_lib_err},
         {"name": "dither_i16", "route": "cuda",
          "source": "webaudio_tpu_torch/csrc/quantize.cu",
          "replaces": "webaudio_tpu/ops/dither.py:37",
          "launches": launches["dither_i16"], "max_abs_err": q_err[0],
-         "ms": times["dither_i16"][0], "plain_ms": times["dither_i16"][1]},
+         "ms": times["dither_i16"][0], "plain_ms": times["dither_i16"][1],
+         "bound_ms": k5_bound[0], "bound_by": k5_bound[1],
+         "library_ms": None},
         {"name": "ulaw_u8", "route": "cuda",
          "source": "webaudio_tpu_torch/csrc/quantize.cu",
          "replaces": "webaudio_tpu/ops/dither.py:113",
          "launches": launches["ulaw_u8"], "max_abs_err": q_err[1],
-         "ms": times["ulaw_u8"][0], "plain_ms": times["ulaw_u8"][1]},
+         "ms": times["ulaw_u8"][0], "plain_ms": times["ulaw_u8"][1],
+         "bound_ms": k6_bound[0], "bound_by": k6_bound[1],
+         "library_ms": None},
+        {"name": "grain_bank", "route": "cuda",
+         "source": "webaudio_tpu_torch/csrc/grain_read.cu",
+         "replaces": "webaudio_tpu/ops/grain_read.py:634",
+         "launches": l400["launches"]["grain_bank"],
+         "launches_800_grains": l800["launches"]["grain_bank"],
+         "max_abs_err": grain_err["grain_bank"],
+         "ms": k2["ms"], "plain_ms": k2["plain_ms"],
+         "bound_ms": k2["bound_ms"], "bound_by": k2["bound_by"],
+         "library_ms": None, "ms_800_grains": k2["ms_800"],
+         "plain_ms_800_grains": k2["plain_ms_800"],
+         "bound_ms_800_grains": k2["bound_ms_800"]},
+        {"name": "grouped_lerp", "route": "cuda",
+         "source": "webaudio_tpu_torch/csrc/grain_read.cu",
+         "replaces": "webaudio_tpu/ops/grain_read.py:453",
+         "also_replaces": ["webaudio_tpu/ops/grain_read.py:62",
+                           "webaudio_tpu/ops/grain_read.py:297"],
+         "launches": l400["launches"]["grouped_lerp"],
+         "launches_800_grains": l800["launches"]["grouped_lerp"],
+         "max_abs_err": grain_err["grouped_lerp"],
+         "ms": k3["ms"], "plain_ms": k3["plain_ms"],
+         "bound_ms": k3["bound_ms"], "bound_by": k3["bound_by"],
+         "library_ms": k3["library_ms"],
+         "library_max_abs_err": k3["library_err"]},
     ]}), flush=True)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

@@ -195,3 +195,189 @@ def test_graph_batch_on_the_card_matches_cpu(cuda):
     assert torch.equal(direct, td.dither_i16_reference(out, 5))
     for host in got.render_stream(2, fetch="i16"):
         np.testing.assert_array_equal(host, got.render_i16().cpu().numpy())
+
+
+def _monotone_playheads(rng, R, B, g, w, L):
+    base = rng.integers(0, L - w, size=(R, B // g))
+    step = rng.random((R, B // g)) * ((w - 3) / g)
+    pif = base[:, :, None] + np.arange(g) * step[:, :, None]
+    pi = np.floor(pif).astype(np.int32).reshape(1, R, B)
+    fr = (pif - np.floor(pif)).astype(np.float32).reshape(1, R, B)
+    return pi, fr
+
+
+@pytest.mark.parametrize("g,w", ((16, 21), (32, 39), (128, 192)))
+@pytest.mark.parametrize("C", (1, 2, 3))
+@pytest.mark.parametrize("wrap", (False, True))
+def test_grouped_lerp_kernel_equals_plain_version(cuda, g, w, C, wrap):
+    from webaudio_tpu_torch.ops import grain_read as gr
+
+    rng = np.random.default_rng(g + C + wrap)
+    L, R, B = 5000, 3, 128 * 37
+    pi, fr = _monotone_playheads(rng, R, B, g, w, L)
+    ext = torch.from_numpy(rng.standard_normal((2, C, L + w + 2)).astype(
+        np.float32)).to(cuda)
+    p = torch.from_numpy(pi + (7 * L if wrap else 0)).to(cuda)
+    f = torch.from_numpy(fr).to(cuda)
+    before = gr.grouped_lerp.launches
+    got = gr.grouped_lerp(ext, p, f, g, w, L if wrap else 0)
+    torch.cuda.synchronize()
+    assert gr.grouped_lerp.launches == before + 1
+    assert got.shape == (2, C, R, B)
+    assert torch.equal(got, gr.grouped_lerp_reference(ext, p, f, g, w,
+                                                      L if wrap else 0))
+
+
+@pytest.mark.parametrize("C", (1, 2))
+@pytest.mark.parametrize("instances", (1, 3))
+@pytest.mark.parametrize("own_buffers", (False, True))
+def test_grain_bank_kernel_equals_plain_version(cuda, C, instances,
+                                                own_buffers):
+    from webaudio_tpu_torch.ops import grain_read as gr
+
+    rng = np.random.default_rng(C * 10 + instances)
+    K, nq, L, frame0 = 5, 40, 3000, 128 * 7
+    B = nq * 128
+    sv = frame0 + rng.integers(-300, B, (instances, K, nq))
+    base = rng.integers(-150, L + 20, (instances, K, nq))
+    base[..., ::4] = L - 60                  # grains crossing the end
+    base[..., 1::7] = -40                    # and the start
+    data = np.sin(np.arange(L) * 0.05)[None].repeat(C, 0)
+    ext = np.zeros((1, C, L + 41), np.float32)
+    ext[0, :, :L] = data
+    ext[0, :, L] = 2.0 * data[:, L - 1] - data[:, L - 2]
+    if own_buffers:                          # one buffer per instance
+        ext = ext * np.linspace(0.5, 1.0, instances)[:, None, None] \
+            .astype(np.float32)
+    args = [torch.from_numpy(np.ascontiguousarray(a)).to(cuda) for a in (
+        ext, ext[:, :, L],
+        (rng.random((instances, K, nq)) > 0.15).astype(np.int32),
+        sv.astype(np.int32),
+        (sv + rng.integers(0, 600, (instances, K, nq))).astype(np.int32),
+        base.astype(np.int32),
+        rng.random((instances, K, nq)).astype(np.float32),
+        rng.uniform(0.9, 1.37, (instances, K, nq)).astype(np.float32),
+        rng.uniform(-0.2, 1.3, (1, K, B)).astype(np.float32))]
+    args += [frame0, L, 0.0, 1.0]
+    before = gr.grain_bank.launches
+    got = gr.grain_bank(*args)
+    torch.cuda.synchronize()
+    assert gr.grain_bank.launches == before + 1
+    assert got.shape == (instances, C, B)
+    assert torch.equal(got, gr.grain_bank_reference(*args))
+
+
+@pytest.mark.parametrize("bad", ["non-contiguous", "f64", "int64 pi",
+                                 "pi on cpu", "bank: 3 channels"])
+def test_grain_kernels_refuse_what_they_do_not_take(cuda, bad):
+    from webaudio_tpu_torch.ops import grain_read as gr
+
+    ext = torch.zeros((1, 2, 100), device=cuda)
+    pi = torch.zeros((1, 2, 64), dtype=torch.int32, device=cuda)
+    fr = torch.zeros((1, 2, 64), device=cuda)
+    with pytest.raises(wt.KernelError):
+        if bad == "non-contiguous":
+            gr.grouped_lerp(ext, pi.transpose(1, 2), fr.transpose(1, 2), 16, 21)
+        elif bad == "f64":
+            gr.grouped_lerp(ext, pi, fr.double(), 16, 21)
+        elif bad == "int64 pi":
+            gr.grouped_lerp(ext, pi.long(), fr, 16, 21)
+        elif bad == "pi on cpu":
+            gr.grouped_lerp(ext, pi.cpu(), fr, 16, 21)
+        else:
+            f = torch.zeros((1, 1, 1), device=cuda)
+            i = torch.zeros((1, 1, 1), dtype=torch.int32, device=cuda)
+            gr.grain_bank(torch.zeros((1, 3, 100), device=cuda),
+                          torch.zeros((1, 3), device=cuda), i, i, i, i, f, f,
+                          torch.zeros((1, 1, 128), device=cuda), 0, 90, 0.0,
+                          1.0)
+
+
+def _grains(device, seconds=1.0, n=48):
+    fs = 44100.0
+    ctx = wt.OfflineAudioContext(2, int(fs * seconds), fs, device=device)
+    data = np.sin(np.arange(2 * 44100) * 0.05, dtype=np.float32)[None] \
+        .repeat(2, 0)
+    sample = wt.AudioBuffer.from_array(data, fs)
+    rng = np.random.RandomState(1)
+    for i in range(n):
+        when = i * (seconds - 0.2) / n
+        src = ctx.create_buffer_source(
+            playback_rate=float(0.9 + 0.2 * rng.rand()))
+        src.buffer = sample
+        env = ctx.create_gain(gain=0.0)
+        env.gain.set_value_at_time(0.0, when)
+        env.gain.linear_ramp_to_value_at_time(0.4, when + 0.045)
+        env.gain.linear_ramp_to_value_at_time(0.0, when + 0.09)
+        src.connect(env)
+        env.connect(ctx.destination)
+        src.start(when, 0.3 + 1.8 * i / n, 0.09)
+    return ctx
+
+
+@pytest.mark.parametrize("mode", ("auto", "grouped_v", "window"))
+def test_granular_render_on_the_card_matches_cpu(cuda, monkeypatch, mode):
+    from webaudio_tpu_torch.ops import grain_read as gr
+
+    if mode == "auto":
+        monkeypatch.delenv("WEBAUDIO_GRAIN_READ", raising=False)
+    else:
+        monkeypatch.setenv("WEBAUDIO_GRAIN_READ", mode)
+    before = (gr.grain_bank.launches, gr.grouped_lerp.launches)
+    got = _grains(cuda).start_rendering_sync().to_array()
+    moved = (gr.grain_bank.launches - before[0],
+             gr.grouped_lerp.launches - before[1])
+    assert moved == ((1, 0) if mode == "auto" else (0, 1))
+    want = _grains("cpu").start_rendering_sync().to_array()
+    assert np.abs(want).max() > 0.1
+    # the same f32 steps on both devices (the kernels equal their plain
+    # versions bit for bit); the f64 playhead per quantum is IEEE on both
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
+
+
+def _dense_bank(device):
+    # 32 overlapping sources with per-voice gains: the (V, B) bank
+    ctx = wt.OfflineAudioContext(1, 1024, 44100.0, device=device)
+    buf = wt.AudioBuffer.from_array(
+        np.linspace(-1.0, 1.0, 64, dtype=np.float32)[None], 44100.0)
+    for i in range(32):
+        s = ctx.create_buffer_source(playback_rate=0.75 + 0.01 * i)
+        s.buffer = buf
+        g = ctx.create_gain(gain=0.5 + 0.01 * i)
+        if i == 3:
+            g.gain.linear_ramp_to_value_at_time(0.9, 0.01)
+        s.connect(g)
+        g.connect(ctx.destination)
+        s.start(i / 44100.0)
+    return ctx
+
+
+def test_dense_bank_on_the_card_matches_cpu(cuda):
+    got = _dense_bank(cuda).start_rendering_sync().to_array()
+    want = _dense_bank("cpu").start_rendering_sync().to_array()
+    assert np.abs(want).max() > 1.0
+    # the 32-voice sum runs in another order on each device
+    np.testing.assert_allclose(got, want, rtol=0,
+                               atol=1e-5 * np.abs(want).max())
+
+
+@pytest.mark.parametrize("mode", ("grouped_v", "window"))
+@pytest.mark.parametrize("loop", (True, False))
+def test_single_source_grouped_read_on_the_card(cuda, monkeypatch, mode, loop):
+    from webaudio_tpu_torch.ops import grain_read as gr
+
+    def render(device):
+        ctx = wt.OfflineAudioContext(2, 20000, 44100.0, device=device)
+        data = np.random.default_rng(4).standard_normal((2, 5000)).astype(
+            np.float32)
+        src = ctx.create_buffer_source(playback_rate=0.73, loop=loop)
+        src.buffer = wt.AudioBuffer.from_array(data, 44100.0)
+        src.connect(ctx.destination)
+        src.start(0.0, 0.0 if loop else 0.05)
+        return ctx.start_rendering_sync().to_array()
+
+    monkeypatch.setenv("WEBAUDIO_GRAIN_READ", mode)
+    before = gr.grouped_lerp.launches
+    got = render(cuda)
+    assert gr.grouped_lerp.launches > before
+    np.testing.assert_array_equal(got, render("cpu"))

@@ -355,20 +355,35 @@ def test_unported_parts_raise_not_supported():
         ctx.start_rendering_sync()
 
 
-def test_fusable_bank_raises_not_supported():
-    ctx = _context(wt, 1, 1024)
-    buf = wt.AudioBuffer.from_array(np.ones((1, 64), np.float32), FS)
+def fusable_bank(mod):
+    """32 same-buffer sources of 64 samples starting one frame apart: a
+    bank that fuses, and whose grains all overlap, so it renders as one
+    (V, B) closed-form playhead (K * 4 > V)."""
+    ctx = _context(mod, 1, 1024)
+    buf = mod.AudioBuffer.from_array(np.ones((1, 64), np.float32), FS)
     for i in range(32):
         s = ctx.create_buffer_source()
         s.buffer = buf
         s.connect(ctx.destination)
         s.start(i / FS)
-    with pytest.raises(wt.NotSupportedError):
-        ctx.start_rendering_sync()
+    return ctx
 
 
-def test_device_is_never_chosen_for_the_caller():
-    with pytest.raises(TypeError):
-        wt.OfflineAudioContext(2, 128, FS)
+def test_fusable_bank_renders():
+    cg = _assert_same_plan(fusable_bank)
+    (fused,) = [k for k in cg.kernels.values()
+                if type(k).__name__ == "_FusedVoicesKernel"]
+    assert fused.V == 32 and not fused.use_lanes
+    got, want, _ = _render_both(fusable_bank)
+    # the granular renders' tolerance (tests/test_torch_fusion.py)
+    assert got.shape == want.shape and want.max() == 32.0
+    np.testing.assert_allclose(got, want, rtol=0, atol=3e-5)
+    assert np.sum((got - want) ** 2.0) <= 1e-9 * np.sum(want ** 2.0)
+
+
+def test_device_defaults_to_the_card():
+    # naming the card needs no GPU; rendering on it without one would fail
+    ctx = wt.OfflineAudioContext(2, 128, FS)
+    assert ctx.device == torch.device("cuda")
     ctx = wt.OfflineAudioContext(2, 128, FS, device="cpu")
     assert ctx.device == torch.device("cpu")

@@ -9,12 +9,14 @@ A port of `webaudio_tpu` (JAX) to PyTorch, for NVIDIA Hopper GPUs:
   rows or constants;
 - LTI biquads run as truncated-IR partitioned FFT convolutions
   (`torch.fft`), automated biquads as f64 log-depth scans;
+- banks of same-buffer sources fuse into one node, grain clouds into a
+  few lanes (`graph/fusion.py`);
 - kernels that the JAX package wrote in Pallas for the TPU are hand-written
   CUDA kernels here (`csrc/`), built with `nvcc` at first use; on CPU
   tensors their plain PyTorch versions run instead.
 
 The public API mirrors the JAX package: `OfflineAudioContext(channels,
-length, sample_rate, device=...)`, the `create_*` factories, `connect`,
+length, sample_rate, device="cuda")`, the `create_*` factories, `connect`,
 `start`, AudioParam automation, `suspend_sync` and `start_rendering_sync`;
 `GraphBatch` and `MixedGraphBatch` render many graphs in one block walk,
 with dithered int16 and u-law bounces on the device.  This package never

@@ -5,8 +5,8 @@ src/context/concrete_base.rs (registration, connect/disconnect sets).
 The control side *is* the graph IR here; the compiler snapshots `_nodes` /
 `_edges` when it plans a render.  Ported from
 `webaudio_tpu/context/base.py`.  The context carries the torch device that
-every render of its graph runs on; it is given by the caller, never
-chosen here.  Factories of nodes that are not ported yet raise
+every render of its graph runs on (the card unless the caller names
+another).  Factories of nodes that are not ported yet raise
 `NotSupportedError`.
 """
 

@@ -28,11 +28,12 @@ from .base import AudioContextState, BaseAudioContext
 
 class OfflineAudioContext(BaseAudioContext):
     """reference: src/context/offline.rs:29-653.  `device` is where every
-    block of the render runs ("cuda", "cuda:1", "cpu"); the caller names
-    it."""
+    block of the render runs: the card by default ("cuda"), or "cuda:1",
+    "cpu" as the caller asks.  Without a GPU a render on "cuda" fails; it
+    never moves to the CPU on its own."""
 
     def __init__(self, number_of_channels: int, length: int, sample_rate: float,
-                 *, device):
+                 *, device="cuda"):
         assert_valid_number_of_channels(number_of_channels)
         if length <= 0:
             raise NotSupportedError("length must be > 0")

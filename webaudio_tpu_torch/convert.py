@@ -4,8 +4,9 @@ them for the block walk.
 The engine has no learned weights.  What one render hands the next is:
 
 - the per-node resources (`graph.compiler.collect_resources`): buffer
-  layouts (`data_rows`, `edge_vals`, `data_tiled`), truncated-IR spectra
-  (`h`) and shaping curves (`curve`);
+  layouts (`data_rows`, `edge_vals`, `data_tiled`, `data_ext`), a fused
+  bank's per-voice schedule and lane tables, truncated-IR spectra (`h`)
+  and shaping curves (`curve`);
 - the node states that cross a suspend boundary: the FDL delay line
   (`spectra`, `tail`), the buffer playhead (`buffer_time`, `elapsed`,
   `entered`) and the a-rate biquad's history (`xy`).

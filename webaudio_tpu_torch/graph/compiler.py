@@ -21,8 +21,10 @@ leaf (1, ...) when the instances share it or (N, ...) when each has its
 own (`convert.stage_resources`).  `render_compiled` (the offline context)
 runs it with N = 1; `parallel/batch.py::GraphBatch` with N instances.
 
-Feedback cycles, the two-rate cycle compiler and source fusion are not
-ported yet: a graph that needs one raises `NotSupportedError`.
+Source fusion (`graph/fusion.py`) rewrites banks of same-buffer buffer
+sources into one node before planning, as the JAX package does.  Feedback
+cycles and the two-rate cycle compiler are not ported yet: a graph that
+needs one raises `NotSupportedError`.
 """
 
 from __future__ import annotations
@@ -42,9 +44,6 @@ from ..ops.mixing import (
     ChannelInterpretation, computed_number_of_channels, sum_inputs,
 )
 from .ir import Edge, order_graph
-
-# source auto-fusion threshold of the JAX package (graph/fusion.py)
-_FUSE_THRESHOLD = 32
 
 
 @dataclass
@@ -135,6 +134,7 @@ class CompiledGraph:
     resource_cache: Any = None
     failed: dict = field(default_factory=dict)
     dense_params: list = field(default_factory=list)  # packed row order
+    param_alias: dict = field(default_factory=dict)   # fused (nid, p) remaps
 
 
 def _propagate_channel_counts(nodes, edges):
@@ -170,34 +170,17 @@ def _propagate_channel_counts(nodes, edges):
     return in_counts, out_counts, in_edges
 
 
-def _check_no_fusion(nodes: dict) -> None:
-    """The JAX package rewrites banks of >= 32 same-buffer, non-looping,
-    constant-rate buffer sources into one fused node
-    (`webaudio_tpu/graph/fusion.py::fuse_sources`).  Fusion is not ported:
-    refuse every graph that could fuse rather than render it otherwise."""
-    from ..nodes.buffer_source import AudioBufferSourceNode
-
-    if len(nodes) < _FUSE_THRESHOLD:
-        return
-    banks: dict = {}
-    for node in nodes.values():
-        if (isinstance(node, AudioBufferSourceNode) and node.buffer is not None
-                and not node.loop
-                and node.playback_rate.is_constant_schedule()
-                and node.detune.is_constant_schedule()):
-            banks[id(node.buffer)] = banks.get(id(node.buffer), 0) + 1
-    if any(count >= _FUSE_THRESHOLD for count in banks.values()):
-        raise NotSupportedError(
-            "a bank of >= 32 same-buffer sources needs source fusion, which "
-            "webaudio_tpu_torch does not port yet")
-
-
 def compile_graph(nodes: dict, edges: list[Edge], sample_rate: float,
                   total_frames: int, dest_id: int, device,
                   start_frame: int = 0) -> CompiledGraph:
     """Plan a graph snapshot: block size, node order, param rows, kernels."""
+    from . import fusion as _fusion
+
     device = torch.device(device)
-    _check_no_fusion(nodes)
+    # rewrite homogeneous source chains into fused banks before anything
+    # looks at the topology (see graph/fusion.py)
+    nodes, edges, param_alias = _fusion.fuse_sources(
+        nodes, edges, dest_id, sample_rate=sample_rate)
     ordered = order_graph(list(nodes.keys()), list(edges), set())
     if ordered.has_cycle:
         raise NotSupportedError(
@@ -341,6 +324,24 @@ def compile_graph(nodes: dict, edges: list[Edge], sample_rate: float,
             return ins
 
         def gather_params(nid, node):
+            vp = getattr(kernels[nid], "vector_params", None)
+            if vp is not None:
+                # fused kernels consume whole packed-row groups: one slice
+                # (N, rows, B) per group (a fused node registers its
+                # aliases grouped by param kind, so group rows are
+                # contiguous)
+                out = {}
+                for gname, aliases in vp().items():
+                    rows = [dense_index[(nid, a)] for a in aliases
+                            if (nid, a) in dense_index]
+                    if not rows:
+                        out[gname] = None
+                        continue
+                    r0 = rows[0]
+                    if rows != list(range(r0, r0 + len(rows))):
+                        raise AssertionError("fused param rows not contiguous")
+                    out[gname] = xs_params[:, r0:r0 + len(rows), :]
+                return out
             out = {}
             for pname, p in node.params.items():
                 if (nid, pname) in constants:
@@ -401,7 +402,7 @@ def compile_graph(nodes: dict, edges: list[Edge], sample_rate: float,
         param_plan=param_plan, block_frames=block_frames,
         total_frames=total_frames, device=device, sample_rate=sample_rate,
         in_counts=in_counts, out_counts=out_counts, failed=failed,
-        dense_params=dense_params)
+        dense_params=dense_params, param_alias=param_alias)
 
 
 def collect_resources(cg: CompiledGraph) -> dict:

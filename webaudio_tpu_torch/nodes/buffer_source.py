@@ -12,7 +12,10 @@ closed-form tensor math for a constant compound rate
 - the sample fetch is one contiguous slice from a pre-tiled copy of the
   buffer when the playhead advances by exactly one buffer sample per frame
   from an integral position (the reference's fast track), and a pair-row
-  gather + linear interpolation otherwise.
+  gather + linear interpolation otherwise;
+- WEBAUDIO_GRAIN_READ=grouped*|window reads through the grouped two-tap
+  lerp kernel instead (`ops/grain_read.py::grouped_lerp`), and =gather
+  forces the pair gathers, as in the JAX package.
 
 Ported from `webaudio_tpu/nodes/buffer_source.py`.  The playhead is
 shared by every instance of a batched render; the buffer layouts are
@@ -26,6 +29,7 @@ masked-cumsum playhead, which is not ported yet and raises
 from __future__ import annotations
 
 import math
+import os
 
 import numpy as np
 import torch
@@ -34,6 +38,7 @@ from ..buffer import AudioBuffer
 from ..constants import InvalidStateError, NotSupportedError
 from ..graph.compiler import Kernel
 from ..ops.bufread import edge_vals, gather_pairs, pair_rows
+from ..ops.grain_read import EDGE_FRAC, grouped_lerp, pick_group, pick_window
 from ..param import AudioParamDescriptor, AutomationRate
 from .scheduled_source import AudioScheduledSourceNode
 
@@ -106,11 +111,23 @@ class _BufferSourceKernel(Kernel):
         position, every lerp weight is 0 and the read is contiguous modulo
         the loop wrap, so the block is one slice of a pre-tiled copy of the
         buffer.  It is taken for no loop or a whole-buffer loop; partial
-        loops and every other rate keep the pair gathers."""
+        loops and every other rate keep the pair gathers.
+
+        Under `auto` a single source keeps the gathers (its playhead is
+        near-sequential); WEBAUDIO_GRAIN_READ=grouped*|window take the
+        grouped two-tap lerp at the JAX package's geometry, for no loop or
+        a whole-buffer loop (whose integral loop length makes the wrap a
+        mod of the group start)."""
         self.read_mode = "gather"
+        self.win_Qs = self.win_W = 0
         whole_loop = (self.loop and self.loop_start <= 0.0
                       and self.loop_end >= self.buf_duration - 1e-9)
-        if not self.has_buffer or (self.loop and not whole_loop):
+        mode = os.environ.get("WEBAUDIO_GRAIN_READ", "auto")
+        if mode == "gather" or not self.has_buffer or \
+                (self.loop and not whole_loop):
+            return
+        if mode not in ("auto", "aligned"):
+            self._pick_window(mode, rc)
             return
         fs = rc.sample_rate
         step = self.const_rate * self.buf_rate / fs
@@ -128,6 +145,19 @@ class _BufferSourceKernel(Kernel):
             self.aligned_off = int(offset_pos)
             self.aligned_pad = rc.block_frames
 
+    def _pick_window(self, mode, rc):
+        rmax = abs(self.const_rate) * self.buf_rate / rc.sample_rate
+        C = self.data_host.shape[0]
+        if mode in ("grouped", "grouped_t", "grouped_pl", "grouped_v"):
+            g, w = pick_group(rmax, C, self.buf_len, rc.block_frames)
+            if g and not (mode == "grouped_pl" and C > 2):
+                self.win_Qs, self.win_W = g, w
+                self.read_mode = mode
+        elif mode == "window":
+            self.win_Qs, self.win_W = pick_window(rmax, rc.block_frames)
+            if self.win_W:
+                self.read_mode = "window"
+
     def resources(self):
         if self.data_host is None:
             return None
@@ -144,6 +174,8 @@ class _BufferSourceKernel(Kernel):
         GraphBatch.override_buffer for per-instance audio)."""
         if self.read_mode == "aligned":
             return {"data_tiled": self._tiled_data()}
+        if self.win_W:
+            return {"data_ext": self._window_data()}
         return {}
 
     def _tiled_data(self):
@@ -161,6 +193,25 @@ class _BufferSourceKernel(Kernel):
         out = np.zeros((C, P + L + P), np.float32)
         out[:, P:P + L] = self.data_host
         return out
+
+    def _window_data(self):
+        """(C, L + W + 2) layout of the grouped read: whole-buffer loops
+        copy the loop continuation past column L (reads cross the seam
+        linearly); non-looping sources put the linear-extrapolation 'next
+        tap' constant at column L (reached only when the playhead sits on
+        sample L - 1)."""
+        C, L = self.data_host.shape
+        W = self.win_W
+        ext = np.zeros((C, L + W + 2), np.float32)
+        ext[:, :L] = self.data_host
+        if self.loop:
+            n = min(W + 2, L)
+            ext[:, L:L + n] = self.data_host[:, :n]
+            for q in range(L + n, L + W + 2):   # a buffer shorter than W + 2
+                ext[:, q] = self.data_host[:, (q - L) % L]
+        else:
+            ext[:, L] = edge_vals(self.data_host, False, 0)
+        return ext
 
     def init_state(self):
         f64 = dict(dtype=torch.float64, device=self.device)
@@ -232,6 +283,8 @@ class _BufferSourceKernel(Kernel):
         valid = active & (pos_eff >= 0.0) & (pos_eff < L)
         if self.read_mode == "aligned":
             out = self._fetch_aligned(scope, valid)
+        elif self.win_W:
+            out = self._fetch_windowed(scope, pos_eff, valid, pos)
         else:
             out = self._fetch(scope, pos_eff, valid)
         # keep the playhead state current for position() readback
@@ -275,6 +328,36 @@ class _BufferSourceKernel(Kernel):
             edge = torch.where((k >= 1.0 - 1e-6) | (prev_i == 0), 0.0, edge_c)
             b = torch.where(beyond, edge, b)
         out = a * (1.0 - k) + b * k                           # (R, C, B)
+        return torch.where(valid, out, 0.0).to(torch.float32)
+
+    def _fetch_windowed(self, scope, playhead, valid, unwrapped):
+        """Grouped two-tap lerp (`ops/grain_read.py::grouped_lerp`; K3's
+        contract, K4's in 'window' mode).  A whole-buffer loop reads by the
+        UNWRAPPED (monotone) playhead: the group start wraps mod L and the
+        layout carries the loop continuation past the seam.  Loop-wrap
+        positions can differ from the gather path's wrapped f64 values by
+        ~m*eps sample units, so the output may move by ~1 ulp."""
+        L = self.buf_len
+        if self.loop:  # a whole-buffer loop (guaranteed by _pick_read_mode)
+            base = unwrapped
+            fl = torch.floor(base)
+            u = torch.clamp(fl, -2.0**30, 2.0**30).to(torch.int32)
+            wrap_len = L
+        else:
+            base = playhead
+            fl = torch.floor(base)
+            u = torch.clamp(fl, 0.0, float(L - 1)).to(torch.int32)
+            wrap_len = 0
+        k = (base - fl).to(torch.float32)
+        res = scope.node_resources
+        out = grouped_lerp(res["data_ext"], u[None, None], k[None, None],
+                           self.win_Qs, self.win_W, wrap_len)[:, :, 0]
+        if not self.loop:
+            # the gather path's end-of-buffer cases: column L holds the
+            # linear extrapolation constant; take it back out when k ~= 1
+            # or the buffer has a single sample
+            cond = (u + 1 >= L) & ((k >= EDGE_FRAC) | (u == 0))
+            out = out - res["edge_vals"][..., None] * torch.where(cond, k, 0.0)
         return torch.where(valid, out, 0.0).to(torch.float32)
 
     def _fetch_aligned(self, scope, valid):

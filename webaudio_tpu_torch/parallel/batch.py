@@ -146,18 +146,15 @@ class GraphBatch:
             arr = np.concatenate(
                 [arr, np.repeat(arr[:, -1:], padded - arr.shape[1], 1)], axis=1)
         key = (node.node_id, param_name)
+        key = self.cg.param_alias.get(key, key)  # fused chains remap rows
         kern = self.cg.kernels.get(key[0])
-        # a fused grain bank (`webaudio_tpu/graph/fusion.py`) compiles its
-        # voices' envelopes into forms whose per-voice dense rows are
-        # never read
-        for attr, how in (("lane_env", "the grain bank's per-lane spliced "
-                           "rows"),
-                          ("compact_env", "the grain bank's compact analytic "
-                           "form")):
-            if getattr(kern, attr, None) and str(param_name).endswith(".gain"):
-                raise ValueError(
-                    f"this envelope compiled into {how} (its per-voice dense "
-                    "row is not read), so it cannot be batch-overridden")
+        if getattr(kern, "lane_env", False) and str(key[1]).endswith(".gain"):
+            # a lane-packed grain bank (graph/fusion.py) splices its voices'
+            # envelopes into per-lane rows: no per-voice row exists
+            raise ValueError(
+                "this envelope compiled into the grain bank's per-lane "
+                "spliced rows (its per-voice dense row does not exist), so "
+                "it cannot be batch-overridden")
         if key not in self.cg.dense_params:
             raise ValueError(
                 "param was compiled as a constant; schedule at least one "
