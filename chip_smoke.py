@@ -1,6 +1,6 @@
 """GPU smoke check of the PyTorch port (webaudio_tpu_torch) on one card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--old SOURCE]
 
 Builds the port's CUDA kernels from the sources in this checkout and
 drives its main path on `device="cuda"`:
@@ -80,7 +80,13 @@ grains of 90 ms with linear attack/release envelopes at rates 0.9-1.1):
      1, 2 and 3 channels, with and without a whole-buffer wrap; the grain
      bank kernel (K2) bit for bit on the 400-grain case's own inputs
      (captured from its render) and on synthetic lanes whose grains cross
-     both buffer ends; a non-contiguous input or a wrong dtype raises;
+     both buffer ends; then the shapes the kernels' indexing must get
+     right: the grouped lerp at groups of 1, 2, 3, 8, 12, 16 and 128, rows
+     whose length is not a multiple of 4, per-instance playheads and
+     pointers one float off a 16-byte boundary, the grain bank at 1, 3
+     and 3,446 quanta times 1, 9 and 33 lanes with mixed instance axes
+     and offset gain and out; a non-contiguous input or a wrong dtype
+     raises;
   l. the 400-grain case through start_rendering_sync on the card: one
      block of 441,088 frames, read mode "fused" (K2, counted), against the
      port's CPU render (3e-5 absolute, error energy <= 1e-9 of the
@@ -92,9 +98,18 @@ grains of 90 ms with linear attack/release envelopes at rates 0.9-1.1):
      end to end (CUDA events, one warm-up, median of 5), the block loop on
      a compiled plan, host planning (fusion with the lane plan, the lane
      plan alone, the per-lane envelope splicing, compile_graph), the
-     device-busy share (torch.profiler), and K2 and K3 at the path's
-     shapes against their plain versions and their bound (CUDA-graph
-     replay);
+     device-busy share (torch.profiler), and K2 and K3 (both grain
+     counts) and K3 at the `window` geometry of the 400-grain case (K4's
+     row) at the path's inputs against their plain versions and their
+     bound (CUDA-graph replay), with the L2 warm (the same inputs every
+     call) and cold (each call on its own copy of the inputs, rotating
+     through more than 150 MB), in GB/s, the cold time also as share of
+     the bound.  With --old SOURCE (an earlier revision of
+     csrc/grain_read.cu, with the same C entry points) that source and
+     this one are also built with `-Xptxas -v` (registers, shared memory
+     and spills are printed), the old kernels are checked bit-equal to the
+     plain versions on the same inputs and timed in turns with the new:
+     plain, old, new, new, old, plain, twice;
   n. a MixedGraphBatch of 64 granular contexts (2 s, 80 grains: the
      400-grain case's density) that differ only in each grain's buffer
      offset: one bucket, every output within 1e-6 x peak of its own
@@ -103,16 +118,19 @@ grains of 90 ms with linear attack/release envelopes at rates 0.9-1.1):
 Prints the measurements, a {"kernels": [...]} line (each kernel's launches
 on its path, error against its plain version, device time, the plain
 version's, the least time the card could take (`bound_ms`: the larger of
-the bytes it must move at 3.35 TB/s and its f32 operations at 67 TFLOP/s)
-and one PyTorch call's time where one computes the same function) and the
-card's name and power limit, then as its last line {"ok": true, "device":
+the bytes it must move at 3.35 TB/s and its f32 operations at 67 TFLOP/s),
+its share of that bound (for the grain kernels, of their cold-L2 time: the
+bound reads every input from HBM) and one PyTorch call's time where one
+computes the same function) and the card's name and power limit, then as its last line {"ok": true, "device":
 {...}}.  Exits non-zero, printing no result, if CUDA is unavailable or any
 phase fails.  Imports nothing of JAX.
 """
 
 from __future__ import annotations
 
+import argparse
 import contextlib
+import ctypes
 import json
 import math
 import os
@@ -922,6 +940,115 @@ def _equal(name, got, want):
     return err
 
 
+def _offset(t, offset):
+    """A contiguous copy of t starting `offset` elements past a 16-byte
+    boundary (offset 0: an aligned copy)."""
+    flat = torch.empty(t.numel() + offset, dtype=t.dtype, device=t.device)
+    view = flat[offset:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+# (g, w, B): groups of 1 and 3 on rows whose length is not a multiple of 4,
+# 2, 8, 16 and 128 (group ends by warp shuffle), 12 (a multiple of 4 that
+# does not divide 128)
+LERP_EDGE = [(1, 4, 1001), (1, 4, 1024), (2, 5, 1026), (3, 7, 999),
+             (8, 12, 4736), (12, 16, 4740), (16, 21, 4736), (128, 192, 4736)]
+
+
+def _lerp_edge_cases(gr, rng):
+    """grouped_lerp bit for bit at LERP_EDGE, 1-3 channels, with and
+    without a wrap, per-instance playheads, and pi, fr and out aligned
+    and one float off a 16-byte boundary (the scalar path)."""
+    L, R = 5000, 3
+    worst, n = 0.0, 0
+    for g, w, B in LERP_EDGE:
+        base = rng.integers(0, L - w, size=(2, R, B // g))
+        step = rng.random((2, R, B // g)) * ((w - 3) / g)
+        pif = base[..., None] + np.arange(g) * step[..., None]
+        pi = np.floor(pif).astype(np.int32).reshape(2, R, B)
+        fr = torch.from_numpy((pif - np.floor(pif)).astype(np.float32)
+                              .reshape(2, R, B)).cuda()
+        for C in (1, 2, 3):
+            ext = torch.from_numpy(rng.standard_normal(
+                (1, C, L + w + 2)).astype(np.float32)).cuda()
+            for wrap in (0, L):
+                p = torch.from_numpy(pi + (3 * L if wrap else 0)).cuda()
+                for offset in (0, 1):
+                    po, fo = _offset(p, offset), _offset(fr, offset)
+                    got = gr.grouped_lerp(ext, po, fo, g, w, wrap)
+                    want = gr.grouped_lerp_reference(ext, po, fo, g, w, wrap)
+                    # and through the launcher into an output as offset
+                    out = _offset(torch.full_like(want, float("nan")), offset)
+                    gr._launch_lerp(gr._launchers()["grouped_lerp"], out,
+                                    ext, po, fo, g, w, wrap)
+                    torch.cuda.synchronize()
+                    worst = max(worst, float((got - want).abs().max()))
+                    n += 1
+                    if not (torch.equal(got, want)
+                            and torch.equal(out, want)):
+                        raise AssertionError(
+                            f"k. grouped_lerp differs at g {g}, B {B}, C {C}, "
+                            f"wrap {wrap}, offset {offset}")
+    print(f"k. grouped_lerp at {n} edge shapes (g in "
+          f"{sorted({c[0] for c in LERP_EDGE})}, B in "
+          f"{sorted({c[2] for c in LERP_EDGE})}, C 1-3, wrap, offset pointers)"
+          f": bit-equal True max_abs_err {worst:.3e}", flush=True)
+    return worst
+
+
+def _bank_edge_cases(gr, rng):
+    """grain_bank bit for bit at nq in {1, 3, 3446} x K in {1, 9, 33} (33:
+    more lanes than a warp), with mixed instance axes and gain and out
+    aligned and one float off a 16-byte boundary."""
+    I, C, L, frame0 = 2, 2, 3000, 128 * 5
+    data = np.sin(np.arange(L) * 0.05)[None].repeat(C, 0)
+    axes_cycle = [(False, True, True), (True, False, False),
+                  (True, True, True)]
+    worst, n = 0.0, 0
+    for a_i, (nq, K) in enumerate([(x, k) for x in (1, 3, 3446)
+                                   for k in (1, 9, 33)]):
+        ext_i, fld_i, gain_i = axes_cycle[a_i % 3]
+        nf, B = (I if fld_i else 1), nq * 128
+        sv = frame0 + 128 * np.arange(nq) + rng.integers(-200, 128,
+                                                         (nf, K, nq))
+        ok = (rng.random((nf, K, nq)) > 0.15).astype(np.int32)
+        ev = sv + rng.integers(0, 600, (nf, K, nq))
+        ok[:, 0] = 1                             # lane 0 sounds throughout
+        sv[:, 0], ev[:, 0] = frame0 - 200, frame0 + B
+        base = rng.integers(-150, L + 20, (nf, K, nq))
+        base[..., ::4] = L - 60
+        base[..., 1::7] = -40
+        ext = np.zeros((I if ext_i else 1, C, L + 41), np.float32)
+        ext[:, :, :L] = data * np.float32([1.0, -0.5])[:ext.shape[0], None,
+                                                         None]
+        ext[:, :, L] = 2.0 * ext[:, :, L - 1] - ext[:, :, L - 2]
+        args = [torch.from_numpy(np.ascontiguousarray(a)).cuda() for a in (
+            ext, ext[:, :, L], ok, sv.astype(np.int32), ev.astype(np.int32),
+            base.astype(np.int32), rng.random((nf, K, nq)).astype(np.float32),
+            rng.uniform(0.9, 1.37, (nf, K, nq)).astype(np.float32))]
+        gain = torch.from_numpy(rng.uniform(-0.2, 1.3, (
+            I if gain_i else 1, K, B)).astype(np.float32)).cuda()
+        for offset in (0, 1):
+            full = args + [_offset(gain, offset), frame0, L, 0.0, 1.0]
+            got = gr.grain_bank(*full)
+            want = gr.grain_bank_reference(*full)
+            # and through the launcher into an output as offset as gain
+            out = _offset(torch.full_like(want, float("nan")), offset)
+            gr._launch_bank(gr._launchers()["grain_bank"], out, *full)
+            torch.cuda.synchronize()
+            worst = max(worst, float((got - want).abs().max()))
+            n += 1
+            if not (torch.equal(got, want) and torch.equal(out, want)) \
+                    or float(want.abs().max()) <= 0.1:
+                raise AssertionError(f"k. grain_bank differs (or is silent) "
+                                     f"at nq {nq}, K {K}, offset {offset}")
+    print(f"k. grain_bank at {n} edge shapes (nq 1, 3, 3446 x K 1, 9, 33, "
+          f"mixed instance axes, offset gain and out): bit-equal True "
+          f"max_abs_err {worst:.3e}", flush=True)
+    return worst
+
+
 def phase_k(wt, gr, fusion, KernelError):
     rng = np.random.default_rng(SEED + 4)
     L, R, B = 2 * 44100, 5, GRAIN_BLOCK
@@ -976,6 +1103,10 @@ def phase_k(wt, gr, fusion, KernelError):
     worst["grain_bank"] = max(worst["grain_bank"], _equal(
         "k. grain_bank on synthetic lanes crossing both buffer ends",
         gr.grain_bank(*synth), gr.grain_bank_reference(*synth)))
+
+    worst["grouped_lerp"] = max(worst["grouped_lerp"],
+                                _lerp_edge_cases(gr, rng))
+    worst["grain_bank"] = max(worst["grain_bank"], _bank_edge_cases(gr, rng))
 
     ext2 = torch.zeros((1, 2, 100), device="cuda")
     p2 = torch.zeros((1, 2, 64), dtype=torch.int32, device="cuda")
@@ -1046,21 +1177,11 @@ def phase_l(wt, gr, compiler, fusion, n, phase="l"):
         if kern.read_mode != mode or (mode != "gather") != (moved > 0):
             raise AssertionError(f"{mode}: not read through its route")
         lerp += moved
+        if mode == "window":
+            launches["window"] = moved
         _check_render(f"{label}, {mode} vs fused", forced, out)
     launches["grouped_lerp"] = lerp
     return {"n": n, "launches": launches}
-
-
-def _kernel_vs_plain(kern, plain, reps):
-    """Device ms per call of the kernel and of its plain version, from
-    CUDA-graph replay, in turns: plain, kernel, kernel, plain, twice."""
-    k_dev, p_dev = [], []
-    for _ in range(2):
-        p_dev.append(_graph_ms(plain, 5))
-        k_dev.append(_graph_ms(kern, reps))
-        k_dev.append(_graph_ms(kern, reps))
-        p_dev.append(_graph_ms(plain, 5))
-    return statistics.median(k_dev), statistics.median(p_dev)
 
 
 def _nbytes(*tensors):
@@ -1068,8 +1189,8 @@ def _nbytes(*tensors):
                if isinstance(t, torch.Tensor))
 
 
-def phase_m(wt, gr, compiler, fusion, cases):
-    out = {"grain_bank": {}, "grouped_lerp": {}}
+def phase_m(wt, gr, compiler, fusion, cases, old=None):
+    out = {"grain_bank": {}, "grouped_lerp": {}, "window": {}}
     for case in cases:
         n = case["n"]
         label = f"m. {n} grains"
@@ -1154,60 +1275,133 @@ def phase_m(wt, gr, compiler, fusion, cases):
             with _recording(fusion, "grain_bank") as calls:
                 granular_context(wt, "cuda", n).start_rendering_sync()
         a = calls[-1]
-        k_ms, p_ms = _kernel_vs_plain(lambda: gr.grain_bank(*a),
-                                      lambda: gr.grain_bank_reference(*a), 20)
         _, K, nq = a[2].shape
         B, C = nq * 128, a[0].shape[1]
-        b = _bound(_nbytes(*a) + C * B * 4, (14 + 8 * C) * K * B)
-        print(f"{label}: grain_bank (K2) at K {K}, B {B}, C {C}: device time "
-              f"kernel {k_ms * 1000:.2f} us, plain {p_ms * 1000:.2f} us, "
-              f"bound {b[0] * 1000:.2f} us ({b[1]}; "
-              f"{(_nbytes(*a) + C * B * 4) / 1e6:.2f} MB)", flush=True)
         key = "" if n == 400 else "_800"
-        out["grain_bank"].update({f"ms{key}": k_ms, f"plain_ms{key}": p_ms,
-                                  f"bound_ms{key}": b[0],
-                                  f"bound_by{key}": b[1]})
+        out["grain_bank"].update({f"{k}{key}": v for k, v in _kernel_times(
+            f"{label}: grain_bank (K2) at K {K}, B {B}, C {C}",
+            gr._launch_bank, gr._launchers()["grain_bank"],
+            gr.grain_bank_reference, a, _nbytes(*a) + C * B * 4,
+            (14 + 8 * C) * K * B, old and old["grain_bank"]).items()})
 
-        with _grain_read("grouped_v"), \
-                _recording(fusion, "grouped_lerp") as calls:
-            granular_context(wt, "cuda", n).start_rendering_sync()
-        a = calls[-1]
-        ext, pi, fr, g, w = a[:5]
-        k_ms, p_ms = _kernel_vs_plain(lambda: gr.grouped_lerp(*a),
-                                      lambda: gr.grouped_lerp_reference(*a),
-                                      20)
-        _, R, B = pi.shape
-        C, Lx = ext.shape[1], ext.shape[2]
-        b = _bound(_nbytes(ext, pi, fr) + C * R * B * 4, (8 + 3 * C) * R * B)
-        # yardstick: grid_sample's linear mode with align_corners=True at
-        # the positions pi + fr (the group's row clip never binds on the
-        # path, so the contract is the lerp at pi + fr); the positions
-        # reach it as f32 coordinates, so it is not bit-equal
-        pos = pi.double() + fr.double()
-        grid = torch.stack([pos / (Lx - 1) * 2.0 - 1.0,
-                            torch.zeros_like(pos)], -1).float() \
-            .reshape(1, 1, R * B, 2)
-        img = ext.reshape(1, C, 1, Lx)
-
-        def library():
-            return torch.nn.functional.grid_sample(
-                img, grid, mode="bilinear", padding_mode="border",
-                align_corners=True)
-
-        lib_err = float((library().reshape(1, C, R, B)
-                         - gr.grouped_lerp(*a)).abs().max())
-        lib_ms = statistics.median(_graph_ms(library, 20) for _ in range(3))
-        print(f"{label}: grouped_lerp (K3) at (g, w) = ({g}, {w}), {R} x {B}, "
-              f"C {C}: device time kernel {k_ms * 1000:.2f} us, plain "
-              f"{p_ms * 1000:.2f} us, bound {b[0] * 1000:.2f} us ({b[1]}); "
-              f"grid_sample {lib_ms * 1000:.2f} us, max |grid_sample - "
-              f"kernel| {lib_err:.3e}", flush=True)
-        if n == 400:
-            out["grouped_lerp"].update({
-                "ms": k_ms, "plain_ms": p_ms, "bound_ms": b[0],
-                "bound_by": b[1], "library_ms": lib_ms,
-                "library_err": lib_err})
+        for mode, name in (("grouped_v", "grouped_lerp"),
+                           ("window", "window")):
+            if mode == "window" and n != 400:
+                continue
+            with _grain_read(mode), \
+                    _recording(fusion, "grouped_lerp") as calls:
+                granular_context(wt, "cuda", n).start_rendering_sync()
+            a = calls[-1]
+            ext, pi, fr, g, w = a[:5]
+            _, R, B = pi.shape
+            C = ext.shape[1]
+            res = _kernel_times(
+                f"{label}: grouped_lerp ({'K4, ' if mode == 'window' else ''}"
+                f"{mode}) at (g, w) = ({g}, {w}), {R} x {B}, C {C}",
+                gr._launch_lerp, gr._launchers()["grouped_lerp"],
+                gr.grouped_lerp_reference, a,
+                _nbytes(ext, pi, fr) + C * R * B * 4, (8 + 3 * C) * R * B,
+                old and old["grouped_lerp"])
+            res["library_ms"], res["library_err"] = _grid_sample(gr, a)
+            print(f"{label}: grid_sample at the {mode} inputs "
+                  f"{res['library_ms'] * 1000:.2f} us, max |grid_sample - "
+                  f"kernel| {res['library_err']:.3e}", flush=True)
+            out[name].update({f"{k}{key}": v for k, v in res.items()})
     return out
+
+
+def _kernel_times(label, launch, entry, plain, a, nbytes, ops, old=None):
+    """A grain kernel at the path's inputs `a`: `launch(entry, out, *a)`
+    runs the C entry point `entry` (and `old`'s, an earlier build of the
+    same source, where given) into `out`.  Both are first checked bit-equal
+    to the plain version.  Device ms per call from CUDA-graph replay with
+    the L2 warm (the same inputs and output every call) and cold (each call
+    on its own copy of them, rotating through more than 150 MB; the H100's
+    L2 holds 50 MB), in turns: plain, [old,] new, new, [old,] plain, twice.
+    The share of the bound is the cold time's: the bound reads every input
+    from HBM, the warm calls from L2.  Printed, and returned with GB/s."""
+    want = plain(*a)
+    entries = {"new": entry} if old is None else {"old": old, "new": entry}
+    for name, e in entries.items():
+        got = launch(e, torch.full_like(want, float("nan")), *a)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"{label}: the {name} kernel differs from "
+                                 "its plain version")
+    count = max(2, math.ceil(150e6 / nbytes))
+    sets = [[x.clone() if isinstance(x, torch.Tensor) else x for x in a]
+            for _ in range(count)]
+    outs = [torch.empty_like(want) for _ in range(count)]
+
+    def warm(e):
+        return lambda: launch(e, outs[0], *a)
+
+    def cold(e):
+        turn = [0]
+
+        def call():
+            k = turn[0] % count
+            turn[0] += 1
+            return launch(e, outs[k], *sets[k])
+        return call
+
+    order = list(entries) + list(entries)[::-1]
+    runs = {(x, t): [] for x in entries for t in ("warm", "cold")}
+    p_runs = []
+    for _ in range(2):
+        p_runs.append(_graph_ms(lambda: plain(*a), 5))
+        for x in order:
+            runs[x, "warm"].append(_graph_ms(warm(entries[x]), 20))
+        for x in order:
+            runs[x, "cold"].append(_graph_ms(cold(entries[x]), count))
+        p_runs.append(_graph_ms(lambda: plain(*a), 5))
+    med = {k: statistics.median(v) for k, v in runs.items()}
+    b_ms, b_by = _bound(nbytes, ops)
+    p_ms = statistics.median(p_runs)
+    res = {}
+    for x in entries:
+        warm_ms, cold_ms = med[x, "warm"], med[x, "cold"]
+        pre = "" if x == "new" else "old_"
+        res.update({f"{pre}ms": warm_ms, f"{pre}cold_ms": cold_ms,
+                    f"{pre}share_of_bound": b_ms / cold_ms,
+                    f"{pre}gb_per_s": nbytes / warm_ms / 1e6,
+                    f"{pre}cold_gb_per_s": nbytes / cold_ms / 1e6})
+        print(f"{label}{' [old kernel]' if pre else ''}: device time warm L2 "
+              f"{warm_ms * 1000:.2f} us ({nbytes / warm_ms / 1e6:.1f} GB/s; "
+              f"runs {[round(t * 1000, 2) for t in runs[x, 'warm']]}), cold "
+              f"L2 {cold_ms * 1000:.2f} us ({100 * b_ms / cold_ms:.1f}% of "
+              f"the bound, {nbytes / cold_ms / 1e6:.1f} GB/s; runs "
+              f"{[round(t * 1000, 2) for t in runs[x, 'cold']]}, {count} "
+              f"input copies)", flush=True)
+    res.update({"plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by})
+    print(f"{label}: plain {p_ms * 1000:.2f} us, bound {b_ms * 1000:.2f} us "
+          f"({b_by}; {nbytes / 1e6:.2f} MB)", flush=True)
+    return res
+
+
+def _grid_sample(gr, a):
+    """Yardstick for the grouped lerp: grid_sample's linear mode with
+    align_corners=True at the positions pi + fr (the group's row clip
+    never binds on the path, so the contract is the lerp at pi + fr).  The
+    positions reach it as f32 coordinates, so it is not bit-equal.
+    Returns (device ms, max |grid_sample - kernel|)."""
+    ext, pi, fr = a[:3]
+    _, R, B = pi.shape
+    C, Lx = ext.shape[1], ext.shape[2]
+    pos = pi.double() + fr.double()
+    grid = torch.stack([pos / (Lx - 1) * 2.0 - 1.0,
+                        torch.zeros_like(pos)], -1).float() \
+        .reshape(1, 1, R * B, 2)
+    img = ext.reshape(1, C, 1, Lx)
+
+    def library():
+        return torch.nn.functional.grid_sample(
+            img, grid, mode="bilinear", padding_mode="border",
+            align_corners=True)
+
+    err = float((library().reshape(1, C, R, B) - gr.grouped_lerp(*a))
+                .abs().max())
+    return statistics.median(_graph_ms(library, 20) for _ in range(3)), err
 
 
 def phase_n(wt, gr):
@@ -1246,7 +1440,27 @@ def phase_n(wt, gr):
           f"{worst:.3e} x peak (limit 1e-6) -> ok", flush=True)
 
 
+def _ptxas_build(cuda_lib, name, source):
+    """nvcc `source` with the port's flags and `-Xptxas -v` into the
+    git-ignored build directory; returns the loaded library and ptxas's
+    lines (each kernel's registers, shared memory and spills)."""
+    cuda_lib.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    so = cuda_lib.BUILD_DIR / f"report-{name}.so"
+    proc = subprocess.run([cuda_lib._nvcc(), *cuda_lib.NVCC_FLAGS, "-Xptxas",
+                           "-v", "-o", str(so), str(source)],
+                          capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed on {source}:\n{proc.stderr[-4000:]}")
+    return ctypes.CDLL(str(so)), [
+        ln.strip() for ln in proc.stderr.splitlines()
+        if "Compiling entry" in ln or "Used" in ln or "spill" in ln]
+
+
 def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--old", metavar="SOURCE",
+                    help="an earlier grain_read.cu to time against this one")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; nothing was run",
               file=sys.stderr)
@@ -1265,8 +1479,21 @@ def main() -> int:
           f"device {torch.cuda.get_device_name(0)}", flush=True)
     t0 = time.perf_counter()
     sources = sorted(p.name for p in cuda_lib.CSRC_DIR.glob("*.cu"))
-    with ThreadPoolExecutor(len(sources)) as pool:   # one nvcc per source,
-        list(pool.map(cuda_lib.load_library, sources))   # all at once
+    reports = [] if args.old is None else [
+        ("old", args.old), ("new", cuda_lib.CSRC_DIR / "grain_read.cu")]
+    with ThreadPoolExecutor(len(sources) + len(reports)) as pool:
+        built = [pool.submit(cuda_lib.load_library, x) for x in sources]
+        reported = [pool.submit(_ptxas_build, cuda_lib, *r) for r in reports]
+        for f in built:                 # one nvcc per source, all at once
+            f.result()
+        reported = [f.result() for f in reported]
+    old = None
+    for (name, source), (lib, lines) in zip(reports, reported):
+        print(f"build ({name}: {source}, -Xptxas -v):", flush=True)
+        for ln in lines:
+            print(f"  {ln}", flush=True)
+        if name == "old":
+            old = gr._bind(lib)
     ck._launcher()
     dither._launchers()
     gr._launchers()
@@ -1295,7 +1522,7 @@ def main() -> int:
     grain_err = phase_k(wt, gr, fusion, wt.KernelError)
     l400 = phase_l(wt, gr, compiler, fusion, 400)
     l800 = phase_l(wt, gr, compiler, fusion, 800, phase="m")
-    grain_times = phase_m(wt, gr, compiler, fusion, (l400, l800))
+    grain_times = phase_m(wt, gr, compiler, fusion, (l400, l800), old)
     phase_n(wt, gr)
 
     n_q = QUANT_SHAPE[0] * QUANT_SHAPE[1]
@@ -1303,8 +1530,18 @@ def main() -> int:
                       11 * KERNEL_SAMPLES)
     k5_bound = _bound(n_q * 6, 25 * n_q)
     k6_bound = _bound(n_q * 5, 50 * n_q)
-    k2, k3 = grain_times["grain_bank"], grain_times["grouped_lerp"]
-    print(json.dumps({"kernels": [
+    k2, k3, k4 = (grain_times[k] for k in ("grain_bank", "grouped_lerp",
+                                           "window"))
+
+    def grain(t, extra):
+        """A grain kernel's timing keys, the 800-grain ones (where timed)
+        ending in _800_grains."""
+        d = dict(extra)
+        d.update({k.replace("_800", "_800_grains"): v for k, v in t.items()
+                  if not k.startswith("library")})
+        return d
+
+    rows = [
         {"name": "curve_lookup", "route": "cuda",
          "source": "webaudio_tpu_torch/csrc/curve_lookup.cu",
          "replaces": "webaudio_tpu/ops/curve_kernel.py:164",
@@ -1335,24 +1572,28 @@ def main() -> int:
          "launches": l400["launches"]["grain_bank"],
          "launches_800_grains": l800["launches"]["grain_bank"],
          "max_abs_err": grain_err["grain_bank"],
-         "ms": k2["ms"], "plain_ms": k2["plain_ms"],
-         "bound_ms": k2["bound_ms"], "bound_by": k2["bound_by"],
-         "library_ms": None, "ms_800_grains": k2["ms_800"],
-         "plain_ms_800_grains": k2["plain_ms_800"],
-         "bound_ms_800_grains": k2["bound_ms_800"]},
+         **grain(k2, {"library_ms": None})},
         {"name": "grouped_lerp", "route": "cuda",
          "source": "webaudio_tpu_torch/csrc/grain_read.cu",
          "replaces": "webaudio_tpu/ops/grain_read.py:453",
-         "also_replaces": ["webaudio_tpu/ops/grain_read.py:62",
-                           "webaudio_tpu/ops/grain_read.py:297"],
+         "also_replaces": ["webaudio_tpu/ops/grain_read.py:297"],
          "launches": l400["launches"]["grouped_lerp"],
          "launches_800_grains": l800["launches"]["grouped_lerp"],
          "max_abs_err": grain_err["grouped_lerp"],
-         "ms": k3["ms"], "plain_ms": k3["plain_ms"],
-         "bound_ms": k3["bound_ms"], "bound_by": k3["bound_by"],
-         "library_ms": k3["library_ms"],
-         "library_max_abs_err": k3["library_err"]},
-    ]}), flush=True)
+         **grain(k3, {"library_ms": k3["library_ms"],
+                      "library_max_abs_err": k3["library_err"]})},
+        {"name": "grouped_lerp (window geometry)", "route": "cuda",
+         "source": "webaudio_tpu_torch/csrc/grain_read.cu",
+         "replaces": "webaudio_tpu/ops/grain_read.py:62",
+         "launches": l400["launches"]["window"],
+         "launches_800_grains": l800["launches"]["window"],
+         "max_abs_err": grain_err["grouped_lerp"],
+         **grain(k4, {"library_ms": k4["library_ms"],
+                      "library_max_abs_err": k4["library_err"]})},
+    ]
+    for row in rows:
+        row.setdefault("share_of_bound", row["bound_ms"] / row["ms"])
+    print(json.dumps({"kernels": rows}), flush=True)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, timeout=60)

@@ -267,6 +267,146 @@ def test_grain_bank_kernel_equals_plain_version(cuda, C, instances,
     assert torch.equal(got, gr.grain_bank_reference(*args))
 
 
+def _offset(t, offset):
+    """A contiguous copy of t that starts `offset` elements past a 16-byte
+    boundary."""
+    flat = torch.empty(t.numel() + offset, dtype=t.dtype, device=t.device)
+    view = flat[offset:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+# groups of 1 and 3 on rows whose length is not a multiple of 4, 2, 8, 16
+# and 128 (warp-shuffle group ends), 12 (a multiple of 4 that does not
+# divide 128: the scalar path)
+@pytest.mark.parametrize("g,w,B", [(1, 4, 1001), (1, 4, 1024), (2, 5, 1026),
+                                   (3, 7, 999), (8, 12, 4736),
+                                   (12, 16, 4740), (16, 21, 4736),
+                                   (128, 192, 4736)])
+@pytest.mark.parametrize("C", (1, 2, 3))
+@pytest.mark.parametrize("wrap", (False, True))
+def test_grouped_lerp_kernel_edge_shapes(cuda, g, w, B, C, wrap):
+    from webaudio_tpu_torch.ops import grain_read as gr
+
+    rng = np.random.default_rng(7 * g + B + C + wrap)
+    L, R = 5000, 3
+    pi, fr = _monotone_playheads(rng, R, B, g, w, L)
+    ext = torch.from_numpy(rng.standard_normal((1, C, L + w + 2)).astype(
+        np.float32)).to(cuda)
+    pis = torch.from_numpy(np.concatenate(
+        [pi, pi + 11]) + (7 * L if wrap else 0)).to(cuda)   # per instance
+    frs = torch.from_numpy(np.concatenate([fr, fr[:, ::-1].copy()])).to(cuda)
+    for p, f, offset in ((pis, frs, 0), (pis[:1], frs[:1], 1),
+                         (pis, frs, 3)):
+        p, f = _offset(p, offset), _offset(f, offset)
+        want = gr.grouped_lerp_reference(ext, p, f, g, w, L if wrap else 0)
+        before = gr.grouped_lerp.launches
+        got = gr.grouped_lerp(ext, p, f, g, w, L if wrap else 0)
+        torch.cuda.synchronize()
+        assert gr.grouped_lerp.launches == before + 1
+        assert torch.equal(got, want)
+        # the kernel's own launcher, into an output off a 16-byte boundary
+        out = _offset(torch.full_like(want, float("nan")), offset)
+        gr._launch_lerp(gr._launchers()["grouped_lerp"], out, ext, p, f, g,
+                        w, L if wrap else 0)
+        torch.cuda.synchronize()
+        assert torch.equal(out, want)
+
+
+# one and three quanta and the 400-grain block's 3,446; one lane, 9 lanes
+# (two load chunks) and 33 (more lanes than a warp has threads); which of
+# (ext, the lane fields, gain) carry the instance axis; gain and out one
+# float past a 16-byte boundary (the scalar path)
+@pytest.mark.parametrize("nq,K", [(1, 1), (3, 9), (3, 33), (40, 33),
+                                  (3446, 5), (3446, 9)])
+@pytest.mark.parametrize("axes", [(False, True, True), (True, False, False),
+                                  (True, True, True)])
+@pytest.mark.parametrize("offset", (0, 1))
+def test_grain_bank_kernel_edge_shapes(cuda, nq, K, axes, offset):
+    from webaudio_tpu_torch.ops import grain_read as gr
+
+    rng = np.random.default_rng(nq + K + offset + 10 * sum(axes))
+    I, C, L, frame0 = 2, 2, 3000, 128 * 5
+    B = nq * 128
+    ext_i, fld_i, gain_i = axes
+    nf = I if fld_i else 1
+    sv = frame0 + 128 * np.arange(nq) + rng.integers(-200, 128, (nf, K, nq))
+    base = rng.integers(-150, L + 20, (nf, K, nq))
+    base[..., ::4] = L - 60                  # grains crossing the end
+    base[..., 1::7] = -40                    # and the start
+    ok = (rng.random((nf, K, nq)) > 0.15).astype(np.int32)
+    ev = sv + rng.integers(0, 600, (nf, K, nq))
+    ok[:, 0] = 1                             # lane 0 sounds throughout
+    sv[:, 0], ev[:, 0] = frame0 - 200, frame0 + B
+    data = np.sin(np.arange(L) * 0.05)[None].repeat(C, 0)
+    ext = np.zeros((I if ext_i else 1, C, L + 41), np.float32)
+    ext[:, :, :L] = data * np.float32([1.0, -0.5])[:ext.shape[0], None, None]
+    ext[:, :, L] = 2.0 * ext[:, :, L - 1] - ext[:, :, L - 2]
+    args = [torch.from_numpy(np.ascontiguousarray(a)).to(cuda) for a in (
+        ext, ext[:, :, L], ok, sv.astype(np.int32), ev.astype(np.int32),
+        base.astype(np.int32),
+        rng.random((nf, K, nq)).astype(np.float32),
+        rng.uniform(0.9, 1.37, (nf, K, nq)).astype(np.float32))]
+    args.append(_offset(torch.from_numpy(rng.uniform(
+        -0.2, 1.3, (I if gain_i else 1, K, B)).astype(np.float32)).to(cuda),
+        offset))
+    args += [frame0, L, 0.0, 1.0]
+    before = gr.grain_bank.launches
+    got = gr.grain_bank(*args)
+    torch.cuda.synchronize()
+    assert gr.grain_bank.launches == before + 1
+    want = gr.grain_bank_reference(*args)
+    assert float(want.abs().max()) > 0.1
+    assert torch.equal(got, want)
+    # the kernel's own launcher, into an output `offset` floats off a
+    # 16-byte boundary
+    out = _offset(torch.full_like(want, float("nan")), offset)
+    gr._launch_bank(gr._launchers()["grain_bank"], out, *args)
+    torch.cuda.synchronize()
+    assert torch.equal(out, want)
+
+
+def test_grain_bank_kernel_keeps_signed_zeros_and_nans(cuda):
+    # bit for bit, also in the sign of zeros and where NaN lands: lanes
+    # whose playhead starts at -0.0 or stands still, envelopes of -0.0,
+    # NaN and +-inf, a NaN in the buffer
+    from webaudio_tpu_torch.ops import grain_read as gr
+
+    rng = np.random.default_rng(3)
+    K, nq, L, C = 6, 8, 2000, 2
+    B = nq * 128
+    ok = np.ones((1, K, nq), np.int32)
+    sv = np.full((1, K, nq), -10, np.int32)
+    ev = np.full((1, K, nq), B + 10, np.int32)
+    base = rng.integers(100, L - 400, (1, K, nq)).astype(np.int32)
+    base_f = rng.random((1, K, nq)).astype(np.float32)
+    base_f[:, 0] = -0.0
+    base_f[:, 1] = 0.0
+    rate = rng.uniform(0.5, 1.5, (1, K, nq)).astype(np.float32)
+    rate[:, 0, ::2] = -0.0
+    rate[:, 1] = 0.0
+    gain = rng.uniform(-0.2, 1.3, (1, K, B)).astype(np.float32)
+    gain[:, 2, ::7] = -0.0
+    gain[:, 3, ::11] = np.nan
+    gain[:, 4, ::13] = np.inf
+    gain[:, 4, 1::13] = -np.inf
+    data = np.sin(np.arange(L) * 0.05)[None].repeat(C, 0).astype(np.float32)
+    data[1, 700] = np.nan
+    ext = np.zeros((1, C, L + 41), np.float32)
+    ext[0, :, :L] = data
+    ext[0, :, L] = 2.0 * data[:, L - 1] - data[:, L - 2]
+    args = [torch.from_numpy(np.ascontiguousarray(a)).to(cuda) for a in (
+        ext, ext[:, :, L], ok, sv, ev, base, base_f, rate, gain)]
+    args += [0, L, 0.0, 1.0]
+    got = gr.grain_bank(*args)
+    want = gr.grain_bank_reference(*args)
+    torch.cuda.synchronize()
+    nan = torch.isnan(want)
+    assert bool(nan.any()) and torch.equal(torch.isnan(got), nan)
+    assert torch.equal(got.view(torch.int32)[~nan],
+                       want.view(torch.int32)[~nan])
+
+
 @pytest.mark.parametrize("bad", ["non-contiguous", "f64", "int64 pi",
                                  "pi on cpu", "bank: 3 channels"])
 def test_grain_kernels_refuse_what_they_do_not_take(cuda, bad):

@@ -154,6 +154,29 @@ def test_grouped_lerp_equals_the_contract(C, g, w, R, B, wrap):
                           _operand_bound(ext, pi, g, w, wrap))
 
 
+# the shapes the CUDA kernel's vector and scalar paths must get right:
+# groups of 1 and 3 on rows whose length is not a multiple of 4, 2, 8, 16
+# and 128 (the warp-shuffle group ends), 12 (a multiple of 4 that does
+# not divide 128), 1-3 channels, with and without a whole-buffer wrap
+EDGE_GROUPS = [(1, 4, 1001), (1, 4, 1024), (2, 5, 1026), (3, 7, 999),
+               (8, 12, 2048), (12, 16, 1020), (16, 21, 2048),
+               (128, 192, 2048)]
+
+
+@pytest.mark.parametrize("g,w,B", EDGE_GROUPS)
+@pytest.mark.parametrize("C", (1, 2, 3))
+@pytest.mark.parametrize("wrap", (0, L_TEST))
+def test_grouped_lerp_edge_shapes_match_grouped_row_lerp(g, w, B, C, wrap):
+    rng = np.random.default_rng(1000 + 7 * g + B + C + wrap)
+    ext = _ext(rng, C, L_TEST, w)
+    pi, fr = _playheads(rng, 2, B, g, w, wrap)
+    want = np.asarray(jgr.grouped_row_lerp(
+        jnp.asarray(jgr.stage_rows(ext, w)), jnp.asarray(pi),
+        jnp.asarray(fr), g, w, wrap))
+    _assert_within_an_ulp(_port_lerp(ext, pi, fr, g, w, wrap), want,
+                          _operand_bound(ext, pi, g, w, wrap))
+
+
 def test_grouped_lerp_instances():
     # (I, C, Lx) buffers with one shared (1, R, B) playhead, and a shared
     # buffer with per-instance playheads: each instance is its own call
@@ -173,13 +196,18 @@ def test_grouped_lerp_instances():
             per[i], _port_lerp(exts[0], pis[i], frs[i], g, w, 0))
 
 
-def _bank_fields(rng, K, nq, L, rmax, frame0, C):
+def _bank_fields(rng, K, nq, L, rmax, frame0, C, local=False):
     """Per-quantum lane fields like the fused bank's: grains that start
     and stop inside quanta, quanta without a grain, playheads that begin
-    before sample 0 and run past the buffer end."""
+    before sample 0 and run past the buffer end.  `local` starts each
+    quantum's grain near that quantum (anywhere in the block otherwise)."""
     B = nq * Q
     ok = (rng.random((K, nq)) > 0.15).astype(np.int32)
-    sv = frame0 + rng.integers(-300, B, (K, nq)).astype(np.int32)
+    if local:
+        sv = (frame0 + Q * np.arange(nq) + rng.integers(-200, Q, (K, nq))) \
+            .astype(np.int32)
+    else:
+        sv = frame0 + rng.integers(-300, B, (K, nq)).astype(np.int32)
     ev = sv + rng.integers(0, 600, (K, nq)).astype(np.int32)
     base = rng.integers(-150, L + 20, (K, nq))
     base[:, ::4] = L - 60                       # grains crossing the end
@@ -241,6 +269,79 @@ def test_grain_bank_matches_grain_bank_fused(C, rmax, nq, frame0):
     peak = float(np.abs(want).max())
     assert peak > 0.1
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-6 * peak)
+
+
+def _jax_bank(ok, sv, ev, base_i, base_f, rate, gain, data, g, w, frame0,
+              gl0, gl1):
+    """K2 in interpret mode on the staged rows of `data`."""
+    C, L = data.shape
+    nq = ok.shape[1]
+    ext = np.zeros((C, L + w + 2), np.float32)
+    ext[:, :L] = data
+    ext[:, L] = _edge(data)
+    rows3 = jgr.stage_rows(ext, w)
+    N, Cw = rows3.shape[0], C * w
+    flat = np.zeros((N, -(-Cw // 8) * 8), np.float32)
+    flat[:, :Cw] = rows3.reshape(N, Cw)
+    t = frame0 + np.arange(nq * Q, dtype=np.int32)
+    return np.asarray(jgr._grain_bank_fused(
+        jnp.asarray(flat), jnp.asarray(t), jnp.asarray(ok.astype(np.float32)),
+        jnp.asarray(sv), jnp.asarray(ev), jnp.asarray(base_i),
+        jnp.asarray(base_f), jnp.asarray(rate), jnp.asarray(gain),
+        jnp.asarray(_edge(data)), g=g, w=w, L=L, Q=Q, gl0=gl0, gl1=gl1,
+        interpret=True))
+
+
+# the shapes the CUDA kernel's warp-per-quantum indexing must get right:
+# one and three quanta, the 400-grain block's 3,446; one lane, 9 lanes
+# (two load chunks) and 33 (more lanes than a warp has threads)
+@pytest.mark.parametrize("nq,K", [(1, 1), (3, 9), (3, 33), (1, 33),
+                                  (3446, 1), (3446, 5), (3446, 9)])
+def test_grain_bank_edge_shapes_match_grain_bank_fused(nq, K):
+    rng = np.random.default_rng(nq * 100 + K)
+    C, L, rmax, frame0 = 2, 2600, 1.0995, 128 * 3
+    g, w = tgr.pick_group(rmax, C, L, nq * Q, wide=True)
+    fields = _bank_fields(rng, K, nq, L, rmax, frame0, C, local=True)
+    got = _port_bank(*fields, w, frame0, 0.0, 1.0)
+    want = _jax_bank(*fields, g, w, frame0, 0.0, 1.0)
+    assert got.shape == want.shape == (C, nq * Q)
+    peak = float(np.abs(want).max())
+    assert peak > 0.1
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-6 * peak)
+
+
+# which of (ext, the lane fields, gain) carry the instance axis
+@pytest.mark.parametrize("axes", [(False, True, True), (True, False, True),
+                                  (True, True, False), (False, False, True)])
+def test_grain_bank_mixed_instance_axes_match_grain_bank_fused(axes):
+    rng = np.random.default_rng(sum(a << n for n, a in enumerate(axes)))
+    I, K, nq, L, rmax, C, frame0 = 3, 4, 5, 1500, 1.2, 2, 0
+    g, w = tgr.pick_group(rmax, C, L, nq * Q, wide=True)
+    per = [_bank_fields(rng, K, nq, L, rmax, frame0, C, local=True)
+           for _ in range(I)]
+    scale = np.float32([1.0, 0.5, -0.75])     # one buffer per instance
+    ext_i, fld_i, gain_i = axes
+    datas = [per[i][7] * (scale[i] if ext_i else 1) for i in range(I)]
+    insts = [tuple(per[i if fld_i else 0][:6]) + (per[i if gain_i else 0][6],)
+             + (datas[i if ext_i else 0],) for i in range(I)]
+
+    def stack(n, on):
+        return torch.from_numpy(np.stack([insts[i][n] for i in range(
+            I if on else 1)]))
+
+    ext = np.zeros((I if ext_i else 1, C, L + w + 2), np.float32)
+    ext[:, :, :L] = np.stack(datas[:ext.shape[0]])
+    edge = np.stack([_edge(d) for d in datas[:ext.shape[0]]])
+    ext[:, :, L] = edge
+    got = tgr.grain_bank(torch.from_numpy(ext), torch.from_numpy(edge),
+                         *[stack(n, fld_i) for n in range(6)],
+                         stack(6, gain_i), frame0, L, 0.0, 1.0).numpy()
+    assert got.shape == (I, C, nq * Q)
+    for i in range(I):
+        want = _jax_bank(*insts[i], g, w, frame0, 0.0, 1.0)
+        peak = float(np.abs(want).max())
+        assert peak > 0.05
+        np.testing.assert_allclose(got[i], want, rtol=0, atol=1e-6 * peak)
 
 
 def test_grain_bank_sums_lanes_in_ascending_order():
@@ -329,3 +430,33 @@ def test_wrappers_take_cpu_tensors_to_the_plain_versions():
     assert tgr.grouped_lerp.launches == before        # no kernel launched
     assert out.shape == (1, 2, 1, 32)
     torch.testing.assert_close(out[0, :, 0], ext[0, :, :1].expand(2, 32))
+
+
+def test_wrappers_take_offset_views():
+    # views that start one float past a 16-byte boundary (the CUDA
+    # kernels' scalar path) give the same values
+    rng = np.random.default_rng(11)
+    g, w, L, B = 16, 21, 900, 256
+    ext = torch.from_numpy(_ext(rng, 2, L, w))[None]
+    pi, fr = _monotone_groups(rng, 2, B, g, w, L)
+    pis = torch.from_numpy(np.concatenate([[0], pi.ravel()]).astype(np.int32))
+    frs = torch.from_numpy(np.concatenate([[0], fr.ravel()]).astype(
+        np.float32))
+    out = tgr.grouped_lerp(ext, pis[1:].view(1, 2, B), frs[1:].view(1, 2, B),
+                           g, w)
+    np.testing.assert_array_equal(out[0].numpy(),
+                                  _port_lerp(ext[0].numpy(), pi, fr, g, w, 0))
+
+    K, nq, C = 3, 2, 2
+    fields = _bank_fields(rng, K, nq, L, 1.0, 0, C, local=True)
+    gain = torch.from_numpy(np.concatenate([[0], fields[6].ravel()]).astype(
+        np.float32))[1:].view(1, K, nq * Q)
+    ext2 = np.zeros((1, C, L + 41), np.float32)
+    ext2[0, :, :L] = fields[7]
+    ext2[0, :, L] = _edge(fields[7])
+    out2 = tgr.grain_bank(torch.from_numpy(ext2),
+                          torch.from_numpy(_edge(fields[7]))[None],
+                          *[torch.from_numpy(x)[None] for x in fields[:6]],
+                          gain, 0, L, 0.0, 1.0)
+    np.testing.assert_array_equal(out2[0].numpy(),
+                                  _port_bank(*fields, 40, 0, 0.0, 1.0))

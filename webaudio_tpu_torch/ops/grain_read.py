@@ -47,6 +47,8 @@ from .cuda_lib import KernelError, check, load_library
 _SOURCE = "grain_read.cu"
 
 RENDER_QUANTUM_MAX_GROUP = 128   # a group must stay within one quantum
+_MAX_GRID_YZ = 65535             # rows a grouped-lerp launch takes
+_MAX_INDEX = 2**31 - 1024        # sample indices the kernels keep in 32 bits
 
 # the non-looping end-of-buffer rule's "frac ~= 1" threshold, as the f32
 # that JAX and torch compare an f32 frac with
@@ -166,9 +168,8 @@ def grain_bank_reference(ext, edge, ok, sv, ev, base_i, base_f, rate, gain,
     return out
 
 
-@functools.cache
-def _launchers():
-    lib = load_library(_SOURCE)
+def _bind(lib):
+    """The C entry points of a loaded grain_read library, typed."""
     p, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
         ctypes.c_float
     lerp = lib.grouped_lerp_f32
@@ -183,6 +184,38 @@ def _launchers():
                                 f, f, f, p]
     bank.restype = ctypes.c_int
     return {"grouped_lerp": lerp, "grain_bank": bank}
+
+
+@functools.cache
+def _launchers():
+    return _bind(load_library(_SOURCE))
+
+
+def _launch_lerp(entry, out, ext, pi, fr, g, w, wrap_len=0):
+    """One launch of the grouped-lerp C entry point `entry` on checked
+    CUDA tensors, writing into `out` (I, C, R, B)."""
+    check(entry(ext.data_ptr(), pi.data_ptr(), fr.data_ptr(), out.data_ptr(),
+                out.shape[0], int(ext.shape[0] > 1), int(pi.shape[0] > 1),
+                ext.shape[1], ext.shape[2], pi.shape[1], pi.shape[2], g, w,
+                int(wrap_len), torch.cuda.current_stream(out.device)
+                .cuda_stream), "grouped_lerp launch")
+    return out
+
+
+def _launch_bank(entry, out, ext, edge, ok, sv, ev, base_i, base_f, rate,
+                 gain, frame0, L, gl0, gl1):
+    """One launch of the grain-bank C entry point `entry` on checked CUDA
+    tensors, writing into `out` (I, C, B)."""
+    check(entry(ext.data_ptr(), edge.data_ptr(), ok.data_ptr(), sv.data_ptr(),
+                ev.data_ptr(), base_i.data_ptr(), base_f.data_ptr(),
+                rate.data_ptr(), gain.data_ptr(), out.data_ptr(),
+                out.shape[0], int(ext.shape[0] > 1), int(ok.shape[0] > 1),
+                int(gain.shape[0] > 1), ext.shape[1], ext.shape[2], L,
+                ok.shape[1], ok.shape[2], int(frame0),
+                float(np.float32(gl0)), float(np.float32(gl1)), EDGE_FRAC,
+                torch.cuda.current_stream(out.device).cuda_stream),
+          "grain_bank launch")
+    return out
 
 
 def _check_cuda(name, tensors: dict, dtypes: dict):
@@ -222,15 +255,13 @@ def grouped_lerp(ext: torch.Tensor, pi: torch.Tensor, fr: torch.Tensor,
     _, C, Lx = ext.shape
     _, R, B = pi.shape
     if not (1 <= g <= RENDER_QUANTUM_MAX_GROUP and B % g == 0
-            and 2 <= w and Lx >= 2):
-        raise KernelError(f"grouped_lerp: bad geometry g={g}, w={w}, B={B}, "
-                          f"Lx={Lx}")
+            and 2 <= w and Lx >= 2 and R <= _MAX_GRID_YZ
+            and B < _MAX_INDEX and 0 <= wrap_len < 2**31):
+        raise KernelError(f"grouped_lerp: bad geometry g={g}, w={w}, R={R}, "
+                          f"B={B}, Lx={Lx}, wrap_len={wrap_len}")
     out = torch.empty((n, C, R, B), dtype=torch.float32, device=dev)
-    rc = _launchers()["grouped_lerp"](
-        ext.data_ptr(), pi.data_ptr(), fr.data_ptr(), out.data_ptr(), n,
-        int(ext.shape[0] > 1), int(pi.shape[0] > 1), C, Lx, R, B, g, w,
-        int(wrap_len), torch.cuda.current_stream(dev).cuda_stream)
-    check(rc, "grouped_lerp launch")
+    _launch_lerp(_launchers()["grouped_lerp"], out, ext, pi, fr, g, w,
+                 wrap_len)
     grouped_lerp.launches += 1
     return out
 
@@ -262,20 +293,14 @@ def grain_bank(ext, edge, ok, sv, ev, base_i, base_f, rate, gain,
     _, C, Lx = ext.shape
     _, K, nq = ok.shape
     B = nq * RENDER_QUANTUM_SIZE
-    if C > 2 or gain.shape[1:] != (K, B) or not 1 <= L < Lx:
+    if C > 2 or gain.shape[1:] != (K, B) or not 1 <= L < min(Lx, _MAX_INDEX):
         raise KernelError(f"grain_bank: needs C <= 2, gain (I, {K}, {B}) and "
-                          f"1 <= L < Lx, got C={C}, gain {tuple(gain.shape)}, "
-                          f"L={L}, Lx={Lx}")
+                          f"1 <= L < Lx, L < 2^31, got C={C}, gain "
+                          f"{tuple(gain.shape)}, L={L}, Lx={Lx}")
     n = _lead(ext, ok, gain)
     out = torch.empty((n, C, B), dtype=torch.float32, device=dev)
-    rc = _launchers()["grain_bank"](
-        ext.data_ptr(), edge.data_ptr(), ok.data_ptr(), sv.data_ptr(),
-        ev.data_ptr(), base_i.data_ptr(), base_f.data_ptr(), rate.data_ptr(),
-        gain.data_ptr(), out.data_ptr(), n, int(ext.shape[0] > 1),
-        int(ok.shape[0] > 1), int(gain.shape[0] > 1), C, Lx, L, K, nq,
-        int(frame0), float(np.float32(gl0)), float(np.float32(gl1)),
-        EDGE_FRAC, torch.cuda.current_stream(dev).cuda_stream)
-    check(rc, "grain_bank launch")
+    _launch_bank(_launchers()["grain_bank"], out, ext, edge, ok, sv, ev,
+                 base_i, base_f, rate, gain, frame0, L, gl0, gl1)
     grain_bank.launches += 1
     return out
 
