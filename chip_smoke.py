@@ -1,15 +1,21 @@
 """GPU smoke check of the PyTorch port (webaudio_tpu_torch) on one card.
 
-    python3 chip_smoke.py [--old SOURCE]
+    python3 chip_smoke.py [--old SOURCE] [--old SOURCE]
 
 Builds the port's CUDA kernels from the sources in this checkout and
 drives its main path on `device="cuda"`:
 
-  a. the WaveShaper curve kernel against its plain PyTorch version, bit for
-     bit, at 2 x 262,144 samples (values outside [-1, 1], NaN and +-inf
-     included) for curve lengths 2, 2048 (shared-memory branch) and 65536
-     (read-only-cache branch), and through a (2, n) table of per-instance
-     curves (one row per row of x); a non-contiguous input must raise;
+  a. the WaveShaper curve kernels against their plain PyTorch version, bit
+     for bit, at 2 x 262,144 samples (values outside [-1, 1], NaN and +-inf
+     included): one curve of 2, 2048, 44100 (MDN's distortion curve) and
+     65536 points; tables of per-instance curves of 2048 and 8192 points
+     (staged in shared memory) and of 8193 and 65536 (through the read-only
+     cache), (2, n) at the main path's shape and R rows of 2 x L samples,
+     (R, L) = (1, 4099), (3, 4099), (32, 4099), (32, 16384) and (300, 99);
+     lengths 1, 3, 5 and 262,147; x and y 0-3 floats off a 16-byte
+     boundary, one curve and tables of both kinds; a non-contiguous input
+     and a plan asking for more shared memory than a block has must raise,
+     and the next launch must still be right;
   b. the slice graph at full size: 10 s, 48 kHz, stereo, a looping
      AudioBufferSourceNode (bench.py's synthetic 2 s buffer, the aligned
      read) -> lowpass BiquadFilterNode (2000 Hz, Q 2) -> WaveShaperNode
@@ -28,9 +34,20 @@ drives its main path on `device="cuda"`:
      sweep amplifies that (an exact f64 recurrence moves by 2e-5 x peak);
   e. timing with CUDA events: the phase-b render end to end (one warm-up,
      then the median of 5) and its block loop alone on a compiled plan, as
-     realtime factors; the curve kernel against its plain version at the
-     main path's shape, as device time (calls replayed from a CUDA graph)
-     and as called from Python.
+     realtime factors; the curve kernel as called from Python, and
+     grid_sample at the main path's shape.  After phase j (phase i's
+     shaper bucket gives S3 and S4), the curve kernel's device time
+     against its plain version and its bound, warm and cold L2 (as in
+     phase m), at S1 the slice (2 x 262,144, n 2,048), S2 a 4x-oversampled
+     10 s block (2 x 1,048,576), S4 the shaper bucket's own launch (32 x 2
+     x 16,384 through a (32, 2048) table of per-instance curves), S3 its
+     samples through one curve, S5 MDN's 44,100-point curve and S6 a
+     65,536-point curve at S1's samples, each beside the other kernels of
+     the launch plan that can take the shape; S1's shape on uniformly
+     random samples and S1's samples through 32 copies of its curve; for
+     tables, staged against the read-only cache as rows shorten and curves
+     lengthen; and the floor, the one-curve kernel launched on S1's grid
+     with no samples, in the same CUDA-graph replay.
 
 Then batched serving (GraphBatch, MixedGraphBatch and the bounces), with
 the dither and u-law kernels:
@@ -59,10 +76,11 @@ the dither and u-law kernels:
      updates of the sweep rows gives, batch by batch, the direct render
      after the same update;
   i. MixedGraphBatch over 96 contexts, 32 each of three topologies (the
-     sweep; buffer -> constant lowpass -> WaveShaper; buffer -> gain
-     envelope): 3 buckets, every output within 1e-6 x peak of its own
-     start_rendering_sync on the card.  The dither, u-law and curve kernels
-     must each have launched on the path g-i;
+     sweep; buffer -> constant lowpass -> WaveShaper with a curve of its
+     own; buffer -> gain envelope): 3 buckets, every output within 1e-6 x
+     peak of its own start_rendering_sync on the card, the shaper bucket
+     through a (32, 2048) table of per-instance curves.  The dither, u-law
+     and curve kernels must each have launched on the path g-i;
   j. timing: the staged batch's render at 256 and 1,024 instances
      (instances x audio seconds per wall second, graphs/s), end to end with
      the host copy (f32 and int16), render_stream pipelined (int16, uint8),
@@ -105,11 +123,13 @@ grains of 90 ms with linear attack/release envelopes at rates 0.9-1.1):
      call) and cold (each call on its own copy of the inputs, rotating
      through more than 150 MB), in GB/s, the cold time also as share of
      the bound.  With --old SOURCE (an earlier revision of
-     csrc/grain_read.cu, with the same C entry points) that source and
-     this one are also built with `-Xptxas -v` (registers, shared memory
-     and spills are printed), the old kernels are checked bit-equal to the
-     plain versions on the same inputs and timed in turns with the new:
-     plain, old, new, new, old, plain, twice;
+     csrc/grain_read.cu or of csrc/curve_lookup.cu, told apart by their C
+     entry points; once for each) that source and this checkout's are also
+     built with `-Xptxas -v` (registers, shared memory and spills are
+     printed), the old kernels are checked bit-equal to the plain versions
+     on the same inputs and timed in turns with the new: plain, old, new,
+     new, old, plain, twice (K1 at S1-S6 in phase e, the grain kernels
+     here);
   n. a MixedGraphBatch of 64 granular contexts (2 s, 80 grains: the
      400-grain case's density) that differ only in each grain's buffer
      offset: one bucket, every output within 1e-6 x peak of its own
@@ -119,10 +139,11 @@ Prints the measurements, a {"kernels": [...]} line (each kernel's launches
 on its path, error against its plain version, device time, the plain
 version's, the least time the card could take (`bound_ms`: the larger of
 the bytes it must move at 3.35 TB/s and its f32 operations at 67 TFLOP/s),
-its share of that bound (for the grain kernels, of their cold-L2 time: the
-bound reads every input from HBM) and one PyTorch call's time where one
-computes the same function) and the card's name and power limit, then as its last line {"ok": true, "device":
-{...}}.  Exits non-zero, printing no result, if CUDA is unavailable or any
+its share of that bound (for the curve and grain kernels, of their
+cold-L2 time: the bound reads every input from HBM) and one PyTorch call's
+time where one computes the same function; the curve kernel's row also
+carries S1-S6 and the floor) and the card's name and power limit, then as
+its last line {"ok": true, "device": {...}}.  Exits non-zero, printing no result, if CUDA is unavailable or any
 phase fails.  Imports nothing of JAX.
 """
 
@@ -293,52 +314,122 @@ def _graph_ms(fn, reps):
     return _events_ms(graph.replay, 5) / reps
 
 
+def _curve_equal(name, got, want):
+    """Bit for bit, NaN positions included; returns the max |difference|."""
+    torch.cuda.synchronize()
+    same = torch.equal(got.isnan(), want.isnan()) and torch.equal(
+        torch.nan_to_num(got), torch.nan_to_num(want))
+    err = float((torch.nan_to_num(got) - torch.nan_to_num(want)).abs().max()) \
+        if got.numel() else 0.0
+    if not same:
+        raise AssertionError(f"{name}: the curve kernel differs from plain")
+    return err
+
+
+def _plan_text(p):
+    return f"{p.mode}, grid {p.grid} x {p.threads}, {p.smem_bytes} B"
+
+
+def _tables(n, R, L, rng):
+    """R per-instance n-point curves and R rows of 2 x L samples."""
+    tab = torch.stack([torch.from_numpy(_curve(n, rng)).cuda()
+                       for _ in range(R)])
+    xs = rng.uniform(-1.6, 1.6, (R, 2, L)).astype(np.float32)
+    xs.reshape(-1)[:6] = [np.nan, np.inf, -np.inf, -1.0, 1.0, 0.0]
+    return tab, torch.from_numpy(xs).cuda()
+
+
 def phase_a(ck, KernelError):
     rng = np.random.default_rng(SEED)
     x = rng.uniform(-1.6, 1.6, KERNEL_SAMPLES).astype(np.float32)
     x[:6] = [np.nan, np.inf, -np.inf, -1.0, 1.0, 0.0]
     xd = torch.from_numpy(x).reshape(2, -1).cuda()   # the main path's shape
+    kern = ck._kernel()
+    sms, smem = kern.limits()
+    print(f"a. card: {sms} SMs, {smem} B of shared memory a block; tables "
+          f"stage curves of up to {ck._STAGE_MAX_POINTS} points "
+          f"({ck.staged_bytes(ck._STAGE_MAX_POINTS)} B)", flush=True)
     worst = 0.0
-    for n in (2, 2048, 65536):
+    for n in (2, 2048, 44100, 65536):
         curve = torch.from_numpy(_curve(n, rng)).cuda()
-        got = ck.curve_lookup(curve, xd)
-        torch.cuda.synchronize()
-        want = ck.curve_lookup_reference(curve, xd)
-        same = torch.equal(got.isnan(), want.isnan()) and torch.equal(
-            torch.nan_to_num(got), torch.nan_to_num(want))
-        err = float((torch.nan_to_num(got) - torch.nan_to_num(want)).abs().max())
+        err = _curve_equal(f"a. n={n}", ck.curve_lookup(curve, xd),
+                           ck.curve_lookup_reference(curve, xd))
         worst = max(worst, err)
-        print(f"a. curve_lookup n={n}: bit-equal {same} max_abs_err {err:.3e}",
-              flush=True)
-        if not same:
-            raise AssertionError(f"curve kernel differs from plain, n={n}")
-    table = torch.stack([torch.from_numpy(_curve(CURVE_POINTS, rng)).cuda()
-                         for _ in range(2)])
-    got = ck.curve_lookup(table, xd)
-    torch.cuda.synchronize()
-    want = ck.curve_lookup_reference(table, xd)
-    same = torch.equal(got.isnan(), want.isnan()) and torch.equal(
-        torch.nan_to_num(got), torch.nan_to_num(want))
-    err = float((torch.nan_to_num(got) - torch.nan_to_num(want)).abs().max())
-    worst = max(worst, err)
-    print(f"a. curve_lookup (2, {CURVE_POINTS}) table: bit-equal {same} "
-          f"max_abs_err {err:.3e}", flush=True)
-    if not same:
-        raise AssertionError("curve table kernel differs from plain")
-    try:
-        ck.curve_lookup(curve, torch.zeros((2, 64), device="cuda").t())
-    except KernelError as exc:
-        print(f"a. non-contiguous input raises: {exc}", flush=True)
-    else:
-        raise AssertionError("non-contiguous input did not raise")
+        print(f"a. curve_lookup n={n} ({_plan_text(kern.plan(n, xd.numel(), 1))}"
+              f"): bit-equal True max_abs_err {err:.3e}", flush=True)
+
+    # tables of per-instance curves on each side of the longest staged
+    # curve: (2, n) at the main path's shape, then R rows of 2 x L samples
+    # (4099 is not a multiple of 4, 16384 a shaper bucket's, 300 rows more
+    # than a wave's blocks: each block walks several rows and refills its
+    # copy)
+    edge = ck._STAGE_MAX_POINTS
+    for n in (2048, edge, edge + 1, 65536):
+        table = torch.stack([torch.from_numpy(_curve(n, rng)).cuda()
+                             for _ in range(2)])
+        worst = max(worst, _curve_equal(
+            f"a. (2, {n}) table", ck.curve_lookup(table, xd),
+            ck.curve_lookup_reference(table, xd)))
+        for R, L in ((1, 4099), (3, 4099), (32, 4099), (32, 16384),
+                     (300, 99)):
+            tab, xs = _tables(n, R, L, rng)
+            worst = max(worst, _curve_equal(
+                f"a. ({R}, {n}) table", ck.curve_lookup(tab, xs),
+                ck.curve_lookup_reference(tab, xs)))
+        print(f"a. curve_lookup (R, {n}) tables "
+              f"({_plan_text(kern.plan(n, 32 * 2 * 16384, 32))} at R 32, L "
+              f"16384): bit-equal True", flush=True)
+
+    # lengths not a multiple of 4, and x and y off a 16-byte boundary
+    curve = torch.from_numpy(_curve(CURVE_POINTS, rng)).cuda()
+    for m in (1, 3, 5, 262147):
+        xs = xd.reshape(-1)[:m].clone()
+        worst = max(worst, _curve_equal(
+            f"a. m={m}", ck.curve_lookup(curve, xs),
+            ck.curve_lookup_reference(curve, xs)))
+    cases = [(curve, xd)] + [_tables(n, 3, 4099, rng) for n in (2048, edge + 1)]
+    for c, xs0 in cases:
+        for x_off, y_off in ((1, 1), (1, 0), (0, 1), (3, 2)):
+            xs = _offset(xs0, x_off)
+            want = ck.curve_lookup_reference(c, xs)
+            out = _offset(torch.full_like(want, float("nan")), y_off)
+            worst = max(worst, _curve_equal(
+                f"a. {tuple(c.shape)} x +{x_off}, y +{y_off} floats",
+                ck._launch(kern, out, c, xs), want))
+    print("a. m = 1, 3, 5, 262147; one curve and (3, 2048) and "
+          f"(3, {edge + 1}) tables with x and y 0-3 floats off a 16-byte "
+          "boundary: bit-equal True", flush=True)
+
+    bad = [("a non-contiguous input", lambda: ck.curve_lookup(
+               curve, torch.zeros((2, 64), device="cuda").t())),
+           ("a plan asking for more shared memory than a block has",
+            lambda: ck._launch(kern, torch.empty_like(xd), curve, xd,
+                               ck.LaunchPlan("shared", (1, 1), 512,
+                                             smem + 16)))]
+    for what, call in bad:
+        try:
+            call()
+        except KernelError as exc:
+            print(f"a. {what} raises: {exc}", flush=True)
+        else:
+            raise AssertionError(f"{what} did not raise")
+    # the refused launch leaves no error behind for the next one
+    worst = max(worst, _curve_equal("a. after the refusal",
+                                    ck.curve_lookup(curve, xd),
+                                    ck.curve_lookup_reference(curve, xd)))
     return worst
 
 
 def phase_b(wt, ck):
+    """Returns the curve kernel's launches and the (curve, x) of its first
+    call (the first block's shaper input: S1)."""
+    from webaudio_tpu_torch.nodes import waveshaper
+
     data = _bench_data()
     ctx = slice_context(wt, "cuda", data, FS)
     ck.curve_lookup.launches = 0
-    out = ctx.start_rendering_sync().to_array()
+    with _recording(waveshaper, "curve_lookup") as shaped:
+        out = ctx.start_rendering_sync().to_array()
     launches = ck.curve_lookup.launches
     segs = ctx.render_stats["segments"]
     print(f"b. main path: segments {segs} curve_lookup launches {launches}",
@@ -350,7 +441,7 @@ def phase_b(wt, ck):
     idx = np.arange(FRAMES) % data.shape[1]
     _check_close("b. 10 s slice render vs lfilter oracle", out,
                  oracle(data[:, idx], _curve(CURVE_POINTS)), 1e-5)
-    return launches
+    return launches, shaped[0]
 
 
 def phase_c(wt):
@@ -412,24 +503,13 @@ def phase_e(wt, ck, compiler):
     def plain():
         return ck.curve_lookup_reference(curve, xd)
 
-    # device time: 100 calls captured in one CUDA graph, so the Python
-    # wrapper's host cost is out of the figure; plain, kernel, kernel, plain
-    k_dev, p_dev = [], []
-    for _ in range(2):
-        p_dev.append(_graph_ms(plain, 100))
-        k_dev.append(_graph_ms(kernel, 100))
-        k_dev.append(_graph_ms(kernel, 100))
-        p_dev.append(_graph_ms(plain, 100))
-    # per call from Python, back to back: what the block loop pays
+    # per call from Python, back to back: what the block loop pays (device
+    # times come from curve_times, after phase j)
     k_host = _events_ms(kernel, 200)
     p_host = _events_ms(plain, 200)
-    k_ms, p_ms = statistics.median(k_dev), statistics.median(p_dev)
-    gbs = KERNEL_SAMPLES * 8 / (k_ms * 1e-3) / 1e9
-    print(f"e. curve_lookup at {KERNEL_SAMPLES} samples, n={CURVE_POINTS}: "
-          f"device time kernel {k_ms * 1000:.2f} us ({gbs:.0f} GB/s of x in "
-          f"+ y out), plain {p_ms * 1000:.2f} us; called from Python back to "
-          f"back: kernel {k_host * 1000:.2f} us, plain {p_host * 1000:.2f} us",
-          flush=True)
+    print(f"e. curve_lookup at {KERNEL_SAMPLES} samples, n={CURVE_POINTS}, "
+          f"called from Python back to back: kernel {k_host * 1000:.2f} us, "
+          f"plain {p_host * 1000:.2f} us", flush=True)
 
     # yardstick: grid_sample's 1-D linear mode with align_corners=True maps
     # x in [-1, 1] onto [0, n - 1] and lerps, with border clamping; it
@@ -448,7 +528,119 @@ def phase_e(wt, ck, compiler):
     print(f"e. grid_sample (1-D linear, align_corners) at the same shape: "
           f"{lib_ms * 1000:.2f} us, max |grid_sample - kernel| "
           f"{lib_err:.3e}", flush=True)
-    return k_ms, p_ms, lib_ms, lib_err
+    return lib_ms, lib_err
+
+
+def _forced(ck, mode, curve, x):
+    """The one-wave plan of K1's kernel `mode` for (curve, x) whichever
+    kernel the launch plan picks there, or None where a block's shared
+    memory cannot hold the staged curve: the kernels that compete with the
+    plan's choice at a shape."""
+    kern = ck._kernel()
+    sms, smem = kern.limits()
+    rows = curve.shape[0] if curve.dim() == 2 else 1
+    n = curve.shape[-1]
+    if mode == "shared" and ck.staged_bytes(n) > smem:
+        return None
+    return ck._grid(mode, n, x.numel() // rows, rows, sms, kern.resident)
+
+
+def _floor_ms(ck, plan, device):
+    """Device ms of a launch of the plan's kernel on its grid with no
+    samples (every thread returns at once), in the same CUDA-graph replay
+    as the timings: what a launch costs before any work."""
+    kern = ck._kernel()
+
+    def launch():
+        err = kern._launch(None, None, None, 0, 0, 2, 0.5,
+                           ck.KERNELS[plan.mode], plan.grid[0], plan.grid[1],
+                           plan.threads, plan.smem_bytes,
+                           torch.cuda.current_stream(device).cuda_stream)
+        if err:
+            raise RuntimeError(f"the zero-sample launch failed: {err}")
+    return statistics.median(_graph_ms(launch, 20) for _ in range(4))
+
+
+def curve_times(ck, s1, s4, old=None):
+    """Phase e's kernel timings (run after phase j; phase i's shaper bucket
+    gives S3 and S4): K1 at S1-S6 against its plain version and its bound,
+    warm and cold L2, by `_kernel_times`, beside the other kernels of the
+    launch plan that can take each shape and, where given, `old` (an
+    earlier curve_lookup.cu) in turns; the same at S1's shape on uniformly
+    random samples (every tap a random point: the gathers' worst case) and
+    on S1's samples through a table of 32 copies of its curve (one curve
+    read from 32 places); a table's two kernels as rows shorten and curves
+    lengthen; then the floor.  s1: (curve, x) of the slice's first block;
+    s4: (table, x) of the shaper bucket's last launch (a curve per
+    instance), the samples the paths really shape; S3 is S4's samples
+    through the table's first curve alone."""
+    kern = ck._kernel()
+    rng = np.random.default_rng(SEED + 6)
+    c1, x1 = s1[0].reshape(-1).contiguous(), s1[1].contiguous()
+    table, x3 = s4[0].contiguous(), s4[1].contiguous()
+    R, n1 = table.shape
+    # a 4x-oversampled block: the slice's block, linearly upsampled
+    x2 = torch.nn.functional.interpolate(
+        x1.reshape(1, -1, x1.shape[-1]), scale_factor=4, mode="linear",
+        align_corners=True).reshape(*x1.shape[:-1], -1).contiguous()
+    noise = torch.from_numpy(rng.uniform(-1.6, 1.6, tuple(x1.shape)).astype(
+        np.float32)).cuda()
+    copies = c1.expand(32, n1).contiguous()
+    shapes = [
+        ("S1", c1, x1),
+        ("S1 random", c1, noise),
+        ("S1 copies", copies, x1.reshape(32, -1)),
+        ("S2", c1, x2),
+        ("S3", table[0].contiguous(), x3),
+        ("S4", table, x3),
+        ("S5", torch.from_numpy(_curve(44100)).cuda(), x1),
+        ("S6", torch.from_numpy(_curve(65536)).cuda(), x1),
+    ]
+
+    def launch(e, out, curve, x):
+        return ck._launch(e[0], out, curve, x, e[1])
+
+    def times(key, curve, x, olds):
+        rows = curve.shape[0] if curve.dim() == 2 else 1
+        plan = kern.plan(curve.shape[-1], x.numel(), rows)
+        entries = dict(olds) | {"new": (kern, None)}
+        for mode in ("shared", "cached"):
+            p = _forced(ck, mode, curve, x)
+            if p is not None and p.mode != plan.mode:
+                entries[mode] = (kern, p)
+        label = (f"e. curve_lookup {key} {tuple(x.shape)}, "
+                 f"{'table ' if rows > 1 else ''}{tuple(curve.shape)} "
+                 f"[{_plan_text(plan)}]")
+        print(f"{label}: beside {[k for k in entries if k != 'new']}",
+              flush=True)
+        res = _kernel_times(
+            label, launch, entries, ck.curve_lookup_reference, (curve, x),
+            _nbytes(curve, x) + x.numel() * 4, 11 * x.numel())
+        res["plan"] = _plan_text(plan)
+        return res
+
+    olds = {} if old is None else {"old": (old, None)}
+    out = {key: times(key, curve, x, olds) for key, curve, x in shapes}
+    # a table's two kernels as a block's share of its row shrinks (S4's
+    # curves, rows of L samples of the bucket's audio) and as the curves
+    # lengthen (S4's samples): where staging stops paying
+    xr = x3.reshape(R, -1)
+    xr = torch.cat([xr, xr], 1)
+    for L in (1024, 4096, 16384, 65536):
+        out[f"table L {L}"] = times(f"table L {L}", table,
+                                    xr[:, :L].contiguous(), {})
+    for n in (4096, 8192):
+        tab = torch.stack([torch.from_numpy(_curve(n, rng)).cuda()
+                           for _ in range(R)])
+        out[f"table n {n}"] = times(f"table n {n}", tab, x3, {})
+
+    plan = kern.plan(n1, x1.numel(), 1)
+    floor = _floor_ms(ck, plan, x1.device)
+    print(f"e. floor: the one-curve kernel launched on S1's grid {plan.grid} "
+          f"x {plan.threads} with no samples, same CUDA-graph replay: "
+          f"{floor * 1000:.2f} us", flush=True)
+    out["floor_ms"] = floor
+    return out
 
 
 def _host(t):
@@ -631,8 +823,9 @@ def phase_h(gb, filt, rows, dither):
 
 
 def mixed_corpus(wt):
-    """32 each of three topologies, in one shuffled list."""
-    curve = _curve(CURVE_POINTS)
+    """32 each of three topologies, in one shuffled list; each shaper
+    context drives its own curve (tanh at a drive of its own), so the
+    shaper bucket shapes through a table of per-instance curves."""
     bufs = lane_buffers(MIXED_PER_TOPOLOGY)
     out = []
     for i in range(MIXED_PER_TOPOLOGY):
@@ -644,7 +837,8 @@ def mixed_corpus(wt):
         src.buffer = wt.AudioBuffer.from_array(bufs[i], FS)
         src.start()
         filt = ctx.create_biquad_filter(type="lowpass", frequency=3000.0, q=1.0)
-        shaper = ctx.create_wave_shaper(curve=curve)
+        shaper = ctx.create_wave_shaper(curve=np.tanh(
+            2.0 * s * np.linspace(-1.0, 1.0, CURVE_POINTS)).astype(np.float32))
         src.connect(filt)
         filt.connect(shaper)
         shaper.connect(ctx.destination)
@@ -663,8 +857,14 @@ def mixed_corpus(wt):
 
 
 def phase_i(wt, kernels):
+    """Returns the launches on the batch path and the (curve table, x) of
+    the shaper bucket's last curve-kernel call."""
+    from webaudio_tpu_torch.nodes import waveshaper
+    from webaudio_tpu_torch.ops import curve_kernel as ck
+
     mb = wt.MixedGraphBatch(mixed_corpus(wt))
-    outs = mb.render()
+    with _recording(waveshaper, "curve_lookup") as shaped:
+        outs = mb.render()
     launches = {k.__name__: k.launches for k in kernels}
     print(f"i. MixedGraphBatch: {len(outs)} contexts in {mb.num_buckets} "
           f"buckets; launches on the batch path (g-i): {launches}", flush=True)
@@ -683,7 +883,15 @@ def phase_i(wt, kernels):
     for name, n in launches.items():
         if n < 1:
             raise AssertionError(f"{name} never launched on the batch path")
-    return launches
+    curve, x = shaped[-1]
+    print(f"i. the shaper bucket's curve kernel calls: {len(shaped)}, the "
+          f"last at x {tuple(x.shape)}, curve table {tuple(curve.shape)} ("
+          f"{_plan_text(ck._kernel().plan(CURVE_POINTS, x.numel(), len(curve)))})",
+          flush=True)
+    if curve.shape != (MIXED_PER_TOPOLOGY, CURVE_POINTS):
+        raise AssertionError("the shaper bucket did not shape through a "
+                             "table of per-instance curves")
+    return launches, (curve, x)
 
 
 def _median_events_ms(fn, reps=5):
@@ -1184,6 +1392,11 @@ def phase_l(wt, gr, compiler, fusion, n, phase="l"):
     return {"n": n, "launches": launches}
 
 
+def _entries(new, old, name):
+    """{"old": old[name], "new": new[name]}, without "old" when old is None."""
+    return ({} if old is None else {"old": old[name]}) | {"new": new[name]}
+
+
 def _nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors
                if isinstance(t, torch.Tensor))
@@ -1280,9 +1493,9 @@ def phase_m(wt, gr, compiler, fusion, cases, old=None):
         key = "" if n == 400 else "_800"
         out["grain_bank"].update({f"{k}{key}": v for k, v in _kernel_times(
             f"{label}: grain_bank (K2) at K {K}, B {B}, C {C}",
-            gr._launch_bank, gr._launchers()["grain_bank"],
+            gr._launch_bank, _entries(gr._launchers(), old, "grain_bank"),
             gr.grain_bank_reference, a, _nbytes(*a) + C * B * 4,
-            (14 + 8 * C) * K * B, old and old["grain_bank"]).items()})
+            (14 + 8 * C) * K * B).items()})
 
         for mode, name in (("grouped_v", "grouped_lerp"),
                            ("window", "window")):
@@ -1298,10 +1511,10 @@ def phase_m(wt, gr, compiler, fusion, cases, old=None):
             res = _kernel_times(
                 f"{label}: grouped_lerp ({'K4, ' if mode == 'window' else ''}"
                 f"{mode}) at (g, w) = ({g}, {w}), {R} x {B}, C {C}",
-                gr._launch_lerp, gr._launchers()["grouped_lerp"],
+                gr._launch_lerp, _entries(gr._launchers(), old,
+                                          "grouped_lerp"),
                 gr.grouped_lerp_reference, a,
-                _nbytes(ext, pi, fr) + C * R * B * 4, (8 + 3 * C) * R * B,
-                old and old["grouped_lerp"])
+                _nbytes(ext, pi, fr) + C * R * B * 4, (8 + 3 * C) * R * B)
             res["library_ms"], res["library_err"] = _grid_sample(gr, a)
             print(f"{label}: grid_sample at the {mode} inputs "
                   f"{res['library_ms'] * 1000:.2f} us, max |grid_sample - "
@@ -1310,18 +1523,19 @@ def phase_m(wt, gr, compiler, fusion, cases, old=None):
     return out
 
 
-def _kernel_times(label, launch, entry, plain, a, nbytes, ops, old=None):
-    """A grain kernel at the path's inputs `a`: `launch(entry, out, *a)`
-    runs the C entry point `entry` (and `old`'s, an earlier build of the
-    same source, where given) into `out`.  Both are first checked bit-equal
-    to the plain version.  Device ms per call from CUDA-graph replay with
-    the L2 warm (the same inputs and output every call) and cold (each call
-    on its own copy of them, rotating through more than 150 MB; the H100's
-    L2 holds 50 MB), in turns: plain, [old,] new, new, [old,] plain, twice.
-    The share of the bound is the cold time's: the bound reads every input
-    from HBM, the warm calls from L2.  Printed, and returned with GB/s."""
+def _kernel_times(label, launch, entries, plain, a, nbytes, ops):
+    """A kernel at the path's inputs `a`: `launch(e, out, *a)` runs entry
+    `e` into `out`, for each of `entries` (name -> entry: "new" this
+    source's kernel, "old" an earlier build of the same source, others
+    variants).  Each is first checked bit-equal to the plain version.
+    Device ms per call from CUDA-graph replay with the L2 warm (the same
+    inputs and output every call) and cold (each call on its own copy of
+    them, rotating through more than 150 MB; the H100's L2 holds 50 MB), in
+    turns: plain, the entries, the entries backwards, plain, twice.  The
+    share of the bound is the cold time's: the bound reads every input from
+    HBM, the warm calls from L2.  Printed, and returned with GB/s (keys of
+    entries other than "new" carry their name as a prefix)."""
     want = plain(*a)
-    entries = {"new": entry} if old is None else {"old": old, "new": entry}
     for name, e in entries.items():
         got = launch(e, torch.full_like(want, float("nan")), *a)
         torch.cuda.synchronize()
@@ -1361,12 +1575,13 @@ def _kernel_times(label, launch, entry, plain, a, nbytes, ops, old=None):
     res = {}
     for x in entries:
         warm_ms, cold_ms = med[x, "warm"], med[x, "cold"]
-        pre = "" if x == "new" else "old_"
+        pre = "" if x == "new" else f"{x}_"
         res.update({f"{pre}ms": warm_ms, f"{pre}cold_ms": cold_ms,
                     f"{pre}share_of_bound": b_ms / cold_ms,
                     f"{pre}gb_per_s": nbytes / warm_ms / 1e6,
                     f"{pre}cold_gb_per_s": nbytes / cold_ms / 1e6})
-        print(f"{label}{' [old kernel]' if pre else ''}: device time warm L2 "
+        tag = {"new": "", "old": " [old kernel]"}.get(x, f" [{x}]")
+        print(f"{label}{tag}: device time warm L2 "
               f"{warm_ms * 1000:.2f} us ({nbytes / warm_ms / 1e6:.1f} GB/s; "
               f"runs {[round(t * 1000, 2) for t in runs[x, 'warm']]}), cold "
               f"L2 {cold_ms * 1000:.2f} us ({100 * b_ms / cold_ms:.1f}% of "
@@ -1456,10 +1671,40 @@ def _ptxas_build(cuda_lib, name, source):
         if "Compiling entry" in ln or "Used" in ln or "spill" in ln]
 
 
+class _EarlierCurve:
+    """A curve_lookup.cu of 75dd7af or before: its entry point
+    `curve_lookup_f32(x, curve, y, m, n, half_nm1, row_len, stream)` picks
+    its own grid.  Called as the port's `_Kernel` is, for the A/B."""
+
+    def __init__(self, lib, half_nm1):
+        p, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
+            ctypes.c_float
+        self._launch = lib.curve_lookup_f32
+        self._launch.argtypes = [p, p, p, ll, i, f, ll, p]
+        self._launch.restype = i
+        self._half_nm1 = half_nm1
+
+    def __call__(self, out, curve, x, rows, plan):
+        n = curve.shape[-1]
+        return self._launch(
+            x.data_ptr(), curve.data_ptr(), out.data_ptr(), x.numel(), n,
+            self._half_nm1(n), x.numel() // rows if curve.dim() == 2 else 0,
+            torch.cuda.current_stream(x.device).cuda_stream)
+
+
+def _bind_curve(ck, lib):
+    """An earlier curve_lookup.cu's launcher, told by its C entry point."""
+    if hasattr(lib, "curve_lookup_launch"):
+        return ck._Kernel(lib)
+    return _EarlierCurve(lib, ck._half_nm1)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--old", metavar="SOURCE",
-                    help="an earlier grain_read.cu to time against this one")
+    ap.add_argument("--old", metavar="SOURCE", action="append", default=[],
+                    help="an earlier grain_read.cu or curve_lookup.cu (told "
+                    "apart by their C entry points) to time against this "
+                    "one; may be given once for each")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; nothing was run",
@@ -1479,32 +1724,43 @@ def main() -> int:
           f"device {torch.cuda.get_device_name(0)}", flush=True)
     t0 = time.perf_counter()
     sources = sorted(p.name for p in cuda_lib.CSRC_DIR.glob("*.cu"))
-    reports = [] if args.old is None else [
-        ("old", args.old), ("new", cuda_lib.CSRC_DIR / "grain_read.cu")]
-    with ThreadPoolExecutor(len(sources) + len(reports)) as pool:
+    olds = [(f"old-{i}", src) for i, src in enumerate(args.old)]
+    with ThreadPoolExecutor(len(sources) + len(olds)) as pool:
         built = [pool.submit(cuda_lib.load_library, x) for x in sources]
-        reported = [pool.submit(_ptxas_build, cuda_lib, *r) for r in reports]
+        reported = [pool.submit(_ptxas_build, cuda_lib, *r) for r in olds]
         for f in built:                 # one nvcc per source, all at once
             f.result()
         reported = [f.result() for f in reported]
-    old = None
-    for (name, source), (lib, lines) in zip(reports, reported):
-        print(f"build ({name}: {source}, -Xptxas -v):", flush=True)
-        for ln in lines:
-            print(f"  {ln}", flush=True)
-        if name == "old":
-            old = gr._bind(lib)
-    ck._launcher()
+    # each earlier source, told apart by its C entry points, and with it
+    # this checkout's source of the same kernels (also with -Xptxas -v)
+    old = {}
+    for (_, source), (lib, lines) in zip(olds, reported):
+        kind = ("grain" if hasattr(lib, "grain_bank_f32") else "curve"
+                if hasattr(lib, "curve_lookup_f32")
+                or hasattr(lib, "curve_lookup_launch") else None)
+        if kind is None or kind in old:
+            raise SystemExit(f"chip_smoke: --old {source} is neither "
+                             "grain_read.cu nor curve_lookup.cu, or repeats "
+                             "one")
+        old[kind] = gr._bind(lib) if kind == "grain" else _bind_curve(ck, lib)
+        new = cuda_lib.CSRC_DIR / ("grain_read.cu" if kind == "grain"
+                                   else "curve_lookup.cu")
+        _, new_lines = _ptxas_build(cuda_lib, f"new-{kind}", new)
+        for name, src, lns in (("old", source, lines), ("new", new, new_lines)):
+            print(f"build ({name}: {src}, -Xptxas -v):", flush=True)
+            for ln in lns:
+                print(f"  {ln}", flush=True)
+    ck._kernel()
     dither._launchers()
     gr._launchers()
     print(f"build: {', '.join(sources)} built and loaded in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
 
     max_err = phase_a(ck, wt.KernelError)
-    offline_launches = phase_b(wt, ck)
+    offline_launches, s1 = phase_b(wt, ck)
     phase_c(wt)
     phase_d(wt)
-    k_ms, p_ms, k1_lib_ms, k1_lib_err = phase_e(wt, ck, compiler)
+    k1_lib_ms, k1_lib_err = phase_e(wt, ck, compiler)
     q_err = phase_f(dither, wt.KernelError)
 
     # the batch path, g-i: every count from 0
@@ -1513,21 +1769,23 @@ def main() -> int:
         k.launches = 0
     gb, filt, rows = phase_g(wt)
     phase_h(gb, filt, rows, dither)
-    launches = phase_i(wt, kernels)
+    launches, s4 = phase_i(wt, kernels)
     times = phase_j(wt, gb, filt, dither)
-    del gb
+    # K1's device timings, after the batch path's own (phase j runs as it
+    # did before they existed)
+    k1 = curve_times(ck, s1, s4, old.get("curve"))
+    del gb, s1, s4
     torch.cuda.empty_cache()
 
     # granular synthesis, k-n
     grain_err = phase_k(wt, gr, fusion, wt.KernelError)
     l400 = phase_l(wt, gr, compiler, fusion, 400)
     l800 = phase_l(wt, gr, compiler, fusion, 800, phase="m")
-    grain_times = phase_m(wt, gr, compiler, fusion, (l400, l800), old)
+    grain_times = phase_m(wt, gr, compiler, fusion, (l400, l800),
+                          old.get("grain"))
     phase_n(wt, gr)
 
     n_q = QUANT_SHAPE[0] * QUANT_SHAPE[1]
-    k1_bound = _bound(KERNEL_SAMPLES * 8 + CURVE_POINTS * 4,
-                      11 * KERNEL_SAMPLES)
     k5_bound = _bound(n_q * 6, 25 * n_q)
     k6_bound = _bound(n_q * 5, 50 * n_q)
     k2, k3, k4 = (grain_times[k] for k in ("grain_bank", "grouped_lerp",
@@ -1549,9 +1807,11 @@ def main() -> int:
                            "webaudio_tpu/ops/curve_kernel.py:224"],
          "launches": launches["curve_lookup"],
          "launches_offline_path": offline_launches, "max_abs_err": max_err,
-         "ms": k_ms, "plain_ms": p_ms, "bound_ms": k1_bound[0],
-         "bound_by": k1_bound[1], "library_ms": k1_lib_ms,
-         "library_max_abs_err": k1_lib_err},
+         **{k: v for k, v in k1["S1"].items() if k != "plan"},
+         "library_ms": k1_lib_ms, "library_max_abs_err": k1_lib_err,
+         "floor_ms": k1["floor_ms"],
+         "shapes": {s: k1[s] for s in ("S1", "S1 random", "S1 copies", "S2",
+                                       "S3", "S4", "S5", "S6")}},
         {"name": "dither_i16", "route": "cuda",
          "source": "webaudio_tpu_torch/csrc/quantize.cu",
          "replaces": "webaudio_tpu/ops/dither.py:37",

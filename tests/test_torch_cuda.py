@@ -32,20 +32,104 @@ def _inputs(m, seed=5):
     return x
 
 
-@pytest.mark.parametrize("n", (2, 2048, 12288, 12289, 65536))
+def _same(got, want):
+    """Bit for bit, NaN positions included."""
+    return torch.equal(got.isnan(), want.isnan()) and torch.equal(
+        torch.nan_to_num(got), torch.nan_to_num(want))
+
+
+def _tanh_curve(n, device, scale=1.0):
+    return torch.from_numpy(np.tanh(scale * np.linspace(-2, 2, n)).astype(
+        np.float32)).to(device)
+
+
+# one curve goes through the read-only cache at any length: 12288 was the
+# last curve an earlier kernel kept in shared memory, 12289 the first it
+# did not; 8192 and 8193 the table kernel's boundary; 44100 MDN's
+# distortion curve
+@pytest.mark.parametrize("n", (2, 2048, 8192, 8193, 12288, 12289, 44100,
+                               65536))
 def test_curve_kernel_equals_plain_version(cuda, n):
-    # 12288 is the largest curve kept in shared memory, 12289 the smallest
-    # read through the read-only cache
     x = torch.from_numpy(_inputs(2 * 262144)).reshape(2, -1).to(cuda)
-    curve = torch.from_numpy(
-        np.tanh(np.linspace(-2, 2, n)).astype(np.float32)).to(cuda)
+    curve = _tanh_curve(n, cuda)
     before = ck.curve_lookup.launches
     got = ck.curve_lookup(curve, x)
     torch.cuda.synchronize()
     assert ck.curve_lookup.launches == before + 1
+    assert _same(got, ck.curve_lookup_reference(curve, x))
+
+
+# lengths that are not a multiple of 4, and none at all (nothing launches)
+@pytest.mark.parametrize("m", (0, 1, 3, 5, 262147))
+@pytest.mark.parametrize("n", (2048, 65536))
+def test_curve_kernel_any_length(cuda, m, n):
+    x = torch.from_numpy(_inputs(max(m, 8), seed=m)[:m].copy()).to(cuda)
+    curve = _tanh_curve(n, cuda)
+    before = ck.curve_lookup.launches
+    got = ck.curve_lookup(curve, x)
+    torch.cuda.synchronize()
+    assert ck.curve_lookup.launches == before + (m > 0)
+    assert got.shape == x.shape
+    assert _same(got, ck.curve_lookup_reference(curve, x))
+
+
+def _table(R, n, device, seed):
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(np.tanh(
+        rng.uniform(0.5, 3.0, (R, 1)) * np.linspace(-2, 2, n)).astype(
+            np.float32)).to(device)
+
+
+# the kernel each launch plan names on a table of n-point curves: staged
+# up to 8192 points, through the read-only cache beyond
+_TABLE_MODES = {2048: "shared", 8192: "shared", 8193: "cached",
+                65536: "cached"}
+
+
+# x and y one float (or more) off a 16-byte boundary, through the launcher:
+# one curve, and tables staged and through the cache
+@pytest.mark.parametrize("x_off,y_off", [(1, 1), (1, 0), (0, 1), (3, 2)])
+@pytest.mark.parametrize("rows,n", [(1, 2048), (3, 2048), (3, 8193)])
+def test_curve_kernel_offset_pointers(cuda, x_off, y_off, rows, n):
+    kern = ck._kernel()
+    x = _offset(torch.from_numpy(_inputs(rows * (2 * 4099 + 7),
+                                         seed=x_off)).to(cuda), x_off)
+    x = x.reshape(rows, -1)
+    curve = _tanh_curve(n, cuda) if rows == 1 else _table(rows, n, cuda, n)
     want = ck.curve_lookup_reference(curve, x)
-    assert torch.equal(got.isnan(), want.isnan())
-    assert torch.equal(torch.nan_to_num(got), torch.nan_to_num(want))
+    out = _offset(torch.full_like(want, float("nan")), y_off)
+    ck._launch(kern, out, curve, x)
+    torch.cuda.synchronize()
+    assert _same(out, want)
+
+
+# per-instance curves: R rows of 2 x L samples (4099: a row length that is
+# not a multiple of 4; 16384: a shaper bucket's; 300 rows: more than one
+# wave's blocks, so each block walks several rows and, staged, refills its
+# copy), on each side of the longest staged curve
+@pytest.mark.parametrize("R,L", [(1, 4099), (3, 4099), (32, 4099),
+                                 (32, 16384), (300, 99)])
+@pytest.mark.parametrize("n", (2048, 8192, 8193))
+def test_curve_table_rows(cuda, R, L, n):
+    x = torch.from_numpy(_inputs(R * 2 * L, seed=R)).reshape(R, 2, -1).to(
+        cuda)
+    table = _table(R, n, cuda, R)
+    got = ck.curve_lookup(table, x)
+    torch.cuda.synchronize()
+    assert _same(got, ck.curve_lookup_reference(table, x))
+    if R > 1:
+        assert ck._kernel().plan(n, x.numel(), R).mode == _TABLE_MODES[n]
+
+
+def test_curve_kernel_refuses_more_shared_memory_than_the_card_has(cuda):
+    kern = ck._kernel()
+    x = torch.zeros((2, 64), device=cuda)
+    curve = _tanh_curve(2048, cuda)
+    plan = ck.LaunchPlan("shared", (1, 1), 512, kern.limits()[1] + 16)
+    with pytest.raises(wt.KernelError):
+        ck._launch(kern, torch.empty_like(x), curve, x, plan)
+    # and the refusal is not left behind for the next launch
+    assert _same(ck.curve_lookup(curve, x), ck.curve_lookup_reference(curve, x))
 
 
 @pytest.mark.parametrize("bad", ["non-contiguous", "f64", "curve on cpu"])
@@ -143,14 +227,12 @@ def test_write_wav_dithers_a_card_tensor_on_the_card(cuda):
     assert blob == wav.write_wav(None, x, 48000.0, bits=16, dither=True)
 
 
-@pytest.mark.parametrize("n", (2048, 65536))
+@pytest.mark.parametrize("n", sorted(_TABLE_MODES))
 def test_curve_table_kernel_equals_plain_version(cuda, n):
-    # one curve per instance: x (R, C, B) through an (R, n) table
-    rng = np.random.default_rng(n)
+    # one curve per instance: x (R, C, B) through an (R, n) table; 8192
+    # points the longest the plan stages, 8193 through the read-only cache
     x = torch.from_numpy(_inputs(3 * 2 * 4099)).reshape(3, 2, -1).to(cuda)
-    table = torch.from_numpy(np.tanh(
-        rng.uniform(0.5, 3.0, (3, 1)) * np.linspace(-2, 2, n)).astype(
-            np.float32)).to(cuda)
+    table = _table(3, n, cuda, n)
     before = ck.curve_lookup.launches
     got = ck.curve_lookup(table, x)
     torch.cuda.synchronize()

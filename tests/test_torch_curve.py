@@ -19,7 +19,9 @@ from webaudio_tpu.ops.curve_kernel import curve_lookup_tpu_v3
 from webaudio_tpu_torch import KernelError
 from webaudio_tpu_torch.ops import curve_kernel as ck
 
-CURVE_LENGTHS = (2, 256, 4096, 65536)
+# 8192 the longest curve a table block stages in shared memory, 8193 one
+# more, 44100 MDN's distortion curve
+CURVE_LENGTHS = (2, 256, 4096, 8192, 8193, 44100, 65536)
 
 
 def _inputs(seed=7, m=6000):
@@ -85,3 +87,65 @@ def test_half_range_is_rounded_to_f32_like_jax():
     n = 2**25 + 2
     assert ck._half_nm1(n) == float(np.float32((n - 1) / 2.0))
     assert ck._half_nm1(n) != (n - 1) / 2.0
+
+
+# the launch plan, on an H100's limits: 132 SMs, 49,152 bytes of shared
+# memory a block (without opting in to more)
+SMS, SMEM = 132, 49152
+
+
+def test_longest_staged_curve_fits_a_block_without_opting_in():
+    assert ck.staged_bytes(ck._STAGE_MAX_POINTS) <= SMEM
+    # the barrier, and a bulk copy's 16-byte units wherever the curve starts
+    assert ck.staged_bytes(2048) == 16 + 4 * 2048 + 32
+
+
+@pytest.mark.parametrize("n,m,grid", [
+    (2048, 2 * 262144, (1056, 1)),        # the slice: 8 blocks of 256 a SM
+    (2048, 2 * 1048576, (1056, 1)),       # one wave, striding
+    (44100, 2 * 262144, (1056, 1)),
+    (65536, 2 * 262144, (1056, 1)),
+    (2048, 5, (1, 1)),
+])
+def test_launch_plan_for_one_curve(n, m, grid):
+    # one curve gathers through the read-only cache, whatever its length
+    p = ck.launch_plan(n, m, 1, SMS, SMEM)
+    assert (p.mode, p.grid, p.threads, p.smem_bytes) == ("global", grid, 256, 0)
+
+
+@pytest.mark.parametrize("R,row_len,n,smem,mode,grid", [
+    # a MixedGraphBatch shaper bucket of per-instance curves: 2 blocks of
+    # 512 a SM, 8 a row
+    (32, 2 * 16384, 2048, SMEM, "shared", (8, 32)),
+    (3, 2 * 4099, 2048, SMEM, "shared", (5, 3)),  # rows not a multiple of 4
+    (2, 4, 2, SMEM, "shared", (1, 2)),            # the shortest curve
+    (4, 2 ** 20, 8192, SMEM, "shared", (66, 4)),  # the longest staged curve
+    (4, 2 ** 20, 8193, SMEM, "cached", (33, 4)),  # 1 block of 1024 a SM
+    (32, 2 * 16384, 65536, SMEM, "cached", (4, 32)),
+    (1024, 256, 2048, SMEM, "shared", (1, 264)),  # more rows than the wave
+    (70000, 4, 2048, SMEM, "shared", (1, 264)),
+    # a card whose blocks cannot hold the staged curve takes the cache
+    (32, 2 * 16384, 4096, 16384, "cached", (4, 32)),
+])
+def test_launch_plan_for_a_table(R, row_len, n, smem, mode, grid):
+    p = ck.launch_plan(n, R * row_len, R, SMS, smem)
+    assert (p.mode, p.grid) == (mode, grid)
+    assert p.threads == (512 if mode == "shared" else 1024)
+    assert p.smem_bytes == (ck.staged_bytes(n) if mode == "shared" else 0)
+
+
+@pytest.mark.parametrize("n,R,mode,threads,grid", [
+    (2048, 1, "global", 256, (100, 1)),
+    (2048, 4, "shared", 512, (25, 4)),
+    (8193, 4, "cached", 1024, (25, 4)),
+])
+def test_occupancy_caps_the_wave(n, R, mode, threads, grid):
+    asked = []
+
+    def resident(*args):
+        asked.append(args)
+        return 100
+
+    p = ck.launch_plan(n, R * 2 ** 20, R, SMS, SMEM, resident)
+    assert (p.mode, p.threads, p.grid) == (mode, threads, grid)
+    assert asked == [(mode, threads, p.smem_bytes)]
