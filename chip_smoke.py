@@ -135,6 +135,42 @@ grains of 90 ms with linear attack/release envelopes at rates 0.9-1.1):
      offset: one bucket, every output within 1e-6 x peak of its own
      start_rendering_sync.
 
+Then oscillators and voice banks (10 s, 48 kHz, stereo), each main path
+with every kernel's launch count from 0:
+
+  o. BASELINE config 2 auto-fused (benches/suite.py::case_many_oscillators:
+     500 sine oscillators, 80-2,080 Hz, +-15 cents, each through its ADSR
+     gain envelope into a 1/500 mix gain; RandomState(42)): the plan must
+     hold one 500-voice bank with a gain stage over 30 blocks of 16,000
+     frames (the JAX planner's, as tests/test_torch_voices.py holds on the
+     CPU); the render's first 2 s within 1e-5 x peak of the port's CPU
+     render.  The default render follows the reference's back-extrapolated
+     setTarget plateau between each decay's snap and its release, which no
+     formula states, so the same graph also renders with
+     WEBAUDIO_STRICT_SPEC=1 (W3C hold semantics): its first 2 s against
+     the CPU render at 1e-5 x peak and all 10 s against a numpy f64 oracle
+     (closed-form phase per voice at the f32-rounded computed frequency
+     from the sub-sample start, the envelope's formulas) at 1e-4 x peak;
+  p. config 2 as one OscillatorBankNode (case_many_oscillators_fused:
+     per-voice pans, analytic ADSR): one _BankKernel, no dense rows; first
+     2 s against the CPU render at 1e-5 x peak, 10 s against a numpy f64
+     oracle at 1e-4 x peak;
+  q. a 64-voice distortion bank: sawtooth voices, each through its own
+     WaveShaper (2,048-point tanh curve, a drive of its own), a constant
+     lowpass, a gain envelope and a constant StereoPanner: the four stages
+     must fuse into one bank, whose shaper launches the curve kernel
+     (counted) over a (64, 2048) table of per-voice curves; the captured
+     launch bit-equal to its plain version; the render within 1e-5 x peak
+     of the CPU render and 2e-5 x peak (the JAX suite's fused-against-
+     unfused bound) of the unfused render on the card;
+  r. for o, p and q: start_rendering_sync end to end (one warm-up, median
+     of 5), the block loop on a compiled plan with its rows staged, host
+     planning apart (fusion, the param timelines' compile, compile_graph,
+     packing the dense rows and their bytes, their copy, the param-state
+     advance) and the device-busy share (torch.profiler); then the curve
+     kernel at S7, phase q's captured launch, warm and cold L2 against
+     its plain version, its bound and grid_sample.
+
 Prints the measurements, a {"kernels": [...]} line (each kernel's launches
 on its path, error against its plain version, device time, the plain
 version's, the least time the card could take (`bound_ms`: the larger of
@@ -142,7 +178,8 @@ the bytes it must move at 3.35 TB/s and its f32 operations at 67 TFLOP/s),
 its share of that bound (for the curve and grain kernels, of their
 cold-L2 time: the bound reads every input from HBM) and one PyTorch call's
 time where one computes the same function; the curve kernel's row also
-carries S1-S6 and the floor) and the card's name and power limit, then as
+carries S1-S7, the floor and its launches on the offline and voice paths)
+and the card's name and power limit, then as
 its last line {"ok": true, "device": {...}}.  Exits non-zero, printing no result, if CUDA is unavailable or any
 phase fails.  Imports nothing of JAX.
 """
@@ -182,6 +219,10 @@ GRAIN_SECONDS = 10.0
 GRAIN_FRAMES = int(GRAIN_FS * GRAIN_SECONDS)
 GRAIN_BLOCK = 441088         # the plan's one block (3,446 quanta)
 MIXED_GRAIN_CONTEXTS = 64
+OSC_VOICES = 500             # BASELINE config 2
+DRIVE_VOICES = 64
+CPU_SECONDS = 2.0            # the CPU renders o and p are held to
+ORACLE_CHUNK = 16000         # frames per chunk of the f64 oracles
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM, NVIDIA data sheet
 F32_OPS_PER_S = 67e12        # f32 outside the tensor cores
 
@@ -460,10 +501,13 @@ def phase_d(wt):
     _check_close("d. README a-rate sweep, cuda vs cpu", got, want, 1e-4)
 
 
-def phase_e(wt, ck, compiler):
+def _render_ms(label, make, seconds, reps=5):
+    """start_rendering_sync of a fresh context from make() between CUDA
+    events: one warm-up, then the median of `reps`; printed with the
+    realtime factor."""
     runs = []
-    for i in range(6):
-        ctx = slice_context(wt, "cuda", _bench_data(), FS)
+    for i in range(reps + 1):
+        ctx = make()
         torch.cuda.synchronize()
         start = torch.cuda.Event(enable_timing=True)
         stop = torch.cuda.Event(enable_timing=True)
@@ -473,10 +517,16 @@ def phase_e(wt, ck, compiler):
         torch.cuda.synchronize()
         if i:                                  # the first run is warm-up
             runs.append(start.elapsed_time(stop))
-    e2e_ms = statistics.median(runs)
-    print(f"e. start_rendering_sync 10 s slice: median {e2e_ms:.3f} ms of "
+    ms = statistics.median(runs)
+    print(f"{label}: start_rendering_sync median {ms:.3f} ms of "
           f"{['%.3f' % r for r in runs]} -> realtime factor "
-          f"{SECONDS * 1000.0 / e2e_ms:.1f}x", flush=True)
+          f"{seconds * 1000.0 / ms:.1f}x", flush=True)
+    return ms
+
+
+def phase_e(wt, ck, compiler):
+    _render_ms("e. 10 s slice",
+               lambda: slice_context(wt, "cuda", _bench_data(), FS), SECONDS)
 
     ctx = slice_context(wt, "cuda", _bench_data(), FS)
     cg = compiler.compile_graph(dict(ctx._nodes), list(ctx._edges), FS,
@@ -930,6 +980,22 @@ def _profile(calls):
                               for e in ops]
 
 
+def _print_busy(label, what, calls):
+    """The device-busy share over `calls` run back to back under
+    torch.profiler, printed with the device time per call by op; returns
+    the share (None where the profiler saw no device time)."""
+    busy, wall, top = _profile(calls)
+    if busy <= 0:
+        print(f"{label}: profiler saw no device time over {what}: busy "
+              "share not measured", flush=True)
+        return None
+    print(f"{label}: profiler over {len(calls)} x {what}: device busy "
+          f"{busy / 1000:.3f} ms of {wall / 1000:.3f} ms wall "
+          f"({100.0 * busy / wall:.1f}% busy); device us per call by op: "
+          f"{[(k, round(t, 1)) for k, t in top]}", flush=True)
+    return busy / wall
+
+
 def _busy_share(fn, reps=3):
     fn()
     torch.cuda.synchronize()
@@ -1080,17 +1146,23 @@ def grain_oracle(wt, n_grains, seconds=GRAIN_SECONDS):
 
 
 @contextlib.contextmanager
-def _grain_read(mode):
-    """WEBAUDIO_GRAIN_READ=mode for the block (None: unset, i.e. auto)."""
-    old = os.environ.pop("WEBAUDIO_GRAIN_READ", None)
-    if mode is not None:
-        os.environ["WEBAUDIO_GRAIN_READ"] = mode
+def _env(name, value):
+    """Environment variable `name` set to `value` for the block (None:
+    unset)."""
+    old = os.environ.pop(name, None)
+    if value is not None:
+        os.environ[name] = value
     try:
         yield
     finally:
-        os.environ.pop("WEBAUDIO_GRAIN_READ", None)
+        os.environ.pop(name, None)
         if old is not None:
-            os.environ["WEBAUDIO_GRAIN_READ"] = old
+            os.environ[name] = old
+
+
+def _grain_read(mode):
+    """WEBAUDIO_GRAIN_READ=mode for the block (None: unset, i.e. auto)."""
+    return _env("WEBAUDIO_GRAIN_READ", mode)
 
 
 @contextlib.contextmanager
@@ -1408,22 +1480,8 @@ def phase_m(wt, gr, compiler, fusion, cases, old=None):
         n = case["n"]
         label = f"m. {n} grains"
         with _grain_read(None):
-            runs = []
-            for i in range(6):
-                ctx = granular_context(wt, "cuda", n)
-                torch.cuda.synchronize()
-                start = torch.cuda.Event(enable_timing=True)
-                stop = torch.cuda.Event(enable_timing=True)
-                start.record()
-                ctx.start_rendering_sync()
-                stop.record()
-                torch.cuda.synchronize()
-                if i:                          # the first run is warm-up
-                    runs.append(start.elapsed_time(stop))
-            e2e = statistics.median(runs)
-            print(f"{label}: start_rendering_sync median {e2e:.3f} ms of "
-                  f"{['%.3f' % r for r in runs]} -> realtime factor "
-                  f"{GRAIN_SECONDS * 1000.0 / e2e:.1f}x", flush=True)
+            _render_ms(label, lambda: granular_context(wt, "cuda", n),
+                       GRAIN_SECONDS)
 
             ctx = granular_context(wt, "cuda", n)
             dest = ctx._destination.node_id
@@ -1468,22 +1526,10 @@ def phase_m(wt, gr, compiler, fusion, cases, old=None):
                   f"{GRAIN_SECONDS * 1000.0 / loop_ms:.1f}x", flush=True)
 
             ctxs = [granular_context(wt, "cuda", n) for _ in range(3)]
-            for what, calls in (
-                    ("start_rendering_sync", [c.start_rendering_sync
-                                              for c in ctxs]),
-                    ("block loop", [lambda: compiler.render_compiled(
-                        cg, GRAIN_FRAMES)] * 3)):
-                busy, wall, top = _profile(calls)
-                if busy > 0:
-                    print(f"{label}: profiler over 3 x {what}: device busy "
-                          f"{busy / 1000:.3f} ms of {wall / 1000:.3f} ms "
-                          f"wall ({100.0 * busy / wall:.1f}% busy); device "
-                          f"us per call by op: "
-                          f"{[(k, round(t, 1)) for k, t in top]}",
-                          flush=True)
-                else:
-                    print(f"{label}: profiler saw no device time over "
-                          f"{what}: busy share not measured", flush=True)
+            _print_busy(label, "start_rendering_sync",
+                        [c.start_rendering_sync for c in ctxs])
+            _print_busy(label, "block loop", [lambda: compiler.render_compiled(
+                cg, GRAIN_FRAMES)] * 3)
 
             with _recording(fusion, "grain_bank") as calls:
                 granular_context(wt, "cuda", n).start_rendering_sync()
@@ -1655,6 +1701,412 @@ def phase_n(wt, gr):
           f"{worst:.3e} x peak (limit 1e-6) -> ok", flush=True)
 
 
+# --- oscillators and voice banks, o-r ---------------------------------------
+
+
+def _start_frame(t, fs):
+    """ceil(t fs) with the sticky sample-grid snap of a scheduled start."""
+    f = t * fs
+    if abs(f - round(f)) <= 1.5e-8 * max(abs(f), 1.0):
+        f = round(f)
+    return math.ceil(f)
+
+
+def _osc_schedule(n_osc):
+    """benches/suite.py::case_many_oscillators' voices as (frequency,
+    detune, t0), drawn from RandomState(42) in the suite's order."""
+    rng = np.random.RandomState(42)
+    return [(float(80 + rng.rand() * 2000), float(rng.randn() * 15),
+             float(rng.rand() * 2.0)) for _ in range(n_osc)]
+
+
+def oscillators_context(wt, device, seconds=SECONDS, n_osc=OSC_VOICES):
+    """benches/suite.py::case_many_oscillators (BASELINE config 2): sine
+    oscillators at 80-2,080 Hz with +-15-cent detune, each through its ADSR
+    gain envelope (a 50 ms linear attack, setTarget decay to 0.6 with tau
+    0.1 s, setTarget release at t0 + 4 s with tau 0.3 s), into a mix gain of
+    1/n, into the stereo destination; 48 kHz."""
+    ctx = wt.OfflineAudioContext(2, int(FS * seconds), FS, device=device)
+    mix = ctx.create_gain(gain=1.0 / n_osc)
+    mix.connect(ctx.destination)
+    for f, d, t0 in _osc_schedule(n_osc):
+        o = ctx.create_oscillator(frequency=f, detune=d)
+        env = ctx.create_gain(gain=0.0)
+        env.gain.set_value_at_time(0.0, t0)
+        env.gain.linear_ramp_to_value_at_time(1.0, t0 + 0.05)
+        env.gain.set_target_at_time(0.6, t0 + 0.05, 0.1)
+        env.gain.set_target_at_time(0.0, t0 + 4.0, 0.3)
+        o.connect(env)
+        env.connect(mix)
+        o.start(t0)
+    return ctx
+
+
+def oscillators_oracle(n_osc=OSC_VOICES, frames=FRAMES):
+    """Config 2 in numpy float64 under W3C hold semantics, one channel (the
+    destination copies it to both): each voice's phase in closed form from
+    its start time t0 (so the sub-sample start) at its computed frequency
+    f 2^(d / 1200) rounded to f32 as the engine rounds it on the host,
+    sounding from frame ceil(t0 fs), times its envelope by the spec's
+    formulas: the linear ramp from 0 at t0 to 1 at t0 + 0.05, then
+    0.6 + 0.4 exp(-(t - t0 - 0.05) / 0.1), from t0 + 4 that value times
+    exp(-(t - t0 - 4) / 0.3); summed in chunks, times the mix gain."""
+    sched = np.array(_osc_schedule(n_osc))
+    f, d = sched[:, 0].astype(np.float32), sched[:, 1].astype(np.float32)
+    comp = (f * np.exp2(d / np.float32(1200.0))).astype(np.float32)
+    comp = comp.astype(np.float64)[:, None]
+    t0 = sched[:, 2][:, None]
+    start = np.array([_start_frame(x, FS) for x in sched[:, 2]])[:, None]
+    at_release = 0.6 + 0.4 * np.exp(-3.95 / 0.1)
+    out = np.zeros(frames)
+    for c0 in range(0, frames, ORACLE_CHUNK):
+        n = np.arange(c0, min(c0 + ORACLE_CHUNK, frames))
+        rel = n[None] / FS - t0
+        ph = rel * comp
+        ph -= np.floor(ph)
+        env = np.where(
+            rel < 0.05, rel / 0.05,
+            np.where(rel < 4.0, 0.6 + 0.4 * np.exp(-(rel - 0.05) / 0.1),
+                     at_release * np.exp(-(rel - 4.0) / 0.3)))
+        out[n] = np.where(n[None] >= start, np.sin(2.0 * np.pi * ph) * env,
+                          0.0).sum(0)
+    return out * float(np.float32(1.0 / n_osc))
+
+
+def _bank_voices(n_osc):
+    """benches/suite.py::case_many_oscillators_fused's voices: frequencies,
+    starts, stops and pans from RandomState(42) in the suite's order."""
+    rng = np.random.RandomState(42)
+    freqs = 80 + rng.rand(n_osc) * 2000
+    starts = rng.rand(n_osc) * 2.0
+    stops = rng.rand(n_osc) * 2.0 + 6.0
+    return freqs, starts, stops, rng.rand(n_osc) * 2 - 1
+
+
+def bank_context(wt, device, seconds=SECONDS, n_osc=OSC_VOICES):
+    """benches/suite.py::case_many_oscillators_fused: config 2 as one
+    OscillatorBankNode, analytic ADSR (attack 50 ms, decay 0.1 s to 0.6,
+    release 0.3 s), per-voice pans, stereo; 48 kHz."""
+    ctx = wt.OfflineAudioContext(2, int(FS * seconds), FS, device=device)
+    freqs, starts, stops, pans = _bank_voices(n_osc)
+    ctx.create_oscillator_bank(
+        frequencies=freqs, starts=starts, stops=stops, attacks=0.05,
+        decays=0.1, sustains=0.6, releases=0.3, volumes=1.0 / n_osc,
+        stereo=True, pans=pans).connect(ctx.destination)
+    return ctx
+
+
+def bank_oracle(n_osc=OSC_VOICES, frames=FRAMES):
+    """The bank in numpy float64 from its voices' f32 values: phase
+    f (t - start) mod 1, the envelope clip((t - start) / a, 0, 1) up to
+    the attack's end, s + (1 - s) exp(-(t - start - a) / d) after it, times
+    exp(-(t - stop) / r) after the stop, each voice times its volume and
+    its equal-power pan gains sin((1 - x) pi / 2), sin(x pi / 2) at
+    x = (pan + 1) / 2; summed in chunks."""
+    freqs, starts, stops, pans = (np.asarray(a, np.float32).astype(
+        np.float64)[:, None] for a in _bank_voices(n_osc))
+    a, dcy, s, rel = (float(np.float32(v)) for v in (0.05, 0.1, 0.6, 0.3))
+    vol = float(np.float32(1.0 / n_osc))
+    x = (pans + 1.0) / 2.0
+    gains = np.stack([np.sin((1.0 - x) * np.pi / 2), np.sin(x * np.pi / 2)])
+    out = np.zeros((2, frames))
+    for c0 in range(0, frames, ORACLE_CHUNK):
+        n = np.arange(c0, min(c0 + ORACLE_CHUNK, frames))
+        t = n[None] / FS
+        on = t - starts
+        ph = freqs * on
+        ph -= np.floor(ph)
+        env = np.where(on - a > 0.0, s + (1.0 - s) * np.exp(-(on - a) / dcy),
+                       np.clip(on / a, 0.0, 1.0))
+        off = t - stops
+        env = np.where(off > 0.0, env * np.exp(-off / rel), env)
+        voice = np.where(on >= 0.0, np.sin(2.0 * np.pi * ph) * env, 0.0) * vol
+        out[:, n] = (voice[None] * gains).sum(1)
+    return out
+
+
+def drive_context(wt, device, seconds=SECONDS, n_voices=DRIVE_VOICES):
+    """A voice-distortion bank: sawtooth voices at 55-495 Hz, each through
+    its own WaveShaper (a 2,048-point tanh curve at a drive of 1-8 of its
+    own), a constant lowpass biquad (600-4,600 Hz, Q 1), a gain envelope
+    (20 ms linear attack to 0.1, held, a 0.3 s linear release) and a
+    constant StereoPanner, into the destination; drawn from
+    RandomState(7); 48 kHz."""
+    ctx = wt.OfflineAudioContext(2, int(FS * seconds), FS, device=device)
+    rng = np.random.RandomState(7)
+    for _ in range(n_voices):
+        freq, drive = 55.0 + 440.0 * rng.rand(), 1.0 + 7.0 * rng.rand()
+        cutoff, pan = 600.0 + 4000.0 * rng.rand(), 2.0 * rng.rand() - 1.0
+        t0 = 2.0 * rng.rand()
+        t1 = t0 + 2.0 + 5.0 * rng.rand()
+        o = ctx.create_oscillator(type="sawtooth", frequency=float(freq))
+        shaper = ctx.create_wave_shaper(curve=np.tanh(
+            drive * np.linspace(-1.0, 1.0, CURVE_POINTS)).astype(np.float32))
+        filt = ctx.create_biquad_filter(type="lowpass",
+                                        frequency=float(cutoff), q=1.0)
+        env = ctx.create_gain(gain=0.0)
+        env.gain.set_value_at_time(0.0, t0)
+        env.gain.linear_ramp_to_value_at_time(0.1, t0 + 0.02)
+        env.gain.set_value_at_time(0.1, t1)
+        env.gain.linear_ramp_to_value_at_time(0.0, t1 + 0.3)
+        panner = ctx.create_stereo_panner(pan=float(pan))
+        o.connect(shaper)
+        shaper.connect(filt)
+        filt.connect(env)
+        env.connect(panner)
+        panner.connect(ctx.destination)
+        o.start(t0)
+        o.stop(t1 + 0.3)
+    return ctx
+
+
+def _blocks(compiler, cg):
+    """The number of blocks a compiled plan walks."""
+    return compiler._pad_len(cg.total_frames, cg.block_frames) // \
+        cg.block_frames
+
+
+def _plan(compiler, ctx):
+    """(compiled plan, block count) of the context's whole render."""
+    cg = compiler.compile_graph(dict(ctx._nodes), list(ctx._edges),
+                                ctx.sample_rate, ctx.length,
+                                ctx._destination.node_id, ctx.device)
+    return cg, _blocks(compiler, cg)
+
+
+def _main_path(ctx, kernels):
+    """start_rendering_sync of ctx with every kernel's count from 0: (the
+    render, the launches)."""
+    for k in kernels:
+        k.launches = 0
+    out = ctx.start_rendering_sync().to_array()
+    segs = ctx.render_stats["segments"]
+    if any(s["failed"] for s in segs):
+        raise AssertionError(f"nodes failed: {segs}")
+    return out, {k.__name__: k.launches for k in kernels}
+
+
+def phase_o(wt, compiler, kernels):
+    label = f"o. config 2, {OSC_VOICES} oscillators, auto-fused"
+    ctx = oscillators_context(wt, "cuda")
+    cg, kern = _fused_kernel(compiler, ctx)
+    nb = _blocks(compiler, cg)
+    print(f"{label}: plan {len(cg.kernels)} kernels, one "
+          f"_FusedVoicesKernel of V {kern.V} ({kern.kind}, gain stage "
+          f"{kern.has_gain}, closed-form phase {kern.all_const_freq}), "
+          f"{len(cg.dense_params)} dense param rows; block_frames "
+          f"{cg.block_frames}, {nb} blocks", flush=True)
+    # the JAX planner's choice for this graph (tests/test_torch_voices.py
+    # holds the port's plan to it on the CPU)
+    if (kern.V, kern.has_gain, cg.block_frames, nb) != (OSC_VOICES, True,
+                                                         16000, 30):
+        raise AssertionError("config 2 did not plan one 500-voice bank "
+                             "with a gain stage over 30 blocks of 16,000")
+    out, launches = _main_path(ctx, kernels)
+    print(f"{label}: main path launched {launches} (none of the hand "
+          f"kernels is on it: the bank is plain PyTorch ops); peak "
+          f"{np.abs(out).max():.4f} (the reference's back-extrapolated "
+          f"setTarget plateau between each decay's snap and its release)",
+          flush=True)
+    frames = int(FS * CPU_SECONDS)
+    cpu = oscillators_context(wt, "cpu", CPU_SECONDS).start_rendering_sync() \
+        .to_array()
+    err_cpu = _check_close(f"{label}: first {CPU_SECONDS:g} s vs the port's "
+                           "CPU render", out[:, :frames], cpu, 1e-5)
+    err_cpu /= np.abs(cpu).max()
+    # the oracle's formulas are the spec's: W3C hold semantics before the
+    # release's setTarget
+    with _env("WEBAUDIO_STRICT_SPEC", "1"):
+        strict = oscillators_context(wt, "cuda").start_rendering_sync() \
+            .to_array()
+        cpu = oscillators_context(wt, "cpu", CPU_SECONDS) \
+            .start_rendering_sync().to_array()
+    err_strict = _check_close(
+        f"{label}, WEBAUDIO_STRICT_SPEC=1: first {CPU_SECONDS:g} s vs the "
+        "port's CPU render", strict[:, :frames], cpu, 1e-5)
+    want = oscillators_oracle()
+    err = _check_close(f"{label}, WEBAUDIO_STRICT_SPEC=1: 10 s vs the numpy "
+                       "f64 oracle", strict, np.stack([want, want]), 1e-4)
+    print(f"{label}: errors {err_cpu:.3e} x peak (CPU); with "
+          f"WEBAUDIO_STRICT_SPEC=1 {err_strict / np.abs(cpu).max():.3e} x "
+          f"peak (CPU), {err / np.abs(want).max():.3e} x peak (oracle)",
+          flush=True)
+    return launches
+
+
+def phase_p(wt, compiler, kernels):
+    label = f"p. config 2 as a bank, {OSC_VOICES} voices"
+    ctx = bank_context(wt, "cuda")
+    cg, nb = _plan(compiler, ctx)
+    banks = [k for k in cg.kernels.values()
+             if type(k).__name__ == "_BankKernel"]
+    print(f"{label}: plan {len(cg.kernels)} kernels, {len(banks)} "
+          f"_BankKernel, {len(cg.dense_params)} dense param rows; "
+          f"block_frames {cg.block_frames}, {nb} blocks", flush=True)
+    if len(banks) != 1 or cg.dense_params:
+        raise AssertionError("the bank did not plan one _BankKernel without "
+                             "dense rows")
+    out, launches = _main_path(ctx, kernels)
+    print(f"{label}: main path launched {launches}", flush=True)
+    frames = int(FS * CPU_SECONDS)
+    cpu = bank_context(wt, "cpu", CPU_SECONDS).start_rendering_sync() \
+        .to_array()
+    err_cpu = _check_close(f"{label}: first {CPU_SECONDS:g} s vs the port's "
+                           "CPU render", out[:, :frames], cpu, 1e-5)
+    want = bank_oracle()
+    err = _check_close(f"{label}: 10 s vs the numpy f64 oracle", out, want,
+                       1e-4)
+    print(f"{label}: errors {err_cpu / np.abs(cpu).max():.3e} x peak (CPU), "
+          f"{err / np.abs(want).max():.3e} x peak (oracle)", flush=True)
+    return launches
+
+
+def phase_q(wt, compiler, fusion, ck, kernels):
+    """Returns the curve kernel's launches on the voice path and the
+    (table, x) of its last call there (S7)."""
+    label = f"q. {DRIVE_VOICES}-voice distortion bank"
+    ctx = drive_context(wt, "cuda")
+    cg, kern = _fused_kernel(compiler, ctx)
+    nb = _blocks(compiler, cg)
+    stages = {s: getattr(kern, f"has_{s}")
+              for s in ("shaper", "filter", "gain", "pan")}
+    print(f"{label}: plan {len(cg.kernels)} kernels, one _FusedVoicesKernel "
+          f"of V {kern.V} ({kern.kind}), stages {stages}; block_frames "
+          f"{cg.block_frames}, {nb} blocks", flush=True)
+    if len(cg.kernels) != 2 or kern.V != DRIVE_VOICES or \
+            not all(stages.values()):
+        raise AssertionError("the four stages did not fuse into one bank")
+    with _recording(fusion, "curve_lookup") as calls:
+        out, launches = _main_path(ctx, kernels)
+    print(f"{label}: main path launched {launches}", flush=True)
+    if launches["curve_lookup"] < 1:
+        raise AssertionError("K1 never launched on the voice path")
+    table, x = calls[-1]
+    err = _curve_equal(f"{label}: K1 on the captured launch", ck.curve_lookup(
+        table, x), ck.curve_lookup_reference(table, x))
+    print(f"{label}: K1's last launch, table {tuple(table.shape)} over x "
+          f"{tuple(x.shape)} "
+          f"({_plan_text(ck._kernel().plan(table.shape[1], x.numel(), len(table)))})"
+          f": bit-equal True max_abs_err {err:.3e}", flush=True)
+    cpu = drive_context(wt, "cpu").start_rendering_sync().to_array()
+    _check_close(f"{label}: vs the port's CPU render", out, cpu, 1e-5)
+    with _env("WEBAUDIO_FUSE_THRESHOLD", "1000"):
+        unfused = drive_context(wt, "cuda")
+        ucg, _ = _plan(compiler, unfused)
+        unfused = unfused.start_rendering_sync().to_array()
+    print(f"{label}: unfused plan {len(ucg.kernels)} kernels", flush=True)
+    _check_close(f"{label}: vs the unfused render on the card", out, unfused,
+                 2e-5)
+    return launches["curve_lookup"], (table, x), err
+
+
+def _host_planning(label, compiler, fusion, make):
+    """Host planning of a fresh context from make(), apart (host clock):
+    fusion, the param timelines' compile, compile_graph (both and the
+    kernels), packing and blocking the dense rows, their copy to the card,
+    and the param-state advance the offline context runs after the render.
+    Returns the plan."""
+    ctx = make()
+    fs, frames = ctx.sample_rate, ctx.length
+    dest = ctx._destination.node_id
+    t0 = time.perf_counter()
+    nodes2, _, _ = fusion.fuse_sources(dict(ctx._nodes), list(ctx._edges),
+                                       dest, sample_rate=fs)
+    t_fuse = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cg = compiler.compile_graph(dict(ctx._nodes), list(ctx._edges), fs,
+                                frames, dest, "cuda")
+    t_compile = time.perf_counter() - t0
+    padded = compiler._pad_len(frames, cg.block_frames)
+    t0 = time.perf_counter()
+    count = 0
+    for node in nodes2.values():
+        for p in node.params.values():
+            p.compile_for_render(fs, padded, 0)
+            count += 1
+    t_params = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rows = compiler.block_rows(compiler.pack_dense_params(cg, padded),
+                               cg.block_frames)[None].copy()
+    t_pack = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    torch.from_numpy(rows).to("cuda")
+    torch.cuda.synchronize()
+    t_copy = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ctx._advance_param_state(frames)
+    t_advance = time.perf_counter() - t0
+    print(f"{label}: host planning (host clock): fuse_sources "
+          f"{t_fuse * 1e3:.3f} ms; compiling the {count} param timelines "
+          f"{t_params * 1e3:.3f} ms; compile_graph (fusion, timelines, "
+          f"kernels) {t_compile * 1e3:.3f} ms; packing {len(cg.dense_params)} "
+          f"dense rows into {rows.nbytes} B {t_pack * 1e3:.3f} ms; their "
+          f"copy to the card {t_copy * 1e3:.3f} ms; advancing the param "
+          f"timelines to the render's end {t_advance * 1e3:.3f} ms",
+          flush=True)
+    return cg
+
+
+def phase_r(wt, compiler, fusion, ck, s7):
+    """Timing of o, p and q: start_rendering_sync end to end, the block loop
+    on a compiled plan with its dense rows staged, host planning apart, the
+    device-busy share; then K1 at S7.  Returns S7's timings."""
+    cases = [("r. o (config 2, auto-fused)",
+              lambda: oscillators_context(wt, "cuda"), 2),
+             ("r. p (config 2 as a bank)", lambda: bank_context(wt, "cuda"),
+              3),
+             ("r. q (distortion bank)", lambda: drive_context(wt, "cuda"),
+              3)]
+    for label, make, profiled in cases:
+        _render_ms(label, make, SECONDS)
+        cg = _host_planning(label, compiler, fusion, make)
+        args = compiler.render_args(cg, FRAMES)
+        compiler.scan_render(cg, *args)
+        loop = [_events_ms(lambda: compiler.scan_render(cg, *args), 3)
+                for _ in range(3)]
+        loop_ms = statistics.median(loop)
+        print(f"{label}: block loop on a compiled plan, rows staged: median "
+              f"{loop_ms:.3f} ms of {['%.3f' % r for r in loop]} (3 renders "
+              f"each) -> realtime factor {SECONDS * 1000.0 / loop_ms:.1f}x",
+              flush=True)
+        _print_busy(label, "start_rendering_sync",
+                    [make().start_rendering_sync for _ in range(profiled)])
+        _print_busy(label, "block loop",
+                    [lambda: compiler.scan_render(cg, *args)] * profiled)
+        del args, cg
+        torch.cuda.empty_cache()
+
+    table, x = (t.contiguous() for t in s7)
+    kern = ck._kernel()
+    plan = kern.plan(table.shape[1], x.numel(), len(table))
+    res = _kernel_times(
+        f"r. curve_lookup S7 {tuple(x.shape)}, table {tuple(table.shape)} "
+        f"[{_plan_text(plan)}]", ck._launch, {"new": kern},
+        ck.curve_lookup_reference,
+        (table, x), _nbytes(table, x) + x.numel() * 4, 11 * x.numel())
+    res["plan"] = _plan_text(plan)
+
+    # yardstick: grid_sample over R one-row images, each voice's samples
+    # through its own curve (as phase e's, per row)
+    R, L = x.shape
+    grid = torch.stack([x, torch.zeros_like(x)], -1).reshape(R, 1, L, 2)
+    img = table.reshape(R, 1, 1, -1)
+
+    def library():
+        return torch.nn.functional.grid_sample(
+            img, grid, mode="bilinear", padding_mode="border",
+            align_corners=True)
+
+    res["library_err"] = float((library().reshape(R, L) - ck.curve_lookup(
+        table, x)).abs().max())
+    res["library_ms"] = statistics.median(_graph_ms(library, 20)
+                                          for _ in range(3))
+    print(f"r. grid_sample (a one-row image per voice) at S7: "
+          f"{res['library_ms'] * 1000:.2f} us, max |grid_sample - kernel| "
+          f"{res['library_err']:.3e}", flush=True)
+    return res
+
+
 def _ptxas_build(cuda_lib, name, source):
     """nvcc `source` with the port's flags and `-Xptxas -v` into the
     git-ignored build directory; returns the loaded library and ptxas's
@@ -1785,6 +2237,15 @@ def main() -> int:
                           old.get("grain"))
     phase_n(wt, gr)
 
+    # oscillators and voice banks, o-r: each main path counts every
+    # kernel's launches from 0
+    every = (ck.curve_lookup, dither.dither_i16, dither.ulaw_u8,
+             gr.grain_bank, gr.grouped_lerp)
+    phase_o(wt, compiler, every)
+    phase_p(wt, compiler, every)
+    voice_launches, s7, s7_err = phase_q(wt, compiler, fusion, ck, every)
+    k1["S7"] = phase_r(wt, compiler, fusion, ck, s7)
+
     n_q = QUANT_SHAPE[0] * QUANT_SHAPE[1]
     k5_bound = _bound(n_q * 6, 25 * n_q)
     k6_bound = _bound(n_q * 5, 50 * n_q)
@@ -1806,12 +2267,14 @@ def main() -> int:
          "also_replaces": ["webaudio_tpu/ops/curve_kernel.py:268",
                            "webaudio_tpu/ops/curve_kernel.py:224"],
          "launches": launches["curve_lookup"],
-         "launches_offline_path": offline_launches, "max_abs_err": max_err,
+         "launches_offline_path": offline_launches,
+         "launches_voice_path": voice_launches,
+         "max_abs_err": max(max_err, s7_err),
          **{k: v for k, v in k1["S1"].items() if k != "plan"},
          "library_ms": k1_lib_ms, "library_max_abs_err": k1_lib_err,
          "floor_ms": k1["floor_ms"],
          "shapes": {s: k1[s] for s in ("S1", "S1 random", "S1 copies", "S2",
-                                       "S3", "S4", "S5", "S6")}},
+                                       "S3", "S4", "S5", "S6", "S7")}},
         {"name": "dither_i16", "route": "cuda",
          "source": "webaudio_tpu_torch/csrc/quantize.cu",
          "replaces": "webaudio_tpu/ops/dither.py:37",

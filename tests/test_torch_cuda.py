@@ -603,3 +603,60 @@ def test_single_source_grouped_read_on_the_card(cuda, monkeypatch, mode, loop):
     got = render(cuda)
     assert gr.grouped_lerp.launches > before
     np.testing.assert_array_equal(got, render("cpu"))
+
+
+# --- oscillator voice banks --------------------------------------------------
+
+
+def test_curve_kernel_at_the_voice_table_shape(cuda):
+    """K1 over a fused distortion bank's block (chip_smoke.py's S7): a
+    (64, 2048) table of per-voice curves over (64, 96000) voices."""
+    table = _table(64, 2048, cuda, seed=11)
+    x = torch.from_numpy(_inputs(64 * 96000, seed=11)).reshape(64, -1).to(cuda)
+    before = ck.curve_lookup.launches
+    got = ck.curve_lookup(table, x)
+    torch.cuda.synchronize()
+    assert ck.curve_lookup.launches == before + 1
+    assert _same(got, ck.curve_lookup_reference(table, x))
+
+
+def _distortion_bank(device, seconds=1.0, voices=64):
+    """Sawtooth voices, each through its own WaveShaper (a tanh curve at a
+    drive of its own), a constant lowpass, a gain envelope and a constant
+    StereoPanner, into the destination (chip_smoke.py's phase q, 1 s)."""
+    ctx = wt.OfflineAudioContext(2, int(48000 * seconds), 48000.0,
+                                 device=device)
+    rng = np.random.RandomState(7)
+    for _ in range(voices):
+        o = ctx.create_oscillator(type="sawtooth",
+                                  frequency=float(55 + 440 * rng.rand()))
+        shaper = ctx.create_wave_shaper(curve=np.tanh(
+            (1 + 7 * rng.rand()) * np.linspace(-1, 1, 2048)).astype(
+                np.float32))
+        filt = ctx.create_biquad_filter(
+            type="lowpass", frequency=float(600 + 4000 * rng.rand()), q=1.0)
+        env = ctx.create_gain(gain=0.0)
+        t0 = 0.3 * rng.rand()
+        env.gain.set_value_at_time(0.0, t0)
+        env.gain.linear_ramp_to_value_at_time(0.1, t0 + 0.02)
+        panner = ctx.create_stereo_panner(pan=float(2 * rng.rand() - 1))
+        o.connect(shaper)
+        shaper.connect(filt)
+        filt.connect(env)
+        env.connect(panner)
+        panner.connect(ctx.destination)
+        o.start(t0)
+    return ctx
+
+
+def test_distortion_bank_on_the_card_matches_cpu(cuda):
+    """The four stages fuse into one bank whose shaper launches K1 over the
+    table of per-voice curves; the render on the card within 1e-5 x peak of
+    the CPU render."""
+    before = ck.curve_lookup.launches
+    got = _distortion_bank(cuda).start_rendering_sync().to_array()
+    assert ck.curve_lookup.launches > before
+    want = _distortion_bank("cpu").start_rendering_sync().to_array()
+    peak = float(np.abs(want).max())
+    assert np.isfinite(got).all() and peak > 0.1
+    assert float(np.abs(got - want).max()) <= 1e-5 * peak

@@ -330,7 +330,7 @@ def test_processor_error_is_isolated_like_jax(monkeypatch):
 def test_unported_parts_raise_not_supported():
     ctx = _context(wt, 1, 1024)
     with pytest.raises(wt.NotSupportedError):
-        ctx.create_oscillator()
+        ctx.create_panner()
     with pytest.raises(wt.NotSupportedError):
         ctx.create_delay(max_delay_time=1.0)
 
@@ -387,3 +387,36 @@ def test_device_defaults_to_the_card():
     assert ctx.device == torch.device("cuda")
     ctx = wt.OfflineAudioContext(2, 128, FS, device="cpu")
     assert ctx.device == torch.device("cpu")
+
+
+def test_every_jax_context_name_works_or_is_refused():
+    """Every public name of the JAX package's OfflineAudioContext exists on
+    the port: a factory or method that is ported builds or runs, one that
+    is not raises NotSupportedError (never AttributeError), and so does
+    the `listener` attribute."""
+    refused = {"listener", "create_audio_param", "start_rendering", "suspend",
+               "resume", "create_analyser", "create_audio_worklet",
+               "create_convolver", "create_delay",
+               "create_dynamics_compressor", "create_iir_filter",
+               "create_panner", "create_script_processor",
+               "decode_audio_data", "decode_audio_data_sync"}
+    calls = {"create_buffer": (1, 16, FS), "create_oscillator_bank": ([220.0],),
+             "set_oncomplete": (lambda ev: None,),
+             "oncomplete": (lambda ev: None,),
+             "set_onstatechange": (lambda ev: None,),
+             "suspend_sync": (0.01, lambda c: None)}
+    names = [n for n in dir(wa.OfflineAudioContext) if not n.startswith("_")]
+    assert "listener" in names and "start_rendering" in names
+    for name in names:
+        ctx = _context(wt, 1, 1024)
+        if name in refused:
+            with pytest.raises(wt.NotSupportedError):
+                attr = getattr(ctx, name)
+                attr()
+            continue
+        attr = getattr(ctx, name)
+        if callable(attr):
+            attr(*calls.get(name, ()))
+    ctx = _context(wt, 1, 1024)
+    ctx.create_oscillator().connect(ctx.destination)
+    assert ctx.start_rendering_sync().length == 1024

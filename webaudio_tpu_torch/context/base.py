@@ -6,7 +6,8 @@ The control side *is* the graph IR here; the compiler snapshots `_nodes` /
 `_edges` when it plans a render.  Ported from
 `webaudio_tpu/context/base.py`.  The context carries the torch device that
 every render of its graph runs on (the card unless the caller names
-another).  Factories of nodes that are not ported yet raise
+another).  Factories of nodes that are not ported yet, and the other JAX
+surfaces the port lacks (`listener`, `create_audio_param`), raise
 `NotSupportedError`.
 """
 
@@ -111,6 +112,12 @@ class BaseAudioContext:
     def destination(self):
         return self._destination
 
+    @property
+    def listener(self):
+        raise NotSupportedError(
+            "listener (the PannerNode's AudioListener) is not ported to "
+            "webaudio_tpu_torch yet")
+
     # --- events ------------------------------------------------------------
     def _add_event_handler(self, name: str, cb: Callable):
         self._event_handlers.setdefault(name, []).append(cb)
@@ -140,6 +147,13 @@ class BaseAudioContext:
                       sample_rate: float) -> AudioBuffer:
         return AudioBuffer(number_of_channels, length, sample_rate)
 
+    def create_periodic_wave(self, real=None, imag=None,
+                             disable_normalization: bool = False):
+        from ..periodic_wave import PeriodicWave
+
+        return PeriodicWave(real=real, imag=imag,
+                            disable_normalization=disable_normalization)
+
     # --- node factories (reference: base.rs:126-271) -------------------------
     def create_biquad_filter(self, **kw):
         from ..nodes.biquad_filter import BiquadFilterNode
@@ -151,10 +165,43 @@ class BaseAudioContext:
 
         return AudioBufferSourceNode(self, **kw)
 
+    def create_constant_source(self, **kw):
+        from ..nodes.constant_source import ConstantSourceNode
+
+        return ConstantSourceNode(self, **kw)
+
+    def create_channel_merger(self, number_of_inputs: int = 6, **kw):
+        from ..nodes.channel_merger import ChannelMergerNode
+
+        return ChannelMergerNode(self, number_of_inputs=number_of_inputs, **kw)
+
+    def create_channel_splitter(self, number_of_outputs: int = 6, **kw):
+        from ..nodes.channel_splitter import ChannelSplitterNode
+
+        return ChannelSplitterNode(self, number_of_outputs=number_of_outputs,
+                                   **kw)
+
     def create_gain(self, **kw):
         from ..nodes.gain import GainNode
 
         return GainNode(self, **kw)
+
+    def create_oscillator_bank(self, frequencies, **kw):
+        """V oscillator voices with ADSR envelopes in one node (see
+        nodes/oscillator_bank.py)."""
+        from ..nodes.oscillator_bank import OscillatorBankNode
+
+        return OscillatorBankNode(self, frequencies, **kw)
+
+    def create_oscillator(self, **kw):
+        from ..nodes.oscillator import OscillatorNode
+
+        return OscillatorNode(self, **kw)
+
+    def create_stereo_panner(self, **kw):
+        from ..nodes.stereo_panner import StereoPannerNode
+
+        return StereoPannerNode(self, **kw)
 
     def create_wave_shaper(self, **kw):
         from ..nodes.waveshaper import WaveShaperNode
@@ -171,14 +218,12 @@ def _not_ported(name: str):
     return factory
 
 
-# the JAX package's other factories, one by one as their slices land
-for _name in ("create_analyser", "create_audio_worklet",
-              "create_channel_merger", "create_channel_splitter",
-              "create_constant_source", "create_convolver", "create_delay",
+# the JAX package's other factories and methods, one by one as their
+# slices land
+for _name in ("create_analyser", "create_audio_param", "create_audio_worklet",
+              "create_convolver", "create_delay",
               "create_dynamics_compressor", "create_iir_filter",
-              "create_oscillator", "create_oscillator_bank",
-              "create_panner", "create_periodic_wave",
-              "create_script_processor", "create_stereo_panner",
+              "create_panner", "create_script_processor",
               "decode_audio_data", "decode_audio_data_sync"):
     setattr(BaseAudioContext, _name, _not_ported(_name))
 del _name

@@ -23,7 +23,7 @@ from ..constants import (
     assert_valid_number_of_channels,
 )
 from ..graph import compiler as _compiler
-from .base import AudioContextState, BaseAudioContext
+from .base import AudioContextState, BaseAudioContext, _not_ported
 
 
 class OfflineAudioContext(BaseAudioContext):
@@ -57,6 +57,9 @@ class OfflineAudioContext(BaseAudioContext):
         """cb receives an OfflineAudioCompletionEvent with .rendered_buffer
         (reference: offline.rs:404-422)."""
         self._add_event_handler("complete", cb)
+
+    # older name kept as an alias
+    oncomplete = set_oncomplete
 
     def clear_oncomplete(self):
         """reference: offline.rs clear_oncomplete."""
@@ -214,6 +217,12 @@ class OfflineAudioContext(BaseAudioContext):
                 st = states.get(_compiler._k(nid))
                 if st is not None:
                     hook(st)
+
+
+# the promise-style variants (futures.py) wait for their port
+for _name in ("start_rendering", "suspend", "resume"):
+    setattr(OfflineAudioContext, _name, _not_ported(_name))
+del _name
 
 
 def _same_structure(a, b) -> bool:

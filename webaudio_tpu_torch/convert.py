@@ -6,10 +6,16 @@ The engine has no learned weights.  What one render hands the next is:
 - the per-node resources (`graph.compiler.collect_resources`): buffer
   layouts (`data_rows`, `edge_vals`, `data_tiled`, `data_ext`), a fused
   bank's per-voice schedule and lane tables, truncated-IR spectra (`h`)
-  and shaping curves (`curve`);
+  and shaping curves (`curve`); an oscillator or constant-source bank's
+  per-voice constants (`freq_const`, `det_const`, `computed_const`,
+  `off_const`, `gain_const`, `ratios`), custom wave `tables`, IR spectra
+  stack `h`, pan gains (`pan_gl`, `pan_gr`) and `curves`; an oscillator's
+  custom `table`; an OscillatorBankNode's voices (`freq`, `start`, ...);
 - the node states that cross a suspend boundary: the FDL delay line
   (`spectra`, `tail`), the buffer playhead (`buffer_time`, `elapsed`,
-  `entered`) and the a-rate biquad's history (`xy`).
+  `entered`), the a-rate biquad's history (`xy`), an oscillator's f64
+  `phase` carry, and a voice bank's f64 `phase` (one per voice) with its
+  filter stage's FDL (`fdl_spectra`, `fdl_tail`).
 
 Both arrive as trees of dicts whose leaves are numpy arrays (a JAX tree
 converts with `jax.tree_util.tree_map(np.asarray, tree)`, which this

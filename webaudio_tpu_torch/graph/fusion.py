@@ -1,21 +1,31 @@
-"""Automatic fusion of buffer-source banks: many same-buffer grains -> one
-node.
+"""Automatic fusion of homogeneous source chains into voice banks.
 
-Ported from `webaudio_tpu/graph/fusion.py`, the buffer-source half.  The
-reference renders each node as a separate processor; a granular graph of
-hundreds of short grains of one sample is hundreds of (1, B) nodes.  This
-pass rewrites groups of identical-topology chains
+Ported from `webaudio_tpu/graph/fusion.py`.  The reference renders each
+node as a separate processor; a 500-oscillator additive-synth graph or a
+granular graph of hundreds of short grains of one sample is hundreds of
+(1, B) nodes.  This pass rewrites groups of identical-topology chains
 
-    bufsrc_i -> gain_i -> common targets        (envelope chains)
-    bufsrc_i -> common targets                  (plain banks)
+    src_i [-> shaper_i] [-> biquad_i] [-> gain_i] [-> panner_i] -> targets
 
-into ONE fused node, and sums into the shared mix targets (sum_inputs is
-additive, so summing V signals before the edge is exactly the per-edge
-sum the unfused graph computes).  Members must play one buffer at a
-constant compound rate without a loop, and a gain stage must be Max-mode
-with no audio-rate input.
+into ONE fused node computing all V voices as (V, B) tensors, and sums into
+the shared mix targets (sum_inputs is additive, so summing V signals
+before the edge is exactly the per-edge sum the unfused graph computes).
 
-A bank renders one of two ways:
+Sources: oscillators of one type (custom waves included, with stacked
+per-voice tables) whose frequency and detune have no audio-rate input;
+constant sources whose offset has none; buffer sources playing one buffer
+at a constant compound rate without a loop.  Stages, each optional, for
+oscillator and constant-source chains: a WaveShaper without oversampling
+(the per-voice curves go through the curve kernel K1 as one table), a
+constant-coefficient biquad (per-voice truncated IRs in one partitioned
+convolution), a Max-mode gain (its envelopes stay dense per-voice rows,
+or constants) and a constant-pan StereoPanner (mono equal-power spread).
+Buffer-source chains take the gain stage only.
+
+Oscillator and constant-source banks compute every voice per sample: a
+closed-form phase per quantum (f64) and within it (f32) when every
+frequency is constant, the split-precision cumsum per voice otherwise.  A
+buffer-source bank renders one of two ways:
 - grain lanes (`_plan_grain_lanes`): when the grains are short and
   sequential, greedy interval packing puts the V grains into K << V
   lanes, the gain envelopes are spliced per lane on the host
@@ -28,9 +38,7 @@ A bank renders one of two ways:
 
 Fusion is topology-deterministic (fused ids derive from member ids), so
 suspend/resume re-plans keep matching state keys.  Disable or tune with
-WEBAUDIO_FUSE_THRESHOLD (<= 0 disables; default 32).  The oscillator and
-constant-source banks and the shaper, filter and pan stages of the JAX
-package wait for those nodes' ports.
+WEBAUDIO_FUSE_THRESHOLD (<= 0 disables; default 32).
 """
 
 from __future__ import annotations
@@ -43,7 +51,10 @@ import torch
 
 from ..automation import SET_VALUE, CompiledParam
 from ..constants import RENDER_QUANTUM_SIZE
+from ..ops import fft_conv
+from ..ops import oscillator as osc_ops
 from ..ops.bufread import edge_vals, pair_rows
+from ..ops.curve_kernel import curve_lookup
 from ..ops.grain_read import (EDGE_FRAC, grain_bank, grouped_lerp,
                               pick_group, pick_window)
 from .compiler import Kernel
@@ -70,14 +81,19 @@ def fuse_sources(nodes: dict, edges: list, dest_id: int,
     """-> (nodes', edges', param_alias) where param_alias maps each fused
     member's (node_id, param_name) to its (fused_id, alias) row key.
 
-    sample_rate enables fuse-time grain-lane planning (lane-packed kernels
-    and per-lane spliced envelope params)."""
+    sample_rate enables fuse-time grain-lane planning for buffer-source
+    banks (lane-packed kernels and per-lane spliced envelope params)."""
     threshold = fuse_threshold()
     if threshold <= 0 or len(nodes) < threshold:
         return nodes, edges, {}
 
+    from ..nodes.biquad_filter import BiquadFilterNode
     from ..nodes.buffer_source import AudioBufferSourceNode
+    from ..nodes.constant_source import ConstantSourceNode
     from ..nodes.gain import GainNode
+    from ..nodes.oscillator import OscillatorNode
+    from ..nodes.stereo_panner import StereoPannerNode
+    from ..nodes.waveshaper import OverSampleType, WaveShaperNode
     from ..ops.mixing import ChannelCountMode
 
     out_edges: dict = defaultdict(list)
@@ -96,57 +112,115 @@ def fuse_sources(nodes: dict, edges: list, dest_id: int,
         return all(e.event_type == SET_VALUE and e.time == 0.0
                    for e in p._timeline.events)
 
-    # candidate chains: (source_id, gain_id_or_None, targets, kind)
+    def _single(outs, cls):
+        """The node the chain's one audio edge (into input 0) feeds, if it
+        is a `cls` other than the destination with no other audio input
+        and with outputs of its own."""
+        if (len(outs) == 1 and outs[0].param is None
+                and outs[0].dst_input == 0
+                and isinstance(nodes.get(outs[0].dst), cls)):
+            nid = outs[0].dst
+            if nid != dest_id and audio_in[nid] == 1 and out_edges.get(nid):
+                return nid
+        return None
+
+    # candidate chains: (source, shaper, filter, gain, pan, targets, kind),
+    # the stages' ids or None
     chains = []
     for nid, node in nodes.items():
-        # same buffer, constant compound rate, no loop (the granular shape:
-        # many short grains of one sample)
-        if (not isinstance(node, AudioBufferSourceNode)
-                or node.buffer is None or node.loop
-                or (nid, "playback_rate") in param_in
-                or (nid, "detune") in param_in
-                or not _const(node.params["playback_rate"])
-                or not _const(node.params["detune"])):
+        if isinstance(node, OscillatorNode):
+            kind = node._type  # custom waves fuse too (stacked tables)
+            if (nid, "frequency") in param_in or (nid, "detune") in param_in:
+                continue
+        elif isinstance(node, ConstantSourceNode):
+            kind = "const_src"
+            if (nid, "offset") in param_in:
+                continue
+        elif isinstance(node, AudioBufferSourceNode):
+            # same buffer, constant compound rate, no loop (the granular
+            # shape: many short grains of one sample)
+            if (node.buffer is None or node.loop
+                    or (nid, "playback_rate") in param_in
+                    or (nid, "detune") in param_in
+                    or not _const(node.params["playback_rate"])
+                    or not _const(node.params["detune"])):
+                continue
+            kind = ("bufsrc", id(node.buffer))
+        else:
             continue
-        kind = ("bufsrc", id(node.buffer))
+        mono = not isinstance(kind, tuple)
         outs = out_edges.get(nid, [])
         if not outs or any(e.src_output != 0 for e in outs):
             continue
-        gain = None
-        if (len(outs) == 1 and outs[0].param is None
-                and outs[0].dst_input == 0
-                and isinstance(nodes.get(outs[0].dst), GainNode)):
-            g = outs[0].dst
-            if (g != dest_id and audio_in[g] == 1
-                    and (g, "gain") not in param_in
-                    and out_edges.get(g)
-                    # an explicit/clamped channel count up-mixes *inside*
-                    # the chain and changes downstream channel propagation;
-                    # only Max-mode (pass-through width) gains fuse
-                    and nodes[g]._channel_config.mode == ChannelCountMode.MAX):
-                gain = g
-                outs = out_edges[g]
+        # optional waveshaper stage (no oversampling, curve set): voice
+        # distortion banks; mono sources only
+        shaper = _single(outs, WaveShaperNode) if mono else None
+        if shaper is not None:
+            wnode = nodes[shaper]
+            if (wnode.curve is None
+                    or wnode.oversample != OverSampleType.NONE
+                    or wnode._channel_config.mode != ChannelCountMode.MAX):
+                shaper = None
+            else:
+                outs = out_edges[shaper]
+        # optional constant-coefficient biquad stage (subtractive-synth
+        # chains; mono sources only)
+        filt = _single(outs, BiquadFilterNode) if mono else None
+        if filt is not None:
+            fnode = nodes[filt]
+            names = ("frequency", "detune", "q", "gain")
+            if (any((filt, pn) in param_in for pn in names)
+                    or not all(_const(fnode.params[pn]) for pn in names)
+                    or fnode._channel_config.mode != ChannelCountMode.MAX):
+                filt = None
+            else:
+                outs = out_edges[filt]
+        gain = _single(outs, GainNode)
+        # an explicit/clamped channel count up-mixes *inside* the chain and
+        # changes downstream channel propagation; only Max-mode
+        # (pass-through width) gains fuse
+        if gain is not None and ((gain, "gain") in param_in
+                                 or nodes[gain]._channel_config.mode
+                                 != ChannelCountMode.MAX):
+            gain = None
+        if gain is not None:
+            outs = out_edges[gain]
+        # optional constant-pan stereo spread tail (poly-synth voicing);
+        # mono chains only, so the panner takes its mono equal-power path
+        pan = _single(outs, StereoPannerNode) if mono else None
+        if pan is not None:
+            pcfg = nodes[pan]._channel_config
+            # an explicit channel count up-mixes the mono chain and takes
+            # the stereo pan path when unfused; the fused kernel always
+            # applies mono equal-power gains
+            if ((pan, "pan") in param_in or not _const(nodes[pan].params["pan"])
+                    or (pcfg.mode == ChannelCountMode.EXPLICIT
+                        and pcfg.count != 1)):
+                pan = None
+            else:
+                outs = out_edges[pan]
         targets = tuple(sorted(
             (e.dst, e.dst_input, e.param or "") for e in outs))
-        chains.append((nid, gain, targets, kind))
+        if not targets:
+            continue
+        chains.append((nid, shaper, filt, gain, pan, targets, kind))
 
-    # group by (buffer, chain shape, target signature)
+    # group by (source kind / waveform type, curve length, chain shape,
+    # target signature)
     groups: dict = defaultdict(list)
-    for nid, gain, targets, kind in chains:
-        groups[(kind, gain is not None, targets)].append((nid, gain))
+    for nid, shaper, filt, gain, pan, targets, kind in chains:
+        clen = len(nodes[shaper].curve) if shaper is not None else 0
+        groups[(kind, clen, filt is not None, gain is not None,
+                pan is not None, targets)].append(
+            (nid, shaper, filt, gain, pan))
 
-    # drop groups whose targets point at nodes another group removes
-    # (an env gain feeding another candidate's gain); iterate to a fixed
-    # point
+    # drop groups whose targets point at nodes another group removes (an
+    # env gain feeding another candidate's gain); iterate to a fixed point
     live = {k: v for k, v in groups.items() if len(v) >= threshold}
     while True:
-        removed = set()
-        for members in live.values():
-            for nid, gain in members:
-                removed.add(nid)
-                if gain is not None:
-                    removed.add(gain)
-        bad = [k for k in live if any(t[0] in removed for t in k[2])]
+        removed = {m for members in live.values() for chain in members
+                   for m in chain if m is not None}
+        bad = [k for k in live if any(t[0] in removed for t in k[5])]
         if not bad:
             break
         for k in bad:
@@ -158,16 +232,31 @@ def fuse_sources(nodes: dict, edges: list, dest_id: int,
     removed: set = set()
     param_alias: dict = {}
     fused_edges: list = []
-    for (kind, _has_gain, targets), members in \
+    for (kind, _clen, _f, _g, _p, targets), members in \
             sorted(live.items(), key=lambda kv: min(m[0] for m in kv[1])):
         members = sorted(members)
         fid = -(1 + min(m[0] for m in members))  # deterministic, unique
+
+        def stage(k):
+            return [nodes[m[k]] if m[k] is not None else None
+                    for m in members]
+
         nodes2[fid] = _FusedVoicesNode(
-            fid, [nodes[m[0]] for m in members],
-            [nodes[m[1]] if m[1] is not None else None for m in members],
-            kind, sample_rate=sample_rate)
-        for i, (onid, gnid) in enumerate(members):
-            removed.add(onid)  # constant rates: no packed rows to remap
+            fid, stage(0), stage(3), kind, filters=stage(2),
+            panners=stage(4), shapers=stage(1), sample_rate=sample_rate)
+        for i, (onid, wnid, fnid, gnid, pnid) in enumerate(members):
+            removed.add(onid)
+            if kind == "const_src":
+                param_alias[(onid, "offset")] = (fid, f"v{i}.offset")
+            elif not isinstance(kind, tuple):
+                param_alias[(onid, "frequency")] = (fid, f"v{i}.frequency")
+                param_alias[(onid, "detune")] = (fid, f"v{i}.detune")
+            # buffer sources have constant rates, shapers static curves,
+            # filters constant coefficients and panners constant pans: no
+            # packed rows to remap
+            for extra in (wnid, fnid, pnid):
+                if extra is not None:
+                    removed.add(extra)
             if gnid is not None:
                 removed.add(gnid)
                 param_alias[(gnid, "gain")] = (fid, f"v{i}.gain")
@@ -376,24 +465,38 @@ class _FusedVoicesNode:
     number_of_inputs = 0
     number_of_outputs = 1
 
-    def __init__(self, fid, sources, gains, kind, sample_rate=None):
+    def __init__(self, fid, sources, gains, kind, filters=None,
+                 panners=None, shapers=None, sample_rate=None):
         self.node_id = fid
-        # block-size budget: the dense path materializes ~(V, B) f64
-        # temporaries, i.e. ~4V times a single node's (1, B) f32 buffers
+        # block-size budget: the kernel materializes ~(V, B) f64
+        # temporaries (phase math), i.e. ~4V times a single node's (1, B)
+        # f32 buffers
         self.compile_weight = 4 * len(sources)
         self.sources = sources
         self.gains = gains
-        self.kind = kind  # ("bufsrc", id(buffer))
+        self.filters = filters or [None] * len(sources)
+        self.panners = panners or [None] * len(sources)
+        self.shapers = shapers or [None] * len(sources)
+        self.kind = kind  # OscillatorType, "const_src" or ("bufsrc", id)
         self._channel_config = sources[0]._channel_config
         self.lane_plan = None
         self.lane_env = False
-        if sample_rate is not None:
+        if isinstance(kind, tuple) and sample_rate is not None:
             self.lane_plan = _plan_grain_lanes(sources, float(sample_rate))
             if self.lane_plan.use_lanes:
                 # lane-packed temporaries are (K, B), not (V, B): budget on
                 # K so the block policy can pick render-sized blocks
                 self.compile_weight = 4 * self.lane_plan.K + 4
+        # aliases grouped by param kind so each group's dense rows pack
+        # contiguously (the compiler slices each group in one op)
         self._params = {}
+        if kind == "const_src":
+            for i, src in enumerate(sources):
+                self._params[f"v{i}.offset"] = src.params["offset"]
+        elif not isinstance(kind, tuple):
+            for name in ("frequency", "detune"):
+                for i, src in enumerate(sources):
+                    self._params[f"v{i}.{name}"] = src.params[name]
         if (self.lane_plan is not None and self.lane_plan.use_lanes
                 and gains[0] is not None):
             # per-LANE spliced envelopes instead of per-voice rows: K dense
@@ -412,7 +515,11 @@ class _FusedVoicesNode:
         return self._params
 
     def output_channel_count(self, input_counts):
-        return [self.sources[0].buffer.number_of_channels]
+        if self.panners[0] is not None:
+            return [2]
+        if isinstance(self.kind, tuple):
+            return [self.sources[0].buffer.number_of_channels]
+        return [1]
 
     def make_kernel(self, rc):
         return _FusedVoicesKernel(self, rc)
@@ -445,9 +552,32 @@ def _pairs(rows: torch.Tensor, idx: torch.Tensor):
     return g[:, :C], g[:, C:]
 
 
+def _classify(plans, names, params):
+    """Per-voice param plans -> (const (V,) f32 with the dense voices' slots
+    0, the dense voices' positions in row order, the (min, max) clip in
+    f32).  names: the voices' aliases; params: their AudioParams."""
+    const = np.zeros(len(names), np.float32)
+    dense = []
+    for i, (name, p) in enumerate(zip(names, params)):
+        plan = plans[name]
+        if plan.is_constant:
+            const[i] = np.float32(min(max(plan.scalar, p.min_value),
+                                      p.max_value))
+        else:
+            dense.append(i)
+    return const, np.asarray(dense, np.int64), params[0].f32_bounds()
+
+
 class _FusedVoicesKernel(Kernel):
-    """A fused buffer-source bank: lane-packed (K, B) grain rendering, or
-    the (V, B) closed-form playhead of `nodes/buffer_source.py`."""
+    """A fused bank of V source chains.
+
+    Buffer sources: lane-packed (K, B) grain rendering, or the (V, B)
+    closed-form playhead of `nodes/buffer_source.py`.  Oscillators and
+    constant sources: (V, B) voices of `nodes/oscillator.py` and
+    `nodes/constant_source.py`, then the optional stages in the chain's
+    order, shaper (K1 over a table of per-voice curves), filter (per-voice
+    truncated IRs through one partitioned convolution), gain, and the mono
+    or equal-power stereo mixdown."""
 
     # read only via staged resources: data_host feeds data_rows/edge_vals/
     # data_ext; start_times feeds the staged offset_pos/delta_elapsed and
@@ -459,11 +589,25 @@ class _FusedVoicesKernel(Kernel):
         self.fs = rc.sample_rate
         self.block_frames = rc.block_frames
         self.V = len(node.sources)
+        self.is_bufsrc = isinstance(node.kind, tuple)
+        self.has_gain = node.gains[0] is not None
+        self.lane_env = node.lane_env
+        self.use_lanes = False
+        if self.is_bufsrc:
+            self._init_grains(node)
+        else:
+            self._init_voices(node, rc)
+        if self.has_gain and not self.lane_env:
+            self.gain_const, self.gain_dense, self.gain_lim = _classify(
+                rc.param_plans, [f"v{i}.gain" for i in range(self.V)],
+                [g.params["gain"] for g in node.gains])
+        elif self.has_gain:
+            self.gain_lim = node.gains[0].params["gain"].f32_bounds()
+
+    def _init_grains(self, node):
         self.win_Qs = 0        # read geometry (_pick_window)
         self.win_W = 0
         self.read_mode = "gather"
-        self.has_gain = node.gains[0] is not None
-        self.lane_env = node.lane_env
         buf = node.sources[0].buffer
         self.buf_len = buf.length
         self.buf_rate = buf.sample_rate
@@ -489,24 +633,98 @@ class _FusedVoicesKernel(Kernel):
             self.lane_end = lp.lane_end
             self.lane_voice = lp.lane_voice
             self._pick_window()
-        if self.has_gain:
-            g0 = node.gains[0].params["gain"]
-            self.gain_lim = (float(np.float32(g0.min_value)),
-                             float(np.float32(g0.max_value)))
-        if self.has_gain and not self.lane_env:
-            plans = rc.param_plans
-            const = np.zeros(self.V, np.float32)
-            dense_pos = []
-            for i in range(self.V):
-                plan = plans[f"v{i}.gain"]
-                p = node.gains[i].params["gain"]
-                if plan.is_constant:
-                    const[i] = np.float32(
-                        min(max(plan.scalar, p.min_value), p.max_value))
-                else:
-                    dense_pos.append(i)
-            self.gain_const = const
-            self.gain_dense = np.asarray(dense_pos, np.int64)
+
+    def _init_voices(self, node, rc):
+        from ..nodes.biquad_filter import _computed_freq, _np_coefs
+        from ..nodes.oscillator import OscillatorType
+        from ..ops import recurrence
+
+        fs = self.fs
+        self.kind = node.kind
+        self.is_const_src = node.kind == "const_src"
+        self.is_custom = node.kind == OscillatorType.CUSTOM
+        self.has_filter = node.filters[0] is not None
+        self.has_pan = node.panners[0] is not None
+        self.has_shaper = node.shapers[0] is not None
+        self.device = rc.device
+        if self.has_shaper:
+            self.curves = np.stack(
+                [np.asarray(w.curve, np.float32) for w in node.shapers])
+        if self.has_pan:
+            # per-voice constant equal-power gains, mono input path
+            # (nodes/stereo_panner.py), computed on the host as the JAX
+            # package computes them
+            pans = np.asarray(
+                [np.clip(np.float32(p.params["pan"]._timeline.intrinsic_value),
+                         -1.0, 1.0) for p in node.panners], np.float32)
+            x = (pans + 1.0) * np.float32(0.5)
+            self.pan_gl = np.sin((1.0 - x) * np.float32(np.pi / 2.0)
+                                 ).astype(np.float32)
+            self.pan_gr = np.sin(x * np.float32(np.pi / 2.0)
+                                 ).astype(np.float32)
+        if self.has_filter:
+            # per-voice constant-coefficient biquads -> truncated IRs -> one
+            # partitioned-convolution bank with voices as channels (as
+            # nodes/biquad_filter.py::_BiquadLTIKernel)
+            self.partition = fft_conv.choose_partition(rc.block_frames)
+            spectra = []
+            for fl in node.filters:
+                fp = fl.params
+                f = _computed_freq(
+                    np.float64(np.float32(
+                        fp["frequency"]._timeline.intrinsic_value)),
+                    np.float64(np.float32(
+                        fp["detune"]._timeline.intrinsic_value)))
+                b0, b1, b2, a1, a2 = _np_coefs(
+                    fl._type, fs, f, fp["gain"]._timeline.intrinsic_value,
+                    fp["q"]._timeline.intrinsic_value)
+                h = recurrence.iir_impulse_response(
+                    [b0, b1, b2], [1.0, a1, a2])
+                spectra.append(fft_conv.partition_ir(h, self.partition)[0])
+            kmax = max(sp.shape[0] for sp in spectra)
+            stack = np.zeros((self.V, kmax, self.partition + 1), np.complex64)
+            for i, sp in enumerate(spectra):
+                stack[i, :sp.shape[0]] = sp
+            self.h_stack = stack
+            self.kparts = kmax
+
+        starts, stops, ratios = [], [], []
+        for o in node.sources:
+            start, stop = o._schedule_frames(fs)
+            starts.append(min(start, INF))
+            stops.append(min(stop, INF))
+            ratios.append(0.0 if start >= INF
+                          else float(start - o._start_time * fs))
+        self.starts = np.asarray(starts, np.int32)
+        self.stops = np.asarray(stops, np.int32)
+        self.ratios = np.asarray(ratios, np.float64)
+        if self.is_custom:
+            self.tables = np.stack(
+                [np.asarray(o._periodic_wave.as_array(), np.float32)
+                 for o in node.sources])
+
+        plans = rc.param_plans
+
+        def classify(name):
+            return _classify(plans, [f"v{i}.{name}" for i in range(self.V)],
+                             [o.params[name] for o in node.sources])
+
+        if self.is_const_src:
+            self.off_const, self.off_dense, self.off_lim = classify("offset")
+            self.all_const_freq = True  # no phase state at all
+        else:
+            self.freq_const, self.freq_dense, self.freq_lim = \
+                classify("frequency")
+            self.det_const, self.det_dense, self.det_lim = classify("detune")
+            self.all_const_freq = (len(self.freq_dense) == 0
+                                   and len(self.det_dense) == 0)
+        if self.all_const_freq and not self.is_const_src:
+            # bit-identical to the oscillator's host math
+            # (nodes/oscillator.py make_kernel: f32 f * exp2(d / 1200))
+            f = self.freq_const.astype(np.float32)
+            d = self.det_const.astype(np.float32)
+            self.computed_const = (
+                f * np.exp2(d / np.float32(1200.0))).astype(np.float32)
 
     def _pick_window(self):
         """Choose the read mode and its geometry from WEBAUDIO_GRAIN_READ.
@@ -559,11 +777,43 @@ class _FusedVoicesKernel(Kernel):
         from the dense rows in one op)."""
         if self.lane_env:
             return {"gain": [f"lane{k}.gain" for k in range(self.K)]}
+        if self.is_bufsrc:
+            groups = {}
+        elif self.is_const_src:
+            groups = {"offset": [f"v{i}.offset" for i in range(self.V)]}
+        else:
+            groups = {name: [f"v{i}.{name}" for i in range(self.V)]
+                      for name in ("frequency", "detune")}
         if self.has_gain:
-            return {"gain": [f"v{i}.gain" for i in range(self.V)]}
-        return {}
+            groups["gain"] = [f"v{i}.gain" for i in range(self.V)]
+        return groups
 
     def resources(self):
+        if self.is_bufsrc:
+            return self._grain_resources()
+        res = {"starts": self.starts, "stops": self.stops}
+        if self.is_const_src:
+            res["off_const"] = self.off_const
+        else:
+            res["ratios"] = self.ratios
+            res["freq_const"] = self.freq_const
+            res["det_const"] = self.det_const
+            if self.all_const_freq:
+                res["computed_const"] = self.computed_const
+            if self.is_custom:
+                res["tables"] = self.tables
+        if self.has_gain:
+            res["gain_const"] = self.gain_const
+        if self.has_filter:
+            res["h"] = self.h_stack
+        if self.has_pan:
+            res["pan_gl"] = self.pan_gl
+            res["pan_gr"] = self.pan_gr
+        if self.has_shaper:
+            res["curves"] = self.curves
+        return res
+
+    def _grain_resources(self):
         res = {"starts": self.starts, "stops": self.stops,
                "edge_vals": edge_vals(self.data_host),  # non-loop chains
                "rates": self.rates, "offsets": self.offsets,
@@ -601,10 +851,128 @@ class _FusedVoicesKernel(Kernel):
                 res["gain_const"] = self.gain_const
         return res
 
+    def tail_frames(self):
+        """Closed-form phases and playheads are time-indexed; the cumsum
+        path carries unbounded phase state (as the oscillator does); a
+        filter stage carries (kparts + 1) partitions of FDL history (as the
+        LTI biquad does)."""
+        if self.is_bufsrc:
+            return 0
+        if not self.all_const_freq:
+            return None
+        if self.has_filter:
+            return (self.kparts + 1) * self.partition
+        return 0
+
+    def init_state(self):
+        if self.is_bufsrc:
+            return None
+        st = {"phase": torch.zeros((self.V,), dtype=torch.float64,
+                                   device=self.device)}
+        if self.has_filter:
+            fdl = fft_conv.init_state(self.V, self.kparts, self.partition,
+                                      self.device)
+            st["fdl_spectra"] = fdl["spectra"]
+            st["fdl_tail"] = fdl["tail"]
+        return st
+
     def process(self, scope, state, inputs, params):
         if self.use_lanes:
             return state, [self._process_grain_lanes(scope, params)]
-        return state, [self._process_dense(scope, params)]
+        if self.is_bufsrc:
+            return state, [self._process_dense(scope, params)]
+        return self._process_voices(scope, state, params)
+
+    def _mixdown(self, voices, r):
+        """(I, V, B) voices -> (I, 1, B) mono sum, or (I, 2, B) per-voice
+        equal-power stereo spread when the chains end in panners."""
+        if self.has_pan:
+            return torch.stack(
+                [(voices * r["pan_gl"][..., None]).sum(-2),
+                 (voices * r["pan_gr"][..., None]).sum(-2)], dim=-2)
+        return voices.sum(-2, keepdim=True)
+
+    def _process_voices(self, scope, state, params):
+        """Oscillator and constant-source banks: (I, V, B) voices, then the
+        shaper, filter and gain stages in the chain's order, then the
+        mixdown."""
+        from ..nodes.oscillator import OscillatorType, waveform
+        from ..nodes.oscillator_bank import angle_sum_sine
+
+        r = scope.node_resources
+        fs = self.fs
+        B = scope.frames
+        Q = RENDER_QUANTUM_SIZE
+        t = scope.t_idx                                        # (B,)
+        starts = r["starts"].to(torch.int64)[..., None]        # (I, V, 1)
+        mask = (t >= starts) & (t < r["stops"].to(torch.int64)[..., None])
+        new_state = dict(state)
+
+        if self.is_const_src:
+            off = self._full(r["off_const"], self.off_dense,
+                             params.get("offset"), self.off_lim)
+            voices = torch.where(mask, off, 0.0)
+        else:
+            if self.all_const_freq:
+                # closed-form phase, f64 only at quantum granularity
+                # (I, V, nq) and f32 within the quantum: |incr*127| < 2^7,
+                # so the f32 rebase error is <= ~4e-7 of a cycle
+                computed = r["computed_const"][..., None]      # (I, V, 1)
+                # / fs as XLA computes it: times 1/fs
+                incr_host = computed.to(torch.float64) * (1.0 / fs)
+                nq = B // Q
+                q0 = t.reshape(nq, Q)[:, 0]
+                n0 = (q0 - starts).to(torch.float64)           # (I, V, nq)
+                ph0 = torch.remainder((n0 + r["ratios"][..., None])
+                                      * incr_host, 1.0).to(torch.float32)
+                incr = incr_host.to(torch.float32)             # (I, V, 1)
+                if self.kind == OscillatorType.SINE:
+                    # the angle-sum sine, as the JAX package computes it
+                    wave = angle_sum_sine(ph0, incr, nq)
+                else:
+                    j = torch.arange(Q, dtype=torch.float32, device=t.device)
+                    ph = osc_ops.ramp_f32(ph0[..., None], incr[..., None],
+                                          j)                 # (I, V, nq, Q)
+                    phase = (ph - torch.floor(ph)).reshape(*ph0.shape[:-1], B)
+                    wave = waveform(self.kind, phase, incr, r.get("tables"))
+            else:
+                freq = self._full(r["freq_const"], self.freq_dense,
+                                  params.get("frequency"), self.freq_lim)
+                det = self._full(r["det_const"], self.det_dense,
+                                 params.get("detune"), self.det_lim)
+                computed = osc_ops.computed_frequency(freq, det)   # (N, V, B)
+                incr64 = computed.to(torch.float64) * (1.0 / fs)
+                incr = incr64.to(torch.float32)
+                at_start = t == starts
+                corr = torch.where(at_start, incr64, 0.0).sum(-1) * r["ratios"]
+                phase, new_state["phase"] = osc_ops.accumulate_phase(
+                    state["phase"], incr64, mask, corr)
+                wave = waveform(self.kind, phase, incr, r.get("tables"))
+            audible = torch.abs(computed) < fs / 2.0
+            voices = torch.where(mask & audible, wave, 0.0)
+
+        if self.has_shaper:
+            # one K1 launch over a table of per-voice curves: the voices'
+            # rows (instances x voices) against the curves tiled to match
+            curves = r["curves"]                               # (I, V, n)
+            n = _lead(voices, curves)
+            x = voices.expand(n, self.V, B).reshape(n * self.V, B)
+            tab = curves.expand(n, *curves.shape[1:]).reshape(
+                n * self.V, curves.shape[-1])
+            voices = curve_lookup(tab.contiguous(), x.contiguous()
+                                  ).reshape(n, self.V, B)
+        if self.has_filter:
+            st = {"spectra": state["fdl_spectra"], "tail": state["fdl_tail"]}
+            x = voices.to(torch.float32).expand(
+                (st["tail"].shape[0],) + voices.shape[1:])
+            st, voices = fft_conv.partitioned_conv_block(
+                st, x, r["h"], self.partition)
+            new_state["fdl_spectra"] = st["spectra"]
+            new_state["fdl_tail"] = st["tail"]
+        if self.has_gain:
+            voices = voices * self._full(r["gain_const"], self.gain_dense,
+                                         params.get("gain"), self.gain_lim)
+        return new_state, [self._mixdown(voices, r).to(torch.float32)]
 
     def _lane_fields(self, scope):
         """The per-quantum fields of each lane's grain (aligned packing:
@@ -709,10 +1077,10 @@ class _FusedVoicesKernel(Kernel):
             voices = voices * torch.clamp(gain, *self.gain_lim)[:, None]
         return voices.sum(dim=2)                               # (I, C, B)
 
-    def _full(self, const, rows):
-        """(I, V, B) gain matrix from per-voice constants + packed rows."""
-        lo, hi = self.gain_lim
-        dense = self.gain_dense
+    def _full(self, const, dense, rows, lim):
+        """(I, V, B) param matrix from per-voice constants (I, V) and the
+        dense voices' packed rows (N, D, B), clipped to lim."""
+        lo, hi = lim
         if len(dense) == self.V:
             # every voice is dense in row order: the rows ARE the matrix
             return torch.clamp(rows, lo, hi)
@@ -758,6 +1126,7 @@ class _FusedVoicesKernel(Kernel):
         smp = a * (1.0 - frac)[:, None] + b * frac[:, None]
         voices = torch.where(valid[:, None], smp, 0.0)
         if self.has_gain:
-            voices = voices * self._full(r["gain_const"],
-                                         params.get("gain"))[:, None]
+            voices = voices * self._full(
+                r["gain_const"], self.gain_dense, params.get("gain"),
+                self.gain_lim)[:, None]
         return voices.sum(dim=2)                               # (I, C, B)

@@ -305,9 +305,13 @@ def graph_fingerprint(cg) -> str:
         repr(sorted(cg.in_counts.items())),
         repr(sorted(cg.out_counts.items())),
     ]
-    # constant params are shared 0-d tensors of the plan -> by value
+    # constant params are shared 0-d tensors of the plan -> by value; a
+    # fused bank (a kernel with `vector_params`) reads its voices'
+    # constants from staged resources instead, stacked per instance
+    banks = {nid for nid, k in cg.kernels.items()
+             if hasattr(k, "vector_params")}
     for key, plan in sorted(cg.param_plan.items(), key=repr):
-        if plan.is_constant:
+        if plan.is_constant and key[0] not in banks:
             toks.append(f"c{key}={np.float32(plan.scalar)!r}")
     for nid in sorted(cg.kernels):
         kern = cg.kernels[nid]
