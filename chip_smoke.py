@@ -171,6 +171,45 @@ with every kernel's launch count from 0:
      kernel at S7, phase q's captured launch, warm and cold L2 against
      its plain version, its bound and grid_sample.
 
+Then the mastering chain (BASELINE config 5: benches/suite.py::
+case_mastering_chain with bench.py's synthetic buffer, a looping source ->
+WaveShaper oversample 4x, tanh over 2,048 points -> DynamicsCompressor
+threshold -18 dB, ratio 4 -> AnalyserNode fft 2,048), with the detector
+kernel, each main path with every kernel's launch count from 0:
+
+  s. the detector kernel (csrc/detector.cu) against its plain version (a
+     loop over samples, run on the host) bit for bit at N 1, 3 and 1,024
+     instances of 4,096 samples, taus per instance and per sample,
+     attack 0, release 0, and B = 1; a non-contiguous, an f64 and a CPU
+     input raise KernelError; upsample and downsample x2 and x4 on the card
+     against the CPU at 1e-6 x peak, with cuDNN allowed TF32 as PyTorch
+     has it by default;
+  t. 5a: 10 s, 48 kHz, stereo through start_rendering_sync: one block of
+     480,000 frames, the chunked detector, K1 launched once (over
+     (1, 2, 1,920,000) samples), within 1e-5 x peak of the port's CPU
+     render and 1e-4 x peak of a numpy f64 oracle (zero-stuffed FIR with
+     the firwin taps, the lerp, the decimating FIR, the sequential
+     detector); the compressor's reduction and the analyser's time,
+     frequency and byte data against the CPU render's; with
+     WEBAUDIO_DETECTOR=seq the detector kernel launches once and the
+     render holds to the CPU (1e-5), the oracle (1e-4) and the default
+     render (2e-4 x peak); the detector kernel bit-equal to its plain
+     version on the captured attenuation row, and the chunked detector
+     within 1e-4 of it; end to end (one warm-up, median of 5), host
+     planning, the block loop and the device-busy share;
+  u. 5b: a GraphBatch of the chain at 2 s, 1,024 instances, each with its
+     own synthetic clip (a third each at 38,000, 44,100 and 48,000 Hz,
+     resampled to 48 kHz by AudioBuffer.resample, cut or padded to 96,000
+     frames): one block, K1 and K5 launched, lanes 0, 511 and 1,023 within
+     1e-6 x peak of their own start_rendering_sync on the card, a
+     4-instance batch within 1e-5 x peak of the port's CPU batch,
+     render_i16 equal to the plain dither of render(); throughput, peak
+     device memory and the busy share;
+  v. K1 at S8 (5a's captured launch) and MDN's 44,100-point curve on S8's
+     samples, warm and cold L2, against the plain version, the bound and
+     grid_sample; the detector kernel against the chunked path at 5a's
+     and 5b's detector inputs; the resamplers' device time.
+
 Prints the measurements, a {"kernels": [...]} line (each kernel's launches
 on its path, error against its plain version, device time, the plain
 version's, the least time the card could take (`bound_ms`: the larger of
@@ -178,7 +217,10 @@ the bytes it must move at 3.35 TB/s and its f32 operations at 67 TFLOP/s),
 its share of that bound (for the curve and grain kernels, of their
 cold-L2 time: the bound reads every input from HBM) and one PyTorch call's
 time where one computes the same function; the curve kernel's row also
-carries S1-S7, the floor and its launches on the offline and voice paths)
+carries S1-S8, the floor and its launches on the offline, voice,
+mastering and corpus paths; the detector kernel's row its launches on the
+seq-mode and default 5a paths, its plain version's host time, the latency
+floor of one sequential chain and the chunked path's time)
 and the card's name and power limit, then as
 its last line {"ok": true, "device": {...}}.  Exits non-zero, printing no result, if CUDA is unavailable or any
 phase fails.  Imports nothing of JAX.
@@ -1172,9 +1214,9 @@ def _recording(module, name):
     calls = []
     orig = getattr(module, name)
 
-    def spy(*args):
+    def spy(*args, **kw):
         calls.append(args)
-        return orig(*args)
+        return orig(*args, **kw)
 
     setattr(module, name, spy)
     try:
@@ -2107,6 +2149,530 @@ def phase_r(wt, compiler, fusion, ck, s7):
     return res
 
 
+# --- the mastering chain, s-v -------------------------------------------------
+
+
+def _firwin_taps(factor):
+    """The resamplers' design, apart from the port's code: scipy firwin,
+    48 x factor + 1 taps, Kaiser 9.0, cutoff 0.92 / factor, gain factor,
+    rounded to f32 as the port stores them."""
+    from scipy.signal import firwin
+
+    h = firwin(48 * factor + 1, 0.92 / factor, window=("kaiser", 9.0))
+    return (h * factor).astype(np.float32).astype(np.float64)
+
+
+def mastering_context(wt, device, frames=FRAMES, data=None, rate=FS):
+    """benches/suite.py::case_mastering_chain (BASELINE config 5a) with the
+    synthetic buffer of bench.py:34-37 for sample.wav: a looping
+    AudioBufferSourceNode -> WaveShaperNode (oversample 4x, tanh over
+    2,048 points) -> DynamicsCompressorNode (threshold -18 dB, ratio 4) ->
+    AnalyserNode (fft 2,048) -> destination.  Returns (context, source,
+    compressor, analyser)."""
+    ctx = wt.OfflineAudioContext(2, frames, FS, device=device)
+    src = ctx.create_buffer_source(loop=True)
+    src.buffer = wt.AudioBuffer.from_array(
+        _bench_data() if data is None else data, rate)
+    src.start()
+    shaper = ctx.create_wave_shaper(oversample="4x",
+                                    curve=_curve(CURVE_POINTS))
+    comp = ctx.create_dynamics_compressor(threshold=-18.0, ratio=4.0)
+    an = ctx.create_analyser(fft_size=2048)
+    src.connect(shaper)
+    shaper.connect(comp)
+    comp.connect(an)
+    an.connect(ctx.destination)
+    return ctx, src, comp, an
+
+
+def mastering_oracle(frames=FRAMES):
+    """5a in f64 numpy: the looped buffer, zero-stuffed to 4x and filtered
+    by the resamplers' taps, the gather-lerp through the curve, filtered
+    by the taps / 4 and decimated, then the compressor of the reference
+    (dynamics_compressor.rs:364-470): the max-|x| sidechain in dB, the soft
+    knee, the sequential attack/release detector, the makeup gain and the
+    384-frame lookahead."""
+    from scipy.signal import oaconvolve
+
+    data = _bench_data().astype(np.float64)
+    x = data[:, np.arange(frames) % data.shape[1]]
+    h = _firwin_taps(4)
+    up = np.zeros((2, 4 * frames))
+    up[:, ::4] = x
+    up = oaconvolve(up, h[None], axes=1)[:, :4 * frames]
+    curve = _curve(CURVE_POINTS).astype(np.float64)
+    n = len(curve)
+    v = np.clip((n - 1) / 2.0 * (up + 1.0), 0.0, n - 1)
+    k = np.minimum(np.floor(v).astype(np.int64), n - 2)
+    shaped = curve[k] * (1.0 - (v - k)) + curve[k + 1] * (v - k)
+    d = oaconvolve(shaped, h[None] / 4.0, axes=1)[:, :4 * frames:4]
+
+    threshold, knee, ratio, attack, release = -18.0, 30.0, 4.0, 0.003, 0.25
+    peak = np.abs(d).max(axis=0)
+    with np.errstate(divide="ignore"):
+        db = np.where(peak == 0.0, -1000.0, 20.0 * np.log10(peak))
+    over = db - threshold
+    att = np.where(db <= threshold - knee / 2, db, np.where(
+        db <= threshold + knee / 2,
+        db + (over + knee / 2) ** 2 * (1.0 / ratio - 1.0) / (2.0 * knee),
+        threshold + over / ratio))
+    xl = (db - att).tolist()
+    a, r = math.exp(-1.0 / (attack * FS)), math.exp(-1.0 / (release * FS))
+    det = np.empty(frames)
+    prev = 0.0
+    for i, xi in enumerate(xl):
+        tau = a if xi > prev else r
+        prev = tau * prev + (1.0 - tau) * xi
+        det[i] = prev
+    makeup = 20.0 * np.log10((1.0 / 10.0 ** (
+        (threshold - threshold / ratio) / 20.0)) ** 0.6)
+    gain = 10.0 ** ((makeup - det) / 20.0)
+    lookahead = int(np.ceil(FS * 0.006 / 128)) * 128
+    delayed = np.concatenate([np.zeros((2, lookahead)), d[:, :-lookahead]],
+                             axis=1)
+    return delayed * gain
+
+
+@contextlib.contextmanager
+def _solves(dc):
+    """Count the branch-pattern solves of each fixed-point detector call
+    in the block (the iteration's host syncs); yields the list of counts."""
+    counts = []
+    orig = dc._fixed_point
+
+    def spy(solve, *args):
+        n = [0]
+
+        def counted(pat):
+            n[0] += 1
+            return solve(pat)
+
+        out = orig(counted, *args)
+        counts.append(n[0])
+        return out
+
+    dc._fixed_point = spy
+    try:
+        yield counts
+    finally:
+        dc._fixed_point = orig
+
+
+def _host_profile(label, fn):
+    """Where the host's time goes in one call of fn (synchronised at its
+    end): cProfile's eight functions of the most own time."""
+    import cProfile
+    import pstats
+
+    prof = cProfile.Profile()
+    t0 = time.perf_counter()
+    prof.enable()
+    fn()
+    torch.cuda.synchronize()
+    prof.disable()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    top = sorted(pstats.Stats(prof).stats.items(), key=lambda kv: -kv[1][2])
+    print(f"{label}: host profile of one call ({wall_ms:.3f} ms under "
+          "cProfile), own ms by function: " + ", ".join(
+              f"{fn_name} ({os.path.basename(path)}:{line}) {st[2] * 1e3:.2f}"
+              for (path, line, fn_name), st in top[:8]), flush=True)
+
+
+def _detector_kernel_check(label, det, y0, x, at, rt):
+    """The detector kernel against its plain version, bit for bit, on the
+    same inputs (the plain version on the host: a loop over samples that
+    would launch kernels a sample on the card).  Returns (max |kernel -
+    plain|, the plain version's host ms)."""
+    got = det.detector_scan(y0, x, at, rt)
+    cpu = [t.cpu() if isinstance(t, torch.Tensor) else t
+           for t in (y0, x, at, rt)]
+    t0 = time.perf_counter()
+    want = det.detector_reference(*cpu)
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    err = _equal(label, got.cpu(), want)
+    return err, plain_ms
+
+
+def phase_s(det, rs, KernelError):
+    """The detector kernel against its plain version on synthetic inputs,
+    and the resamplers on the card against the CPU under PyTorch's default
+    TF32 flags.  Returns the worst |kernel - plain|."""
+    rng = np.random.default_rng(SEED + 7)
+    worst = 0.0
+    cases = [(1, 4096, False, "none"), (3, 4096, False, "none"),
+             (3, 4096, True, "none"), (1024, 4096, False, "none"),
+             (1024, 4096, True, "none"), (3, 4096, False, "attack 0"),
+             (3, 4096, True, "release 0"), (5, 1, False, "none"),
+             (5, 1, True, "attack 0")]
+    for N, B, per_sample, edge in cases:
+        x = (np.abs(rng.standard_normal((N, B))) * 20).astype(np.float32)
+        x[:, B // 3: B // 2] = 25.0
+        shape = (N, B) if per_sample else (N,)
+        at = rng.uniform(0.5, 0.999, shape).astype(np.float32)
+        rt = rng.uniform(0.9, 0.99999, shape).astype(np.float32)
+        if edge == "attack 0":
+            at[:] = 0.0
+        elif edge == "release 0":
+            rt[:] = 0.0
+        y0 = rng.uniform(0, 10, N).astype(np.float32)
+        err, _ = _detector_kernel_check(
+            f"s. detector_scan N {N} B {B} taus per "
+            f"{'sample' if per_sample else 'instance'}, {edge}", det,
+            *(torch.from_numpy(a).cuda() for a in (y0, x, at, rt)))
+        worst = max(worst, err)
+    y0, x = torch.zeros(4).cuda(), torch.ones(4, 64).cuda()
+    for what, args in (("non-contiguous", (y0, x.t().contiguous().t())),
+                       ("f64", (y0, x.double())), ("x on the cpu",
+                                                   (y0, x.cpu()))):
+        try:
+            det.detector_scan(*args, 0.5, 0.9)
+        except KernelError as exc:
+            print(f"s. detector_scan, {what} raises: {exc}", flush=True)
+        else:
+            raise AssertionError(f"detector_scan took a {what} input")
+
+    # the resamplers, with cuDNN allowed TF32 as PyTorch has it by default
+    old = (torch.backends.cudnn.allow_tf32,
+           torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for factor in (2, 4):
+            x = torch.from_numpy(rng.standard_normal((3, 2, 48000)).astype(
+                np.float32))
+            st = torch.from_numpy(rng.standard_normal((3, 2, 48)).astype(
+                np.float32))
+            dst = torch.from_numpy(rng.standard_normal(
+                (3, 2, 48 * factor)).astype(np.float32))
+            up, _ = rs.upsample(x, factor, st)
+            down, _ = rs.downsample(up, factor, dst)
+            gup, _ = rs.upsample(x.cuda(), factor, st.cuda())
+            gdown, _ = rs.downsample(gup, factor, dst.cuda())
+            for name, g, w in (("upsample", gup, up), ("downsample", gdown,
+                                                       down)):
+                _check_close(f"s. {name} x{factor} (3, 2, 48000), default TF32 "
+                             "flags, cuda vs cpu", _host(g), w.numpy(), 1e-6)
+    finally:
+        torch.backends.cudnn.allow_tf32, \
+            torch.backends.cuda.matmul.allow_tf32 = old
+    return worst
+
+
+def _analyser_data(an):
+    """(float time, float frequency, byte time, byte frequency) data."""
+    out = (np.zeros(an.fft_size, np.float32),
+           np.zeros(an.frequency_bin_count, np.float32),
+           np.zeros(an.fft_size, np.uint8),
+           np.zeros(an.frequency_bin_count, np.uint8))
+    an.get_float_time_domain_data(out[0])
+    an.get_float_frequency_data(out[1])
+    an.get_byte_time_domain_data(out[2])
+    an.get_byte_frequency_data(out[3])
+    return out
+
+
+def phase_t(wt, compiler, ck, det, dc, waveshaper, kernels):
+    """5a end to end.  Returns a dict: the main paths' launches (the default
+    detector, then WEBAUDIO_DETECTOR=seq), K1's captured launch (S8), the
+    detector's captured input, the detector kernel's check and timings."""
+    label = "t. 5a mastering chain, 10 s"
+    ctx, _, comp, an = mastering_context(wt, "cuda")
+    cg, nb = _plan(compiler, ctx)
+    (ck_comp,) = [k for k in cg.kernels.values()
+                  if type(k).__name__ == "_CompressorKernel"]
+    mode = dc.detector_mode(ck_comp.const_taus, cg.block_frames)
+    print(f"{label}: plan {len(cg.kernels)} kernels, block_frames "
+          f"{cg.block_frames}, {nb} block(s); compressor const_taus "
+          f"{ck_comp.const_taus}, detector {mode}", flush=True)
+    if (cg.block_frames, nb, mode) != (FRAMES, 1, "chunked"):
+        raise AssertionError("5a did not plan one 480,000-frame block with "
+                             "the chunked detector")
+    with _recording(waveshaper, "curve_lookup") as shaped, \
+            _recording(dc, "_detector") as detected, \
+            _solves(dc) as solves:
+        out, launches = _main_path(ctx, kernels)
+    print(f"{label}: main path launched {launches}; detector inputs "
+          f"{[tuple(c[1].shape) for c in detected]}, fixed-point solves a "
+          f"block {solves} (one host sync each)", flush=True)
+    if launches["curve_lookup"] != 1:
+        raise AssertionError("K1 did not launch once on 5a's one block")
+    cpu_ctx, _, cpu_comp, cpu_an = mastering_context(wt, "cpu")
+    cpu = cpu_ctx.start_rendering_sync().to_array()
+    err_cpu = _check_close(f"{label}: vs the port's CPU render", out, cpu,
+                           1e-5)
+    want = mastering_oracle()
+    err = _check_close(f"{label}: vs the f64 numpy oracle", out, want, 1e-4)
+    red = (comp.reduction, cpu_comp.reduction)
+    print(f"{label}: errors {err_cpu / np.abs(cpu).max():.3e} x peak (CPU), "
+          f"{err / np.abs(want).max():.3e} x peak (oracle); reduction "
+          f"{red[0]:.6f} dB (CPU {red[1]:.6f})", flush=True)
+    if not abs(red[0] - red[1]) <= 1e-4 or not red[0] < -1.0:
+        raise AssertionError(f"reduction {red}")
+    got_a, want_a = _analyser_data(an), _analyser_data(cpu_an)
+    td_err = float(np.abs(got_a[0] - want_a[0]).max())
+    mag, cmag = 10.0 ** (got_a[1] / 20.0), 10.0 ** (want_a[1] / 20.0)
+    fd_err = float(np.abs(mag - cmag).max()) / float(cmag.max())
+    byte_err = max(int(np.abs(g.astype(np.int64) - w).max())
+                   for g, w in zip(got_a[2:], want_a[2:]))
+    print(f"{label}: analyser vs the CPU render's: time data "
+          f"{td_err:.3e} (limit 1e-5 x peak), frequency magnitudes "
+          f"{fd_err:.3e} x their peak (limit 1e-5), bytes within {byte_err} "
+          f"code(s) (limit 1); spectral peak at bin {int(np.argmax(got_a[1]))}",
+          flush=True)
+    if td_err > 1e-5 * np.abs(cpu).max() or fd_err > 1e-5 or byte_err > 1:
+        raise AssertionError("the analyser's data differ from the CPU's")
+
+    # the detector kernel's path: WEBAUDIO_DETECTOR=seq
+    with _env("WEBAUDIO_DETECTOR", "seq"):
+        seq_ctx = mastering_context(wt, "cuda")[0]
+        seq, seq_launches = _main_path(seq_ctx, kernels)
+        cpu_seq = mastering_context(wt, "cpu")[0].start_rendering_sync() \
+            .to_array()
+    print(f"{label}, WEBAUDIO_DETECTOR=seq: main path launched "
+          f"{seq_launches}", flush=True)
+    if seq_launches["detector_scan"] != 1 or seq_launches["curve_lookup"] != 1:
+        raise AssertionError("the seq detector did not launch the detector "
+                             "kernel once")
+    _check_close(f"{label}, WEBAUDIO_DETECTOR=seq: vs the port's CPU render",
+                 seq, cpu_seq, 1e-5)
+    _check_close(f"{label}, WEBAUDIO_DETECTOR=seq: vs the f64 numpy oracle",
+                 seq, want, 1e-4)
+    _check_close(f"{label}, WEBAUDIO_DETECTOR=seq vs the default (chunked) "
+                 "render (the JAX suite's bound between detectors)", seq,
+                 out, 2e-4)
+
+    # the detector kernel on 5a's captured attenuation row
+    y0, xl, at, rt = detected[0][:4]
+    kerr, plain_ms = _detector_kernel_check(
+        f"{label}: detector_scan on the captured attenuation row "
+        f"{tuple(xl.shape)}", det, y0.contiguous(), xl.contiguous(), at, rt)
+    chunked = dc._detector(y0, xl, at, rt, const_taus=ck_comp.const_taus)
+    exact = det.detector_scan(y0.contiguous(), xl.contiguous(), at, rt)
+    rel = float((chunked - exact).abs().max() / exact.abs().max())
+    print(f"{label}: chunked detector vs the sequential kernel on that row: "
+          f"{rel:.3e} relative (limit 1e-4); plain version {plain_ms:.1f} ms "
+          "on the host", flush=True)
+    if not rel <= 1e-4:
+        raise AssertionError("the chunked detector strays from the "
+                             "sequential recurrence")
+
+    # timings, host planning apart
+    def make():
+        return mastering_context(wt, "cuda")[0]
+
+    e2e = _render_ms(f"{label}", make, SECONDS)
+    t0 = time.perf_counter()
+    cg, _ = _plan(compiler, make())
+    plan_ms = (time.perf_counter() - t0) * 1e3
+    args = compiler.render_args(cg, FRAMES)
+    compiler.scan_render(cg, *args)
+    loop = [_events_ms(lambda: compiler.scan_render(cg, *args), 3)
+            for _ in range(3)]
+    loop_ms = statistics.median(loop)
+    print(f"{label}: host planning (compile_graph) {plan_ms:.3f} ms; block "
+          f"loop on a compiled plan: median {loop_ms:.3f} ms of "
+          f"{['%.3f' % r for r in loop]} (3 renders each) -> realtime factor "
+          f"{SECONDS * 1000.0 / loop_ms:.1f}x", flush=True)
+    _host_profile(label, lambda: compiler.scan_render(cg, *args))
+    busy = _print_busy(label, "start_rendering_sync",
+                       [make().start_rendering_sync for _ in range(3)])
+    loop_busy = _print_busy(label, "block loop",
+                            [lambda: compiler.scan_render(cg, *args)] * 3)
+    del args, cg
+    torch.cuda.empty_cache()
+    return {"launches": launches, "seq_launches": seq_launches,
+            "s8": shaped[0], "detector_row": (y0, xl, at, rt),
+            "const_taus": ck_comp.const_taus, "detector_err": kerr,
+            "detector_plain_ms": plain_ms, "e2e_ms": e2e, "loop_ms": loop_ms,
+            "busy": busy, "loop_busy": loop_busy}
+
+
+CLIP_RATES = (38000.0, 44100.0, 48000.0)
+
+
+def corpus_clips(wt, count, frames, seed):
+    """Config 5b's clips: synthetic stereo clips made with numpy from a
+    seed (a sine of 80-2,000 Hz a channel and noise, 0.9-1.1 x the render's
+    length), a third each at 38,000, 44,100 and 48,000 Hz, each resampled
+    to 48 kHz host-side with AudioBuffer.resample (reference
+    buffer.rs:311-363) and cut or zero-padded to `frames`.  (count, 2,
+    frames) f32."""
+    rng = np.random.default_rng(seed)
+    clips = np.zeros((count, 2, frames), np.float32)
+    for i in range(count):
+        rate = CLIP_RATES[i % 3]
+        n = int(rate * frames / FS * rng.uniform(0.9, 1.1))
+        t = np.arange(n) / rate
+        f = rng.uniform(80.0, 2000.0, (2, 1))
+        x = (rng.uniform(0.3, 1.2) * np.sin(2 * np.pi * f * t)
+             + 0.05 * rng.standard_normal((2, n))).astype(np.float32)
+        buf = wt.AudioBuffer.from_array(x, rate)
+        buf.resample(FS)
+        m = min(buf.length, frames)
+        clips[i, :, :m] = buf.to_array()[:, :m]
+    return clips
+
+
+def phase_u(wt, compiler, dither, dc, kernels):
+    """5b: a GraphBatch of the chain at 2 s an instance, BIG_BATCH
+    instances, each with its own clip.  Returns the launches, throughput,
+    peak memory and the detector's captured (N, B) input."""
+    label = f"u. 5b corpus, {BIG_BATCH} clips of {BATCH_SECONDS:g} s"
+    t0 = time.perf_counter()
+    clips = corpus_clips(wt, BIG_BATCH, BATCH_FRAMES, SEED + 8)
+    make_s = time.perf_counter() - t0
+    ctx, src, _, _ = mastering_context(wt, "cuda", BATCH_FRAMES,
+                                       data=np.zeros((2, BATCH_FRAMES),
+                                                     np.float32))
+    gb = wt.GraphBatch(ctx, batch=BIG_BATCH)
+    gb.override_buffer(src, clips)
+    nb = gb.nb
+    print(f"{label}: clips made and resampled to 48 kHz in {make_s:.2f} s "
+          f"(set-up); plan block_frames {gb.cg.block_frames}, {nb} block(s)",
+          flush=True)
+    if (gb.cg.block_frames, nb) != (BATCH_FRAMES, 1):
+        raise AssertionError("5b did not plan one 96,000-frame block")
+    for k in kernels:
+        k.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    with _recording(dc, "_detector") as detected, _solves(dc) as solves:
+        out = gb.render()
+        codes = gb.render_i16(SEED)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    launches = {k.__name__: k.launches for k in kernels}
+    print(f"{label}: render() and render_i16 launched {launches}; "
+          f"fixed-point solves a render {solves}; peak "
+          f"device memory {peak / 2**30:.2f} GiB ({(peak - base) / 2**30:.2f} "
+          f"GiB above the staged batch)", flush=True)
+    if launches["curve_lookup"] != 2 or launches["dither_i16"] != 1:
+        raise AssertionError("K1 or K5 did not launch on the corpus path")
+    host = _host(out)[..., :BATCH_FRAMES]
+    if not np.isfinite(host).all() or np.abs(host).max() < 0.1:
+        raise AssertionError("the corpus render is not finite or silent")
+    for i in (0, BIG_BATCH // 2 - 1, BIG_BATCH - 1):
+        own = mastering_context(wt, "cuda", BATCH_FRAMES, data=clips[i])[0]
+        _check_close(f"{label}: lane {i} vs its own start_rendering_sync on "
+                     "the card", host[i], own.start_rendering_sync()
+                     .to_array(), 1e-6)
+    pick = [0, BIG_BATCH // 2 - 1, BIG_BATCH - 1, 1]
+    small = {}
+    for device in ("cuda", "cpu"):
+        c, s, _, _ = mastering_context(wt, device, BATCH_FRAMES,
+                                       data=np.zeros((2, BATCH_FRAMES),
+                                                     np.float32))
+        g = wt.GraphBatch(c, batch=len(pick))
+        g.override_buffer(s, clips[pick])
+        small[device] = _host(g.render())[..., :BATCH_FRAMES]
+    _check_close(f"{label}: a {len(pick)}-instance batch on the card vs the "
+                 "port's CPU batch", small["cuda"], small["cpu"], 1e-5)
+    _check_close(f"{label}: that batch vs the same lanes of the "
+                 f"{BIG_BATCH}", small["cuda"], host[pick], 1e-6)
+    want = dither.dither_i16_reference(out, SEED)
+    if not torch.equal(codes, want):
+        raise AssertionError("render_i16 differs from the plain dither of "
+                             "render()")
+    print(f"{label}: render_i16 {tuple(codes.shape)} equals the plain dither "
+          "of render()", flush=True)
+    del out, codes, want
+    torch.cuda.empty_cache()
+    ms = _median_events_ms(gb.render)
+    print(f"{label}: staged render median {ms:.3f} ms -> "
+          f"{BIG_BATCH * BATCH_SECONDS * 1000.0 / ms:.1f} instance-audio-s per "
+          f"wall s, {BIG_BATCH * 1000.0 / ms:.1f} clips/s", flush=True)
+    i16_ms = _median_events_ms(lambda: gb.render_i16(SEED).cpu())
+    print(f"{label}: render_i16 + host copy median {i16_ms:.3f} ms -> "
+          f"{BIG_BATCH * BATCH_SECONDS * 1000.0 / i16_ms:.1f} "
+          "instance-audio-s per wall s", flush=True)
+    busy = _print_busy(label, "staged render", [gb.render] * 2)
+    row = detected[0][:4]
+    del gb
+    torch.cuda.empty_cache()
+    return {"launches": launches, "ms": ms, "i16_ms": i16_ms, "peak": peak,
+            "busy": busy, "detector_rows": row}
+
+
+def phase_v(ck, det, dc, rs, t, u):
+    """Times: K1 at S8 (5a's captured launch) and MDN's 44,100-point curve
+    on S8's samples, warm and cold L2, against the plain version, the bound
+    and grid_sample; the detector kernel against the chunked path at 5a's
+    and 5b's detector inputs; the resamplers' device time at 5a's and 5b's
+    shapes.  Returns the timings."""
+    curve, x = t["s8"]
+    curve = (curve[0] if curve.dim() == 2 else curve).contiguous()
+    x = x.contiguous()
+    kern = ck._kernel()
+    res = {}
+    for key, c in (("S8", curve),
+                   ("S8 n 44100", torch.from_numpy(_curve(44100)).cuda())):
+        plan = kern.plan(c.shape[-1], x.numel(), 1)
+        r = _kernel_times(
+            f"v. curve_lookup {key} {tuple(x.shape)}, {tuple(c.shape)} "
+            f"[{_plan_text(plan)}]", ck._launch, {"new": kern},
+            ck.curve_lookup_reference, (c, x),
+            _nbytes(c, x) + x.numel() * 4, 11 * x.numel())
+        r["plan"] = _plan_text(plan)
+        grid = torch.stack([x.reshape(1, 1, -1), torch.zeros_like(
+            x.reshape(1, 1, -1))], dim=-1)
+        img = c.reshape(1, 1, 1, -1)
+
+        def library():
+            return torch.nn.functional.grid_sample(
+                img, grid, mode="bilinear", padding_mode="border",
+                align_corners=True)
+
+        r["library_err"] = float((library().reshape(x.shape)
+                                  - ck.curve_lookup(c, x)).abs().max())
+        r["library_ms"] = statistics.median(_graph_ms(library, 10)
+                                            for _ in range(3))
+        print(f"v. grid_sample at {key}: {r['library_ms'] * 1000:.2f} us, "
+              f"max |grid_sample - kernel| {r['library_err']:.3e}",
+              flush=True)
+        res[key] = r
+        del grid
+
+    # the detector kernel against the chunked path the node runs by default
+    for key, (y0, xl, at, rt) in (("5a", t["detector_row"]),
+                                  ("5b", u["detector_rows"])):
+        y0, xl = y0.contiguous(), xl.contiguous()
+        N, B = xl.shape
+        k_ms = _median_events_ms(lambda: det.detector_scan(y0, xl, at, rt))
+        c_ms = _median_events_ms(lambda: dc._detector(
+            y0, xl, at, rt, const_taus=t["const_taus"]))
+        nbytes = _nbytes(y0, xl) + xl.numel() * 4 + 8
+        b_ms, b_by = _bound(nbytes, 6 * N * B)
+        # one chain of B dependent steps (compare, select, multiply, add:
+        # ~4 dependent f32 operations of ~4 cycles) at the 1,980 MHz boost
+        # clock: the latency floor of one instance, whatever the bytes
+        lat_ms = B * 4 * 4 / 1.98e9 * 1e3
+        print(f"v. detector {key} ({N}, {B}): kernel {k_ms:.3f} ms, the "
+              f"chunked fixed point (the default path) {c_ms:.3f} ms; bound "
+              f"{b_ms * 1000:.2f} us ({b_by}), latency floor of one chain "
+              f"~{lat_ms:.3f} ms", flush=True)
+        res[f"detector {key}"] = {"ms": k_ms, "chunked_ms": c_ms,
+                                  "bound_ms": b_ms, "bound_by": b_by,
+                                  "latency_bound_ms": lat_ms}
+
+    # the resamplers (f64 convolutions) at 5a's and 5b's shapes
+    for key, shape in (("5a", (1, 2, FRAMES)),
+                       ("5b", (BIG_BATCH, 2, BATCH_FRAMES))):
+        xr = torch.rand(shape, device="cuda") * 2 - 1
+        ust = rs.up_fir_state(2, 4, "cuda").expand(shape[0], 2, -1)
+        dst = rs.down_fir_state(2, 4, "cuda").expand(shape[0], 2, -1)
+        up_ms = _median_events_ms(lambda: rs.upsample(xr, 4, ust))
+        up = rs.upsample(xr, 4, ust)[0]
+        dn_ms = _median_events_ms(lambda: rs.downsample(up, 4, dst))
+        print(f"v. resamplers x4 at {shape}: upsample {up_ms:.3f} ms, "
+              f"downsample {dn_ms:.3f} ms (f64 conv1d, device time by CUDA "
+              "events)", flush=True)
+        res[f"resample {key}"] = {"up_ms": up_ms, "down_ms": dn_ms}
+        del xr, up
+        torch.cuda.empty_cache()
+    return res
+
+
 def _ptxas_build(cuda_lib, name, source):
     """nvcc `source` with the port's flags and `-Xptxas -v` into the
     git-ignored build directory; returns the loaded library and ptxas's
@@ -2169,6 +2735,10 @@ def main() -> int:
     from webaudio_tpu_torch.ops import dither
     from webaudio_tpu_torch.graph import fusion
     from webaudio_tpu_torch.ops import grain_read as gr
+    from webaudio_tpu_torch.ops import detector as det
+    from webaudio_tpu_torch.ops import resample as rs
+    from webaudio_tpu_torch.nodes import dynamics_compressor as dc
+    from webaudio_tpu_torch.nodes import waveshaper
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2205,6 +2775,7 @@ def main() -> int:
     ck._kernel()
     dither._launchers()
     gr._launchers()
+    det._launcher()
     print(f"build: {', '.join(sources)} built and loaded in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
 
@@ -2246,6 +2817,15 @@ def main() -> int:
     voice_launches, s7, s7_err = phase_q(wt, compiler, fusion, ck, every)
     k1["S7"] = phase_r(wt, compiler, fusion, ck, s7)
 
+    # the mastering chain, s-v: each main path counts every kernel's
+    # launches from 0
+    det_err = phase_s(det, rs, wt.KernelError)
+    master = (ck.curve_lookup, dither.dither_i16, det.detector_scan)
+    t5a = phase_t(wt, compiler, ck, det, dc, waveshaper, master)
+    u5b = phase_u(wt, compiler, dither, dc, master)
+    v = phase_v(ck, det, dc, rs, t5a, u5b)
+    k1.update({k: v[k] for k in ("S8", "S8 n 44100")})
+
     n_q = QUANT_SHAPE[0] * QUANT_SHAPE[1]
     k5_bound = _bound(n_q * 6, 25 * n_q)
     k6_bound = _bound(n_q * 5, 50 * n_q)
@@ -2269,16 +2849,21 @@ def main() -> int:
          "launches": launches["curve_lookup"],
          "launches_offline_path": offline_launches,
          "launches_voice_path": voice_launches,
+         "launches_mastering_path": t5a["launches"]["curve_lookup"],
+         "launches_corpus_path": u5b["launches"]["curve_lookup"],
          "max_abs_err": max(max_err, s7_err),
          **{k: v for k, v in k1["S1"].items() if k != "plan"},
          "library_ms": k1_lib_ms, "library_max_abs_err": k1_lib_err,
          "floor_ms": k1["floor_ms"],
          "shapes": {s: k1[s] for s in ("S1", "S1 random", "S1 copies", "S2",
-                                       "S3", "S4", "S5", "S6", "S7")}},
+                                       "S3", "S4", "S5", "S6", "S7", "S8",
+                                       "S8 n 44100")}},
         {"name": "dither_i16", "route": "cuda",
          "source": "webaudio_tpu_torch/csrc/quantize.cu",
          "replaces": "webaudio_tpu/ops/dither.py:37",
-         "launches": launches["dither_i16"], "max_abs_err": q_err[0],
+         "launches": launches["dither_i16"],
+         "launches_corpus_path": u5b["launches"]["dither_i16"],
+         "max_abs_err": q_err[0],
          "ms": times["dither_i16"][0], "plain_ms": times["dither_i16"][1],
          "bound_ms": k5_bound[0], "bound_by": k5_bound[1],
          "library_ms": None},
@@ -2313,6 +2898,20 @@ def main() -> int:
          "max_abs_err": grain_err["grouped_lerp"],
          **grain(k4, {"library_ms": k4["library_ms"],
                       "library_max_abs_err": k4["library_err"]})},
+        {"name": "detector_scan", "route": "cuda",
+         "source": "webaudio_tpu_torch/csrc/detector.cu",
+         "replaces": "webaudio_tpu/nodes/dynamics_compressor.py:28",
+         "launches": t5a["seq_launches"]["detector_scan"],
+         "launches_default_path": t5a["launches"]["detector_scan"],
+         "launches_corpus_path": u5b["launches"]["detector_scan"],
+         "max_abs_err": max(det_err, t5a["detector_err"]),
+         "ms": v["detector 5a"]["ms"],
+         "plain_ms": t5a["detector_plain_ms"], "plain_on": "host cpu",
+         "bound_ms": v["detector 5a"]["bound_ms"],
+         "bound_by": v["detector 5a"]["bound_by"],
+         "latency_bound_ms": v["detector 5a"]["latency_bound_ms"],
+         "chunked_ms": v["detector 5a"]["chunked_ms"],
+         "at_5b": v["detector 5b"], "library_ms": None},
     ]
     for row in rows:
         row.setdefault("share_of_bound", row["bound_ms"] / row["ms"])

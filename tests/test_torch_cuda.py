@@ -660,3 +660,138 @@ def test_distortion_bank_on_the_card_matches_cpu(cuda):
     peak = float(np.abs(want).max())
     assert np.isfinite(got).all() and peak > 0.1
     assert float(np.abs(got - want).max()) <= 1e-5 * peak
+
+
+# --- the mastering chain: the detector kernel, the resamplers, the chain ----
+
+
+def _detector_inputs(N, B, per_sample, seed=3):
+    rng = np.random.default_rng(seed)
+    x = (np.abs(rng.standard_normal((N, B))) * 20).astype(np.float32)
+    x[:, B // 3: B // 2] = 25.0             # a held attack, then a release
+    y0 = rng.uniform(0, 10, N).astype(np.float32)
+    shape = (N, B) if per_sample else (N,)
+    at = rng.uniform(0.5, 0.999, shape).astype(np.float32)
+    rt = rng.uniform(0.9, 0.99999, shape).astype(np.float32)
+    return y0, x, at, rt
+
+
+@pytest.mark.parametrize("N,B", [(1, 1), (1, 4099), (3, 4099), (1024, 1000),
+                                 (130, 17)])
+@pytest.mark.parametrize("per_sample", (False, True))
+@pytest.mark.parametrize("edge", ("none", "attack 0", "release 0"))
+def test_detector_kernel_equals_plain_version(cuda, N, B, per_sample, edge):
+    """csrc/detector.cu against detector_reference, bit for bit: one or a
+    tau an instance or a sample, attack 0 (y resets to x), release 0."""
+    from webaudio_tpu_torch.ops import detector as tdet
+
+    y0, x, at, rt = _detector_inputs(N, B, per_sample)
+    if edge == "attack 0":
+        at[:] = 0.0
+    elif edge == "release 0":
+        rt[:] = 0.0
+    want = tdet.detector_reference(*(torch.from_numpy(a)
+                                     for a in (y0, x, at, rt)))
+    before = tdet.detector_scan.launches
+    got = tdet.detector_scan(*(torch.from_numpy(a).to(cuda)
+                               for a in (y0, x, at, rt)))
+    torch.cuda.synchronize()
+    assert tdet.detector_scan.launches == before + 1
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("bad", ["non-contiguous", "f64", "x on cpu"])
+def test_detector_kernel_refuses_what_it_does_not_take(cuda, bad):
+    from webaudio_tpu_torch.ops import detector as tdet
+
+    y0, x, at, rt = (torch.from_numpy(a).to(cuda)
+                     for a in _detector_inputs(4, 256, False))
+    if bad == "non-contiguous":
+        x = x.t().contiguous().t()
+    elif bad == "f64":
+        x = x.double()
+    else:
+        x = x.cpu()
+    with pytest.raises(wt.KernelError):
+        tdet.detector_scan(y0, x, at, rt)
+
+
+@pytest.fixture
+def default_tf32(cuda):
+    """PyTorch's own TF32 defaults (cuDNN convolutions in TF32), whatever
+    the process set before."""
+    old = (torch.backends.cudnn.allow_tf32,
+           torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+    yield cuda
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = old
+
+
+@pytest.mark.parametrize("factor", (2, 4))
+def test_resamplers_on_the_card_match_cpu_under_default_tf32(default_tf32,
+                                                             factor):
+    """upsample and downsample on the card equal the CPU's to 1e-6 x peak
+    with cuDNN allowed to run f32 convolutions in TF32: they convolve in
+    f64, which has no TF32 path."""
+    from webaudio_tpu_torch.ops import resample as trs
+
+    rng = np.random.default_rng(factor)
+    x = torch.from_numpy(rng.standard_normal((3, 2, 20000)).astype(np.float32))
+    up_st = torch.from_numpy(rng.standard_normal((3, 2, 48)).astype(np.float32))
+    dn_st = trs.down_fir_state(2, factor).expand(3, 2, -1)
+    want_up, _ = trs.upsample(x, factor, up_st)
+    want, _ = trs.downsample(want_up, factor, dn_st)
+    got_up, _ = trs.upsample(x.to(default_tf32), factor, up_st.to(default_tf32))
+    got, _ = trs.downsample(got_up, factor, dn_st.to(default_tf32))
+    for g, w in ((got_up, want_up), (got, want)):
+        assert float((g.cpu() - w).abs().max()) <= 1e-6 * float(w.abs().max())
+
+
+def _mastering(device, seconds=1.0):
+    """chip_smoke.py's phase t graph, cut to `seconds`: a looping buffer ->
+    WaveShaper 4x (tanh over 2,048 points) -> DynamicsCompressor (threshold
+    -18 dB, ratio 4) -> AnalyserNode -> destination."""
+    n = int(48000 * seconds)
+    ctx = wt.OfflineAudioContext(2, n, 48000.0, device=device)
+    src = ctx.create_buffer_source(loop=True)
+    src.buffer = wt.AudioBuffer.from_array(np.sin(
+        np.arange(2 * 48000) * 0.03, dtype=np.float32)[None].repeat(2, 0),
+        48000.0)
+    src.start()
+    shaper = ctx.create_wave_shaper(oversample="4x", curve=np.tanh(
+        np.linspace(-2, 2, 2048)).astype(np.float32))
+    comp = ctx.create_dynamics_compressor(threshold=-18.0, ratio=4.0)
+    an = ctx.create_analyser(fft_size=2048)
+    src.connect(shaper)
+    shaper.connect(comp)
+    comp.connect(an)
+    an.connect(ctx.destination)
+    return ctx, comp, an
+
+
+@pytest.mark.parametrize("detector", ("auto", "seq"))
+def test_mastering_chain_on_the_card_matches_cpu(default_tf32, monkeypatch,
+                                                 detector):
+    """The chain on the card under PyTorch's default TF32 flags within
+    1e-5 x peak of the CPU render, K1 launched once (one block), the
+    detector kernel only where WEBAUDIO_DETECTOR=seq asks for it; the
+    compressor's reduction and the analyser's ring as on the CPU."""
+    from webaudio_tpu_torch.ops import detector as tdet
+
+    monkeypatch.setenv("WEBAUDIO_DETECTOR", detector)
+    k1, det = ck.curve_lookup.launches, tdet.detector_scan.launches
+    ctx, comp, an = _mastering(default_tf32)
+    got = ctx.start_rendering_sync().to_array()
+    assert ck.curve_lookup.launches == k1 + 1
+    assert tdet.detector_scan.launches == det + (detector == "seq")
+    cctx, ccomp, can = _mastering("cpu")
+    want = cctx.start_rendering_sync().to_array()
+    peak = float(np.abs(want).max())
+    assert np.isfinite(got).all() and peak > 0.1
+    assert float(np.abs(got - want).max()) <= 1e-5 * peak
+    assert comp.reduction == pytest.approx(ccomp.reduction, abs=1e-4)
+    ring, cring = np.zeros(2048, np.float32), np.zeros(2048, np.float32)
+    an.get_float_time_domain_data(ring)
+    can.get_float_time_domain_data(cring)
+    assert float(np.abs(ring - cring).max()) <= 1e-5 * peak

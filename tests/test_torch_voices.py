@@ -260,8 +260,9 @@ def test_fused_waveshaper_voices_launch_one_table_lookup(monkeypatch):
 
 
 def test_oversampled_waveshaper_not_fused(monkeypatch):
-    """An oversampled shaper stays out of the bank; the port then refuses
-    the render (its WaveShaper has no 2x/4x path yet)."""
+    """An oversampled shaper stays out of the bank (the bank's shaper stage
+    has no resamplers, as in JAX); the voices then render unfused, each
+    through its own 4x shaper, and equal the JAX render."""
     from webaudio_tpu_torch.nodes.waveshaper import WaveShaperNode
 
     monkeypatch.setenv("WEBAUDIO_FUSE_THRESHOLD", "4")
@@ -273,8 +274,9 @@ def test_oversampled_waveshaper_not_fused(monkeypatch):
     assert all(s in nodes2 for s in shapers)
     assert not any(type(n).__name__ == "_FusedVoicesNode"
                    for n in nodes2.values())
-    with pytest.raises(wt.NotSupportedError):
-        ctx.start_rendering_sync()
+    _plans(shaped, oversample="4x", n=6, curve_points=64)
+    _close(ctx.start_rendering_sync().to_array(),
+           _render(wa, shaped, oversample="4x", n=6, curve_points=64), 1e-5)
 
 
 def explicit_gain(mod):

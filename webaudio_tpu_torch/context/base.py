@@ -155,6 +155,11 @@ class BaseAudioContext:
                             disable_normalization=disable_normalization)
 
     # --- node factories (reference: base.rs:126-271) -------------------------
+    def create_analyser(self, **kw):
+        from ..nodes.analyser import AnalyserNode
+
+        return AnalyserNode(self, **kw)
+
     def create_biquad_filter(self, **kw):
         from ..nodes.biquad_filter import BiquadFilterNode
 
@@ -180,6 +185,11 @@ class BaseAudioContext:
 
         return ChannelSplitterNode(self, number_of_outputs=number_of_outputs,
                                    **kw)
+
+    def create_dynamics_compressor(self, **kw):
+        from ..nodes.dynamics_compressor import DynamicsCompressorNode
+
+        return DynamicsCompressorNode(self, **kw)
 
     def create_gain(self, **kw):
         from ..nodes.gain import GainNode
@@ -218,11 +228,12 @@ def _not_ported(name: str):
     return factory
 
 
-# the JAX package's other factories and methods, one by one as their
-# slices land
-for _name in ("create_analyser", "create_audio_param", "create_audio_worklet",
-              "create_convolver", "create_delay",
-              "create_dynamics_compressor", "create_iir_filter",
+# the JAX package's factories and methods that are not ported yet: the
+# delay, convolver and IIR filter wait for the cycle compiler's slice, the
+# panner and listener for the spatial one, the worklet and script
+# processor for the host-callback nodes, decoding for media I/O
+for _name in ("create_audio_param", "create_audio_worklet",
+              "create_convolver", "create_delay", "create_iir_filter",
               "create_panner", "create_script_processor",
               "decode_audio_data", "decode_audio_data_sync"):
     setattr(BaseAudioContext, _name, _not_ported(_name))

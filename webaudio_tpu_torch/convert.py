@@ -14,8 +14,13 @@ The engine has no learned weights.  What one render hands the next is:
 - the node states that cross a suspend boundary: the FDL delay line
   (`spectra`, `tail`), the buffer playhead (`buffer_time`, `elapsed`,
   `entered`), the a-rate biquad's history (`xy`), an oscillator's f64
-  `phase` carry, and a voice bank's f64 `phase` (one per voice) with its
-  filter stage's FDL (`fdl_spectra`, `fdl_tail`).
+  `phase` carry, a voice bank's f64 `phase` (one per voice) with its
+  filter stage's FDL (`fdl_spectra`, `fdl_tail`), an oversampled
+  WaveShaper's FIR histories (`up`: the last 48 input samples a channel,
+  `down`: the last 48 x factor upsampled ones), a DynamicsCompressor's
+  level `detector`, lookahead `delay` ring (C, frames) and last
+  `reduction` in dB, and an AnalyserNode's `ring` of the last 32,768 mono
+  samples.
 
 Both arrive as trees of dicts whose leaves are numpy arrays (a JAX tree
 converts with `jax.tree_util.tree_map(np.asarray, tree)`, which this

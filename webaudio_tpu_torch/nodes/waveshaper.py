@@ -1,11 +1,13 @@
-"""WaveShaperNode: nonlinear curve shaping.
+"""WaveShaperNode: nonlinear curve shaping with optional oversampling.
 
 reference: src/node/waveshaper.rs.  Curve application (apply_curve,
 waveshaper.rs:556-573) is a gather + lerp with edge clamping, run by the
-hand-written curve kernel (ops/curve_kernel.py).  Ported from
-`webaudio_tpu/nodes/waveshaper.py`.  2x/4x oversampling needs the
-polyphase resamplers (`webaudio_tpu/ops/resample.py`), which are not
-ported yet: `make_kernel` raises `NotSupportedError` for them.
+hand-written curve kernel (ops/curve_kernel.py).  2x/4x oversampling runs
+the curve at the higher rate between the streaming polyphase up- and
+down-samplers (ops/resample.py: a linear-phase FIR design standing in for
+the reference's rubato FFT resampler), so the kernel shapes
+(N, C, factor * B) samples a block.  Ported from
+`webaudio_tpu/nodes/waveshaper.py`.
 """
 
 from __future__ import annotations
@@ -14,8 +16,9 @@ from enum import Enum
 
 import numpy as np
 
-from ..constants import InvalidStateError, NotSupportedError
+from ..constants import InvalidStateError
 from ..graph.compiler import Kernel
+from ..ops import resample
 from ..ops.curve_kernel import curve_lookup
 from .audio_node import AudioNode, AudioNodeOptions
 
@@ -27,11 +30,31 @@ class OverSampleType(str, Enum):
 
 
 class _WaveShaperKernel(Kernel):
-    def __init__(self, curve):
+    def __init__(self, curve, oversample: OverSampleType, channels: int,
+                 device):
         self.curve = None if curve is None else np.asarray(curve, np.float32)
+        self.oversample = oversample if curve is not None else OverSampleType.NONE
+        self.channels = channels
+        self.device = device
+        self.factor = {"none": 1, "2x": 2, "4x": 4}[self.oversample.value]
 
     def resources(self):
         return None if self.curve is None else {"curve": self.curve}
+
+    def tail_frames(self):
+        if self.factor == 1:
+            return 0
+        return 2 * len(resample._interp_fir(self.factor))
+
+    def init_state(self):
+        if self.factor == 1:
+            return None
+        return {
+            "up": resample.up_fir_state(self.channels, self.factor,
+                                        self.device),
+            "down": resample.down_fir_state(self.channels, self.factor,
+                                            self.device),
+        }
 
     def process(self, scope, state, inputs, params):
         x = inputs[0]                                  # (N, C, B)
@@ -39,9 +62,15 @@ class _WaveShaperKernel(Kernel):
             return state, [x]  # passthrough (reference: waveshaper.rs:420-427)
         # (1 or N, n): one curve for all, or one per instance (a
         # MixedGraphBatch bucket whose members' curves differ); one launch
-        # shapes every instance's samples either way
+        # shapes every instance's samples either way, at any factor
         curves = scope.node_resources["curve"]
-        return state, [curve_lookup(curves, x.contiguous())]
+        if self.factor == 1:
+            return state, [curve_lookup(curves, x.contiguous())]
+        up, up_st = resample.upsample(x, self.factor, state["up"])
+        shaped = curve_lookup(curves, up.contiguous())
+        down, down_st = resample.downsample(shaped, self.factor,
+                                            state["down"])
+        return {"up": up_st, "down": down_st}, [down]
 
 
 class WaveShaperNode(AudioNode):
@@ -86,9 +115,6 @@ class WaveShaperNode(AudioNode):
         self._oversample = OverSampleType(v)
 
     def make_kernel(self, render_ctx):
-        if self._curve is not None and self._oversample != OverSampleType.NONE:
-            raise NotSupportedError(
-                f"WaveShaper oversample={self._oversample.value!r} needs the "
-                "polyphase resamplers, which webaudio_tpu_torch does not port "
-                "yet")
-        return _WaveShaperKernel(self._curve)
+        c = max(1, render_ctx.input_channel_counts[0])
+        return _WaveShaperKernel(self._curve, self._oversample, c,
+                                 render_ctx.device)
