@@ -210,6 +210,41 @@ kernel, each main path with every kernel's launch count from 0:
      grid_sample; the detector kernel against the chunked path at 5a's
      and 5b's detector inputs; the resamplers' device time.
 
+Then delay, feedback cycles, the ConvolverNode and the IIRFilterNode
+(BASELINE config 3: benches/suite.py::case_convolution_reverb at 44.1 kHz,
+stereo, with seeded stand-ins for its two WAV files: bench.py's synthetic
+2 s buffer, looped, as the dry signal and 2 s of stereo noise decaying
+with a 0.4 s time constant as the IR, normalized; a 0.31 s delay fed back
+through 0.4), each main path with every kernel's launch count from 0:
+
+  w. config 3, 10 s, through start_rendering_sync: the plan must be the
+     JAX package's (one block of 442,368 frames, the cycle group stepped
+     36 times at 12,288 frames, the convolver's partition 16,384 with K 6);
+     within 1e-5 x peak of the port's CPU render and 1e-4 x peak of a
+     numpy f64 oracle (scipy fftconvolve of the looped dry signal with the
+     scaled IR, plus the feedback loop stepped in chunks one delay long
+     with the delay's lerp); end to end (one warm-up, median of 5), the
+     block loop, and the device-busy share, device operations per render
+     and top device ops (torch.profiler).  Then case_iir_chain (10 s, 48
+     kHz, butter(4, 0.2) on bench.py's looping buffer) against scipy
+     lfilter in f64 at 1e-4 x peak, and its end to end;
+  x. one-quantum stepping: config 3 at 2 s with WEBAUDIO_CYCLE_BLOCKS=1
+     (690 blocks of 128 frames, the convolver's FDL 690 partitions of
+     128) within 3e-6 of its two-rate render (the JAX suite's bound); the
+     golden modulated_feedback_delay topology stretched to 2 s on bench.py's
+     looping buffer (a flanger with feedback: its automated delay pins 750
+     blocks of 128; in the cycle the delay is held to one quantum) within
+     1e-5 x peak of a numpy f64 oracle stepped a quantum at a time; for
+     both, ms (one warm-up, one timed render) and device operations per
+     128-frame quantum;
+  y. the reverb corpus: a GraphBatch of config 3 at 2 s (90,112 / 8 /
+     11,264), 256 instances, each its own synthetic clip through
+     override_buffer, the IR shared: K5 launched by render_i16 and equal
+     to the plain dither, a second render equal to the first, lanes 0, 127
+     and 255 within 1e-6 x peak of their own start_rendering_sync on the
+     card; instance-audio-seconds per wall second, peak device memory and
+     the busy share.
+
 Prints the measurements, a {"kernels": [...]} line (each kernel's launches
 on its path, error against its plain version, device time, the plain
 version's, the least time the card could take (`bound_ms`: the larger of
@@ -218,7 +253,8 @@ its share of that bound (for the curve and grain kernels, of their
 cold-L2 time: the bound reads every input from HBM) and one PyTorch call's
 time where one computes the same function; the curve kernel's row also
 carries S1-S8, the floor and its launches on the offline, voice,
-mastering and corpus paths; the detector kernel's row its launches on the
+mastering and corpus paths; the dither kernel's its launches on both
+corpus paths; the detector kernel's row its launches on the
 seq-mode and default 5a paths, its plain version's host time, the latency
 floor of one sequential chain and the chunked path's time)
 and the card's name and power limit, then as
@@ -713,6 +749,11 @@ def curve_times(ck, s1, s4, old=None):
 
     olds = {} if old is None else {"old": (old, None)}
     out = {key: times(key, curve, x, olds) for key, curve, x in shapes}
+    # the library call beside the one-curve shapes that had none
+    for key, curve, x in shapes:
+        if key in ("S2", "S5"):
+            out[key]["library_ms"], out[key]["library_err"] = \
+                _curve_library(f"e. {key}", ck, curve, x)
     # a table's two kernels as a block's share of its row shrinks (S4's
     # curves, rows of L samples of the bucket's audio) and as the curves
     # lengthen (S4's samples): where staging stops paying
@@ -733,6 +774,28 @@ def curve_times(ck, s1, s4, old=None):
           f"{floor * 1000:.2f} us", flush=True)
     out["floor_ms"] = floor
     return out
+
+
+def _curve_library(label, ck, c, x):
+    """grid_sample's bilinear mode with align_corners=True through one
+    curve (K1's contract, not bit-equal): (device ms, max |grid_sample -
+    kernel|), printed."""
+    grid = torch.stack([x.reshape(1, 1, -1), torch.zeros_like(
+        x.reshape(1, 1, -1))], dim=-1)
+    img = c.reshape(1, 1, 1, -1)
+
+    def library():
+        return torch.nn.functional.grid_sample(
+            img, grid, mode="bilinear", padding_mode="border",
+            align_corners=True)
+
+    err = float((library().reshape(x.shape) - ck.curve_lookup(c, x))
+                .abs().max())
+    ms = statistics.median(_graph_ms(library, 10) for _ in range(3))
+    print(f"{label}: grid_sample {tuple(x.shape)} through {tuple(c.shape)} "
+          f"{ms * 1000:.2f} us, max |grid_sample - kernel| {err:.3e}",
+          flush=True)
+    return ms, err
 
 
 def _host(t):
@@ -999,8 +1062,9 @@ def _rates(name, batch, ms):
 
 
 def _profile(calls):
-    """(device-busy us, wall us, top ops by device us per call) over the
-    calls, run back to back under torch.profiler."""
+    """(device-busy us, wall us, top ops by device us per call, device
+    operations (kernels, copies, fills) per call) over the calls, run back
+    to back under torch.profiler."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1018,24 +1082,27 @@ def _profile(calls):
     ops = sorted((e for e in rows if e.device_type == DeviceType.CPU
                   and e.self_device_time_total > 0),
                  key=lambda e: -e.self_device_time_total)[:6]
+    launches = sum(e.count for e in rows if e.device_type == DeviceType.CUDA)
     return busy_us, wall_us, [(e.key, e.self_device_time_total / len(calls))
-                              for e in ops]
+                              for e in ops], launches / len(calls)
 
 
-def _print_busy(label, what, calls):
+def _busy_launches(label, what, calls):
     """The device-busy share over `calls` run back to back under
-    torch.profiler, printed with the device time per call by op; returns
-    the share (None where the profiler saw no device time)."""
-    busy, wall, top = _profile(calls)
+    torch.profiler, printed with the device time per call by op and the
+    device operations per call; returns (the share, the operations per
+    call), (None, None) where the profiler saw no device time."""
+    busy, wall, top, launches = _profile(calls)
     if busy <= 0:
         print(f"{label}: profiler saw no device time over {what}: busy "
               "share not measured", flush=True)
-        return None
+        return None, None
     print(f"{label}: profiler over {len(calls)} x {what}: device busy "
           f"{busy / 1000:.3f} ms of {wall / 1000:.3f} ms wall "
-          f"({100.0 * busy / wall:.1f}% busy); device us per call by op: "
+          f"({100.0 * busy / wall:.1f}% busy), {launches:.1f} device "
+          f"operations a call; device us per call by op: "
           f"{[(k, round(t, 1)) for k, t in top]}", flush=True)
-    return busy / wall
+    return busy / wall, launches
 
 
 def _busy_share(fn, reps=3):
@@ -1068,7 +1135,7 @@ def phase_j(wt, gb, filt, dither):
             walls.append((time.perf_counter() - t0) * 1000.0 / 6)
         _rates(f"render_stream pipelined {fetch} (host clock, per batch, "
                f"median of 3 streams of 6)", BATCH, statistics.median(walls))
-    busy_us, wall_us, top = _busy_share(gb.render)
+    busy_us, wall_us, top, _ = _busy_share(gb.render)
     if busy_us > 0:
         print(f"j. profiler over 3 renders of {BATCH}: device busy "
               f"{busy_us / 1000:.3f} ms of {wall_us / 1000:.3f} ms wall "
@@ -1568,10 +1635,10 @@ def phase_m(wt, gr, compiler, fusion, cases, old=None):
                   f"{GRAIN_SECONDS * 1000.0 / loop_ms:.1f}x", flush=True)
 
             ctxs = [granular_context(wt, "cuda", n) for _ in range(3)]
-            _print_busy(label, "start_rendering_sync",
-                        [c.start_rendering_sync for c in ctxs])
-            _print_busy(label, "block loop", [lambda: compiler.render_compiled(
-                cg, GRAIN_FRAMES)] * 3)
+            _busy_launches(label, "start_rendering_sync",
+                           [c.start_rendering_sync for c in ctxs])
+            _busy_launches(label, "block loop", [
+                lambda: compiler.render_compiled(cg, GRAIN_FRAMES)] * 3)
 
             with _recording(fusion, "grain_bank") as calls:
                 granular_context(wt, "cuda", n).start_rendering_sync()
@@ -2111,10 +2178,10 @@ def phase_r(wt, compiler, fusion, ck, s7):
               f"{loop_ms:.3f} ms of {['%.3f' % r for r in loop]} (3 renders "
               f"each) -> realtime factor {SECONDS * 1000.0 / loop_ms:.1f}x",
               flush=True)
-        _print_busy(label, "start_rendering_sync",
-                    [make().start_rendering_sync for _ in range(profiled)])
-        _print_busy(label, "block loop",
-                    [lambda: compiler.scan_render(cg, *args)] * profiled)
+        _busy_launches(label, "start_rendering_sync",
+                       [make().start_rendering_sync for _ in range(profiled)])
+        _busy_launches(label, "block loop",
+                       [lambda: compiler.scan_render(cg, *args)] * profiled)
         del args, cg
         torch.cuda.empty_cache()
 
@@ -2474,10 +2541,11 @@ def phase_t(wt, compiler, ck, det, dc, waveshaper, kernels):
           f"{['%.3f' % r for r in loop]} (3 renders each) -> realtime factor "
           f"{SECONDS * 1000.0 / loop_ms:.1f}x", flush=True)
     _host_profile(label, lambda: compiler.scan_render(cg, *args))
-    busy = _print_busy(label, "start_rendering_sync",
-                       [make().start_rendering_sync for _ in range(3)])
-    loop_busy = _print_busy(label, "block loop",
-                            [lambda: compiler.scan_render(cg, *args)] * 3)
+    busy, _ = _busy_launches(label, "start_rendering_sync",
+                             [make().start_rendering_sync for _ in range(3)])
+    loop_busy, _ = _busy_launches(label, "block loop",
+                                  [lambda: compiler.scan_render(cg, *args)]
+                                  * 3)
     del args, cg
     torch.cuda.empty_cache()
     return {"launches": launches, "seq_launches": seq_launches,
@@ -2586,7 +2654,7 @@ def phase_u(wt, compiler, dither, dc, kernels):
     print(f"{label}: render_i16 + host copy median {i16_ms:.3f} ms -> "
           f"{BIG_BATCH * BATCH_SECONDS * 1000.0 / i16_ms:.1f} "
           "instance-audio-s per wall s", flush=True)
-    busy = _print_busy(label, "staged render", [gb.render] * 2)
+    busy, _ = _busy_launches(label, "staged render", [gb.render] * 2)
     row = detected[0][:4]
     del gb
     torch.cuda.empty_cache()
@@ -2614,24 +2682,9 @@ def phase_v(ck, det, dc, rs, t, u):
             ck.curve_lookup_reference, (c, x),
             _nbytes(c, x) + x.numel() * 4, 11 * x.numel())
         r["plan"] = _plan_text(plan)
-        grid = torch.stack([x.reshape(1, 1, -1), torch.zeros_like(
-            x.reshape(1, 1, -1))], dim=-1)
-        img = c.reshape(1, 1, 1, -1)
-
-        def library():
-            return torch.nn.functional.grid_sample(
-                img, grid, mode="bilinear", padding_mode="border",
-                align_corners=True)
-
-        r["library_err"] = float((library().reshape(x.shape)
-                                  - ck.curve_lookup(c, x)).abs().max())
-        r["library_ms"] = statistics.median(_graph_ms(library, 10)
-                                            for _ in range(3))
-        print(f"v. grid_sample at {key}: {r['library_ms'] * 1000:.2f} us, "
-              f"max |grid_sample - kernel| {r['library_err']:.3e}",
-              flush=True)
+        r["library_ms"], r["library_err"] = _curve_library(f"v. {key}", ck,
+                                                           c, x)
         res[key] = r
-        del grid
 
     # the detector kernel against the chunked path the node runs by default
     for key, (y0, xl, at, rt) in (("5a", t["detector_row"]),
@@ -2671,6 +2724,371 @@ def phase_v(ck, det, dc, rs, t, u):
         del xr, up
         torch.cuda.empty_cache()
     return res
+
+
+# --- config 3: delay, feedback cycles, the convolver, the IIR filter --------
+
+REVERB_FS = 44100.0
+REVERB_FRAMES = int(REVERB_FS * SECONDS)
+REVERB_SHORT = int(REVERB_FS * BATCH_SECONDS)
+REVERB_DELAY = 0.31          # s, the feedback delay of config 3
+REVERB_FEEDBACK = 0.4
+REVERB_CORPUS = 256
+IR_SECONDS = 2.0
+
+
+def _reverb_dry():
+    # bench.py:34-37's synthetic 2 s buffer, at the context's 44.1 kHz
+    n = int(2 * REVERB_FS)
+    return np.sin(np.arange(n) * 0.03, dtype=np.float32)[None].repeat(2, 0)
+
+
+def reverb_ir(seed=SEED + 30):
+    """The stand-in for parking-garage-response.wav: 2 s of stereo noise
+    decaying with a 0.4 s time constant, from a seed."""
+    n = int(IR_SECONDS * REVERB_FS)
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((2, n))
+            * np.exp(-np.arange(n) / REVERB_FS / 0.4)).astype(np.float32)
+
+
+def reverb_context(wt, device, frames=REVERB_FRAMES, dry=None):
+    """BASELINE config 3 (benches/suite.py::case_convolution_reverb) with
+    synthetic stand-ins for its two WAV files: a looping source (the dry
+    signal, bench.py's synthetic buffer unless given) into a normalized
+    ConvolverNode (reverb_ir) and into a DelayNode of 0.31 s whose output
+    feeds back through a 0.4 gain; the convolver and the feedback gain
+    into the destination.  Returns (ctx, src)."""
+    ctx = wt.OfflineAudioContext(2, frames, REVERB_FS, device=device)
+    src = ctx.create_buffer_source(loop=True)
+    src.buffer = wt.AudioBuffer.from_array(
+        _reverb_dry() if dry is None else dry, REVERB_FS)
+    src.start()
+    verb = ctx.create_convolver()
+    verb.set_buffer(wt.AudioBuffer.from_array(reverb_ir(), REVERB_FS))
+    src.connect(verb)
+    verb.connect(ctx.destination)
+    d = ctx.create_delay(max_delay_time=1.0)
+    d.delay_time.value = REVERB_DELAY
+    fb = ctx.create_gain(gain=REVERB_FEEDBACK)
+    src.connect(d)
+    d.connect(fb)
+    fb.connect(d)
+    fb.connect(ctx.destination)
+    return ctx, src
+
+
+def reverb_oracle(frames=REVERB_FRAMES):
+    """Config 3 in numpy f64: the looped dry signal convolved with the IR
+    (scipy fftconvolve) at the reference's equal-power scale
+    (convolver.rs:16-50, the power in f64), plus the feedback loop stepped
+    in chunks one delay long, each sample read at t - d (d the f32 delay
+    in f64 frames) with the delay's lerp: x = dry + 0.4 y, y[t] = k0
+    x[t-n-1] + (1-k0) x[t-n]."""
+    from scipy.signal import fftconvolve
+
+    dry = _reverb_dry().astype(np.float64)
+    looped = dry[:, np.arange(frames) % dry.shape[1]]
+    ir = reverb_ir().astype(np.float64)
+    power = max(np.sqrt(np.sum(ir ** 2) / ir.size), 0.000125)
+    ir = ir * (0.00125 / power * 44100.0 / REVERB_FS)
+    wet = np.stack([fftconvolve(looped[c], ir[c])[:frames] for c in range(2)])
+    d = float(np.float32(REVERB_DELAY)) * REVERB_FS
+    n = math.floor(d)
+    k0 = d - n
+    x = np.zeros_like(looped)
+    y = np.zeros_like(looped)
+    for c0 in range(0, frames, n):
+        t = np.arange(c0, min(c0 + n, frames))
+        a = np.where(t - n - 1 >= 0, x[:, np.maximum(t - n - 1, 0)], 0.0)
+        b = np.where(t - n >= 0, x[:, np.maximum(t - n, 0)], 0.0)
+        y[:, t] = k0 * a + (1.0 - k0) * b
+        x[:, t] = looped[:, t] + REVERB_FEEDBACK * y[:, t]
+    return wet + REVERB_FEEDBACK * y
+
+
+def iir_context(wt, device, frames=FRAMES):
+    """benches/suite.py::case_iir_chain with bench.py's synthetic buffer:
+    a looping source through butter(4, 0.2) as an IIRFilterNode, 48 kHz,
+    stereo."""
+    from scipy.signal import butter
+
+    ctx = wt.OfflineAudioContext(2, frames, FS, device=device)
+    src = ctx.create_buffer_source(loop=True)
+    src.buffer = wt.AudioBuffer.from_array(_bench_data(), FS)
+    src.start()
+    f = ctx.create_iir_filter(*butter(4, 0.2))
+    src.connect(f)
+    f.connect(ctx.destination)
+    return ctx
+
+
+def flanger_context(wt, device, frames=BATCH_FRAMES):
+    """tests/test_goldens.py's `modulated_feedback_delay` topology stretched
+    to `frames`: a source into a delay swept from 10.5 to 40.25 frames over
+    the render, fed back through 0.6, the delay into the destination (a
+    flanger with feedback).  The source is bench.py's looping synthetic
+    buffer, not the golden's 8-sample impulse, so the sweep has a signal
+    to act on the whole render.  The automated delay pins the graph to
+    128-frame blocks."""
+    ctx = wt.OfflineAudioContext(1, frames, FS, device=device)
+    src = ctx.create_buffer_source(loop=True)
+    src.buffer = wt.AudioBuffer.from_array(_bench_data()[:1], FS)
+    d = ctx.create_delay(max_delay_time=0.01)
+    d.delay_time.set_value_at_time(10.5 / FS, 0.0)
+    d.delay_time.linear_ramp_to_value_at_time(40.25 / FS, frames / FS)
+    fb = ctx.create_gain(gain=0.6)
+    src.connect(d)
+    d.connect(fb)
+    fb.connect(d)
+    d.connect(ctx.destination)
+    src.start()
+    return ctx
+
+
+def flanger_oracle(frames=BATCH_FRAMES):
+    """flanger_context in numpy f64: x = src + 0.6 y, y[t] the lerp of x
+    at t - d[t], d the swept delay held to one quantum (128 frames) in the
+    cycle (delay.rs:535-542), stepped 128 frames at a time (every read
+    lies in an earlier step)."""
+    src = _bench_data()[0].astype(np.float64)[np.arange(frames) % 96000]
+    t = np.arange(frames)
+    d = np.maximum(10.5 / FS + (40.25 - 10.5) / FS * t / frames, 128 / FS)
+    pos = t - d * FS
+    prev = np.floor(pos).astype(np.int64)
+    k = pos - prev
+    x = np.zeros(frames)
+    y = np.zeros(frames)
+    for c0 in range(0, frames, 128):
+        s = slice(c0, c0 + 128)
+        p0, p1 = prev[s], prev[s] + 1
+        a = np.where(p0 >= 0, x[np.maximum(p0, 0)], 0.0)
+        b = np.where(p1 >= 0, x[np.maximum(p1, 0)], 0.0)
+        y[s] = (1.0 - k[s]) * a + k[s] * b
+        x[s] = src[s] + 0.6 * y[s]
+    return y[None]
+
+
+def _reverb_plan(compiler, ctx):
+    """(plan, blocks, the convolver's (partition, K), the delay's ring)."""
+    cg, nb = _plan(compiler, ctx)
+    (conv,) = [k for k in cg.kernels.values()
+               if type(k).__name__ == "_ConvolverKernel"]
+    (dl,) = [k for k in cg.kernels.values()
+             if type(k).__name__ == "_DelayKernel"]
+    return cg, nb, (conv.partition, conv.k), dl.R
+
+
+def _loop_ms(compiler, cg, frames, reps=3):
+    """The block walk alone on a compiled plan: median of 3 x `reps`
+    `scan_render`s between CUDA events."""
+    args = compiler.render_args(cg, frames)
+    compiler.scan_render(cg, *args)
+    runs = [_events_ms(lambda: compiler.scan_render(cg, *args), reps)
+            for _ in range(3)]
+    return statistics.median(runs), runs, args
+
+
+def phase_w(wt, compiler, kernels):
+    """Config 3 at full width through start_rendering_sync, and the
+    padenot suite's IIR chain.  Returns the timings and launches."""
+    label = "w. config 3, reverb + feedback delay, 10 s 44.1 kHz"
+    ctx, _ = reverb_context(wt, "cuda")
+    cg, nb, (P, K), R = _reverb_plan(compiler, ctx)
+    plan = (cg.block_frames, cg.two_rate_m, cg.inner_frames, P, K)
+    print(f"{label}: plan block_frames {cg.block_frames} ({nb} block(s)), "
+          f"two-rate m {cg.two_rate_m} x inner {cg.inner_frames} frames, "
+          f"convolver partition {P} K {K}, delay ring {R} frames", flush=True)
+    if plan != (442368, 36, 12288, 16384, 6):
+        raise AssertionError(f"config 3's plan {plan} is not the JAX "
+                             "package's (442368, 36, 12288, 16384, 6)")
+    out, launches = _main_path(ctx, kernels)
+    print(f"{label}: main path launched {launches} (no hand kernel lies on "
+          "this path: cuFFT and PyTorch ops)", flush=True)
+    cpu = reverb_context(wt, "cpu")[0].start_rendering_sync().to_array()
+    err_cpu = _check_close(f"{label}: vs the port's CPU render", out, cpu,
+                           1e-5)
+    want = reverb_oracle()
+    err = _check_close(f"{label}: vs the f64 numpy oracle (fftconvolve, "
+                       "the lerped feedback loop)", out, want, 1e-4)
+    print(f"{label}: errors {err_cpu / np.abs(cpu).max():.3e} x peak (CPU), "
+          f"{err / np.abs(want).max():.3e} x peak (oracle)", flush=True)
+
+    def make():
+        return reverb_context(wt, "cuda")[0]
+
+    e2e = _render_ms(label, make, SECONDS)
+    loop_ms, runs, args = _loop_ms(compiler, cg, REVERB_FRAMES)
+    print(f"{label}: block loop on a compiled plan: median {loop_ms:.3f} ms "
+          f"of {['%.3f' % r for r in runs]} (3 renders each) -> realtime "
+          f"factor {SECONDS * 1000.0 / loop_ms:.1f}x", flush=True)
+    busy, ops = _busy_launches(label, "start_rendering_sync",
+                               [make().start_rendering_sync
+                                for _ in range(3)])
+    loop_busy, loop_ops = _busy_launches(
+        label, "block loop", [lambda: compiler.scan_render(cg, *args)] * 3)
+    del args, cg
+
+    ilabel = "w. case_iir_chain, butter(4, 0.2), 10 s 48 kHz"
+    ictx = iir_context(wt, "cuda")
+    icg, inb = _plan(compiler, ictx)
+    iout, _ = _main_path(ictx, kernels)
+    from scipy.signal import butter, lfilter
+
+    looped = _bench_data().astype(np.float64)[:, np.arange(FRAMES) % 96000]
+    iwant = lfilter(*butter(4, 0.2), looped, axis=1)
+    print(f"{ilabel}: plan block_frames {icg.block_frames} ({inb} "
+          "block(s))", flush=True)
+    ierr = _check_close(f"{ilabel}: vs scipy lfilter in f64", iout, iwant,
+                        1e-4)
+    i_ms = _render_ms(ilabel, lambda: iir_context(wt, "cuda"), SECONDS)
+    torch.cuda.empty_cache()
+    return {"launches": launches, "e2e_ms": e2e, "loop_ms": loop_ms,
+            "busy": busy, "ops": ops, "loop_busy": loop_busy,
+            "loop_ops": loop_ops, "err_cpu": err_cpu, "err_oracle": err,
+            "iir_ms": i_ms, "iir_err": ierr}
+
+
+def phase_x(wt, compiler, kernels):
+    """One-quantum stepping (WEBAUDIO_CYCLE_BLOCKS=1): config 3 at 2 s
+    against its two-rate render, and the modulated feedback delay (a
+    flanger, one quantum a block by its automated delay) against the CPU.
+    Returns ms and device operations per 128-frame quantum."""
+    res = {}
+    label = "x. config 3 at 2 s, WEBAUDIO_CYCLE_BLOCKS=1"
+    two = reverb_context(wt, "cuda", REVERB_SHORT)[0].start_rendering_sync() \
+        .to_array()
+    with _env("WEBAUDIO_CYCLE_BLOCKS", "1"):
+        ctx, _ = reverb_context(wt, "cuda", REVERB_SHORT)
+        cg, nb, (P, K), R = _reverb_plan(compiler, ctx)
+        print(f"{label}: plan block_frames {cg.block_frames} ({nb} blocks), "
+              f"convolver partition {P} K {K}", flush=True)
+        if (cg.block_frames, P, K) != (128, 128, 690):
+            raise AssertionError("one-quantum stepping did not plan 128-frame "
+                                 "blocks with a 690-partition FDL")
+        one, launches = _main_path(ctx, kernels)
+        err = float(np.abs(one - two).max())
+        print(f"{label}: vs the two-rate render (90,112 / 8 / 11,264): "
+              f"max_abs_err {err:.3e} (limit 3e-6, the JAX suite's bound) "
+              f"-> {'ok' if err <= 3e-6 else 'FAIL'}", flush=True)
+        if not err <= 3e-6 or not np.abs(two).max() > 0.1:
+            raise AssertionError(f"{label}: {err} > 3e-6")
+
+        def make():
+            return reverb_context(wt, "cuda", REVERB_SHORT)[0]
+
+        # one-quantum renders take seconds: the median of three timed
+        # renders after a warm-up, one under the profiler
+        ms = _render_ms(label, make, BATCH_SECONDS, reps=3)
+        _, ops = _busy_launches(label, "start_rendering_sync",
+                                [make().start_rendering_sync])
+    res["reverb"] = {"ms": ms, "blocks": nb, "ms_per_quantum": ms / nb,
+                     "ops_per_quantum": ops / nb if ops else None}
+
+    flabel = "x. modulated feedback delay (flanger), 2 s 48 kHz"
+    fctx = flanger_context(wt, "cuda")
+    fcg, fnb = _plan(compiler, fctx)
+    print(f"{flabel}: plan block_frames {fcg.block_frames} ({fnb} blocks)",
+          flush=True)
+    if fcg.block_frames != 128:
+        raise AssertionError("the automated delay did not pin 128-frame "
+                             "blocks")
+    fout, _ = _main_path(fctx, kernels)
+    _check_close(f"{flabel}: vs the f64 numpy oracle", fout,
+                 flanger_oracle(), 1e-5)
+    fms = _render_ms(flabel, lambda: flanger_context(wt, "cuda"),
+                     BATCH_SECONDS, reps=3)
+    _, fops = _busy_launches(flabel, "start_rendering_sync",
+                             [flanger_context(wt, "cuda")
+                              .start_rendering_sync])
+    res["flanger"] = {"ms": fms, "blocks": fnb, "ms_per_quantum": fms / fnb,
+                      "ops_per_quantum": fops / fnb if fops else None}
+    for key, r in res.items():
+        print(f"x. {key}: {r['ms_per_quantum'] * 1000:.1f} us and "
+              f"{r['ops_per_quantum'] or float('nan'):.1f} device operations "
+              f"per 128-frame quantum ({r['blocks']} quanta)", flush=True)
+    res["launches"] = launches
+    return res
+
+
+def reverb_clips(count, frames, seed):
+    """The reverb corpus's dry clips: synthetic stereo clips made with
+    numpy from a seed (a sine of 80-2,000 Hz a channel, a slow tremolo and
+    noise), (count, 2, frames) f32 at 44.1 kHz."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(frames) / REVERB_FS
+    f = rng.uniform(80.0, 2000.0, (count, 2, 1))
+    trem = 1.0 + 0.5 * np.sin(2 * np.pi * rng.uniform(0.2, 3.0, (count, 1, 1))
+                              * t)
+    x = rng.uniform(0.2, 0.9, (count, 1, 1)) * trem * np.sin(2 * np.pi * f * t)
+    x += 0.03 * rng.standard_normal((count, 2, frames))
+    return x.astype(np.float32)
+
+
+def phase_y(wt, compiler, dither, kernels):
+    """The reverb corpus: a GraphBatch of config 3 at 2 s, REVERB_CORPUS
+    instances, a clip each, the IR shared, bounced by K5.  Returns the
+    launches, throughput and peak memory."""
+    label = f"y. reverb corpus, {REVERB_CORPUS} clips of {BATCH_SECONDS:g} s"
+    clips = reverb_clips(REVERB_CORPUS, int(2 * REVERB_FS), SEED + 31)
+    ctx, src = reverb_context(wt, "cuda", REVERB_SHORT)
+    gb = wt.GraphBatch(ctx, batch=REVERB_CORPUS)
+    gb.override_buffer(src, clips)
+    plan = (gb.cg.block_frames, gb.cg.two_rate_m, gb.cg.inner_frames)
+    print(f"{label}: plan block_frames {plan[0]} ({gb.nb} block(s)), m "
+          f"{plan[1]} x inner {plan[2]}", flush=True)
+    if plan != (90112, 8, 11264):
+        raise AssertionError(f"the corpus plan {plan} is not (90112, 8, "
+                             "11264)")
+    for k in kernels:
+        k.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    out = gb.render()
+    codes = gb.render_i16(SEED)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    launches = {k.__name__: k.launches for k in kernels}
+    print(f"{label}: render() and render_i16 launched {launches}; peak "
+          f"device memory {peak / 2**30:.2f} GiB ({(peak - base) / 2**30:.2f} "
+          "GiB above the staged batch)", flush=True)
+    if launches["dither_i16"] != 1:
+        raise AssertionError("K5 did not launch on the reverb corpus path")
+    host = _host(out)[..., :REVERB_SHORT]
+    if not np.isfinite(host).all() or np.abs(host).max() < 0.05:
+        raise AssertionError("the corpus render is not finite or silent")
+    again = _host(gb.render())[..., :REVERB_SHORT]
+    if not np.array_equal(host, again):
+        raise AssertionError("a second render of the staged batch differs "
+                             "(a state written in place?)")
+    for i in (0, REVERB_CORPUS // 2 - 1, REVERB_CORPUS - 1):
+        own = reverb_context(wt, "cuda", REVERB_SHORT, dry=clips[i])[0]
+        _check_close(f"{label}: lane {i} vs its own start_rendering_sync on "
+                     "the card", host[i], own.start_rendering_sync()
+                     .to_array(), 1e-6)
+    want = dither.dither_i16_reference(out, SEED)
+    if not torch.equal(codes, want):
+        raise AssertionError("render_i16 differs from the plain dither of "
+                             "render()")
+    print(f"{label}: render_i16 {tuple(codes.shape)} equals the plain dither "
+          "of render(); a second render() equals the first", flush=True)
+    del out, codes, want
+    torch.cuda.empty_cache()
+    ms = _median_events_ms(gb.render)
+    rate = REVERB_CORPUS * BATCH_SECONDS * 1000.0 / ms
+    print(f"{label}: staged render median {ms:.3f} ms -> {rate:.1f} "
+          f"instance-audio-s per wall s, {REVERB_CORPUS * 1000.0 / ms:.1f} "
+          "clips/s", flush=True)
+    i16_ms = _median_events_ms(lambda: gb.render_i16(SEED).cpu())
+    print(f"{label}: render_i16 + host copy median {i16_ms:.3f} ms -> "
+          f"{REVERB_CORPUS * BATCH_SECONDS * 1000.0 / i16_ms:.1f} "
+          "instance-audio-s per wall s", flush=True)
+    busy, ops = _busy_launches(label, "staged render", [gb.render] * 2)
+    del gb
+    torch.cuda.empty_cache()
+    return {"launches": launches, "ms": ms, "rate": rate, "i16_ms": i16_ms,
+            "peak": peak, "busy": busy, "ops": ops}
 
 
 def _ptxas_build(cuda_lib, name, source):
@@ -2825,6 +3243,15 @@ def main() -> int:
     u5b = phase_u(wt, compiler, dither, dc, master)
     v = phase_v(ck, det, dc, rs, t5a, u5b)
     k1.update({k: v[k] for k in ("S8", "S8 n 44100")})
+    del t5a["s8"], t5a["detector_row"], u5b["detector_rows"]
+    torch.cuda.empty_cache()
+
+    # config 3, w-y: delay, feedback cycles, the convolver, the IIR
+    # filter; each main path counts every kernel's launches from 0
+    every = every + (det.detector_scan,)
+    phase_w(wt, compiler, every)
+    phase_x(wt, compiler, every)
+    y = phase_y(wt, compiler, dither, every)
 
     n_q = QUANT_SHAPE[0] * QUANT_SHAPE[1]
     k5_bound = _bound(n_q * 6, 25 * n_q)
@@ -2863,6 +3290,7 @@ def main() -> int:
          "replaces": "webaudio_tpu/ops/dither.py:37",
          "launches": launches["dither_i16"],
          "launches_corpus_path": u5b["launches"]["dither_i16"],
+         "launches_reverb_corpus_path": y["launches"]["dither_i16"],
          "max_abs_err": q_err[0],
          "ms": times["dither_i16"][0], "plain_ms": times["dither_i16"][1],
          "bound_ms": k5_bound[0], "bound_by": k5_bound[1],

@@ -795,3 +795,126 @@ def test_mastering_chain_on_the_card_matches_cpu(default_tf32, monkeypatch,
     an.get_float_time_domain_data(ring)
     can.get_float_time_domain_data(cring)
     assert float(np.abs(ring - cring).max()) <= 1e-5 * peak
+
+
+# --- delay, feedback cycles, convolver, IIR ----------------------------------
+
+
+def _delay_net(device, seconds=1.0, automate_fb=False):
+    """tests/test_two_rate.py's delay network: a 330 Hz burst into a 0.2 s
+    delay fed back through a 0.6 gain (a two-rate plan)."""
+    ctx = wt.OfflineAudioContext(2, int(48000 * seconds), 48000.0,
+                                 device=device)
+    o = ctx.create_oscillator(frequency=330.0)
+    o.start()
+    o.stop(0.25)
+    d = ctx.create_delay(max_delay_time=0.5, delay_time=0.2)
+    fb = ctx.create_gain(gain=0.6)
+    if automate_fb:
+        fb.gain.set_value_at_time(0.7, 0.0)
+        fb.gain.linear_ramp_to_value_at_time(0.2, seconds)
+    o.connect(d)
+    d.connect(fb)
+    fb.connect(d)
+    fb.connect(ctx.destination)
+    o.connect(ctx.destination)
+    return ctx
+
+
+def _reverb(device, seconds=1.0, dry=None):
+    """BASELINE config 3 at 44.1 kHz with bench.py's synthetic buffer and a
+    0.5 s synthetic stereo IR: a looping source into a convolver and a
+    0.31 s delay fed back through 0.4."""
+    fs = 44100.0
+    ctx = wt.OfflineAudioContext(2, int(fs * seconds), fs, device=device)
+    if dry is None:
+        dry = np.sin(np.arange(2 * 44100) * 0.03, dtype=np.float32)[None] \
+            .repeat(2, 0)
+    src = ctx.create_buffer_source(loop=True)
+    src.buffer = wt.AudioBuffer.from_array(dry, fs)
+    src.start()
+    rng = np.random.default_rng(3)
+    n = int(fs * 0.5)
+    ir = rng.standard_normal((2, n)) * np.exp(-np.arange(n) / fs / 0.4)
+    verb = ctx.create_convolver(
+        buffer=wt.AudioBuffer.from_array(ir.astype(np.float32), fs))
+    src.connect(verb)
+    verb.connect(ctx.destination)
+    d = ctx.create_delay(max_delay_time=1.0, delay_time=0.31)
+    fb = ctx.create_gain(gain=0.4)
+    src.connect(d)
+    d.connect(fb)
+    fb.connect(d)
+    fb.connect(ctx.destination)
+    return ctx
+
+
+@pytest.mark.parametrize("automate_fb", [False, True])
+def test_two_rate_on_the_card_is_bit_equal_to_other_stepping(
+        cuda, monkeypatch, automate_fb):
+    """Two-rate, single-rate and one-quantum renders of a delay network are
+    bit-equal on the card, and within 1e-5 x peak of the CPU render."""
+    got = _delay_net(cuda, automate_fb=automate_fb).start_rendering_sync() \
+        .to_array()
+    for env in ({"WEBAUDIO_TWO_RATE": "0"}, {"WEBAUDIO_CYCLE_BLOCKS": "1"}):
+        for k, v in env.items():
+            monkeypatch.setenv(k, v)
+        other = _delay_net(cuda, automate_fb=automate_fb) \
+            .start_rendering_sync().to_array()
+        for k in env:
+            monkeypatch.delenv(k)
+        np.testing.assert_array_equal(got, other)
+    want = _delay_net("cpu", automate_fb=automate_fb).start_rendering_sync() \
+        .to_array()
+    peak = float(np.abs(want).max())
+    assert peak > 0.1 and float(np.abs(got - want).max()) <= 1e-5 * peak
+
+
+def test_reverb_on_the_card_matches_cpu(cuda, monkeypatch):
+    """Config 3 (two-rate, cuFFT) within 1e-5 x peak of the CPU render;
+    its one-quantum render (K = 345 partitions of 128) within 3e-6."""
+    got = _reverb(cuda).start_rendering_sync().to_array()
+    want = _reverb("cpu").start_rendering_sync().to_array()
+    peak = float(np.abs(want).max())
+    assert peak > 0.1 and float(np.abs(got - want).max()) <= 1e-5 * peak
+    monkeypatch.setenv("WEBAUDIO_CYCLE_BLOCKS", "1")
+    one = _reverb(cuda).start_rendering_sync().to_array()
+    assert float(np.abs(one - got).max()) <= 3e-6
+
+
+def test_reverb_batch_on_the_card_repeats_and_matches_own_renders(cuda):
+    """A GraphBatch of the reverb with a clip per instance: rendered twice
+    it gives the same output (the ring is written out of place), and each
+    lane is within 1e-6 x peak of its own render."""
+    ctx = _reverb(cuda)
+    (src,) = [n for n in ctx._nodes.values() if hasattr(n, "loop")]
+    rng = np.random.default_rng(9)
+    clips = rng.uniform(-0.5, 0.5, (3, 2, 88200)).astype(np.float32)
+    gb = wt.GraphBatch(ctx, batch=3)
+    gb.override_buffer(src, clips)
+    first = gb.render().cpu().numpy()[..., :ctx.length]
+    np.testing.assert_array_equal(first, gb.render().cpu().numpy()
+                                  [..., :ctx.length])
+    for i in (0, 2):
+        want = _reverb(cuda, dry=clips[i]).start_rendering_sync().to_array()
+        peak = float(np.abs(want).max())
+        assert float(np.abs(first[i] - want).max()) <= 1e-6 * peak
+
+
+def test_iir_filter_on_the_card_matches_cpu(cuda):
+    from scipy.signal import butter
+
+    outs = []
+    for device in (cuda, "cpu"):
+        ctx = wt.OfflineAudioContext(2, 48000, 48000.0, device=device)
+        src = ctx.create_buffer_source(loop=True)
+        src.buffer = wt.AudioBuffer.from_array(
+            np.sin(np.arange(96000) * 0.03, dtype=np.float32)[None]
+            .repeat(2, 0), 48000.0)
+        src.start()
+        f = ctx.create_iir_filter(*butter(4, 0.2))
+        src.connect(f)
+        f.connect(ctx.destination)
+        outs.append(ctx.start_rendering_sync().to_array())
+    peak = float(np.abs(outs[1]).max())
+    assert float(np.abs(outs[0] - outs[1]).max()) <= 1e-5 * peak

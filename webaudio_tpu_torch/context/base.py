@@ -186,6 +186,16 @@ class BaseAudioContext:
         return ChannelSplitterNode(self, number_of_outputs=number_of_outputs,
                                    **kw)
 
+    def create_convolver(self, **kw):
+        from ..nodes.convolver import ConvolverNode
+
+        return ConvolverNode(self, **kw)
+
+    def create_delay(self, max_delay_time: float = 1.0, **kw):
+        from ..nodes.delay import DelayNode
+
+        return DelayNode(self, max_delay_time=max_delay_time, **kw)
+
     def create_dynamics_compressor(self, **kw):
         from ..nodes.dynamics_compressor import DynamicsCompressorNode
 
@@ -195,6 +205,12 @@ class BaseAudioContext:
         from ..nodes.gain import GainNode
 
         return GainNode(self, **kw)
+
+    def create_iir_filter(self, feedforward, feedback, **kw):
+        from ..nodes.iir_filter import IIRFilterNode
+
+        return IIRFilterNode(self, feedforward=feedforward, feedback=feedback,
+                             **kw)
 
     def create_oscillator_bank(self, frequencies, **kw):
         """V oscillator voices with ADSR envelopes in one node (see
@@ -229,11 +245,9 @@ def _not_ported(name: str):
 
 
 # the JAX package's factories and methods that are not ported yet: the
-# delay, convolver and IIR filter wait for the cycle compiler's slice, the
-# panner and listener for the spatial one, the worklet and script
+# panner and listener wait for the spatial slice, the worklet and script
 # processor for the host-callback nodes, decoding for media I/O
 for _name in ("create_audio_param", "create_audio_worklet",
-              "create_convolver", "create_delay", "create_iir_filter",
               "create_panner", "create_script_processor",
               "decode_audio_data", "decode_audio_data_sync"):
     setattr(BaseAudioContext, _name, _not_ported(_name))

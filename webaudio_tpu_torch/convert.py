@@ -5,14 +5,17 @@ The engine has no learned weights.  What one render hands the next is:
 
 - the per-node resources (`graph.compiler.collect_resources`): buffer
   layouts (`data_rows`, `edge_vals`, `data_tiled`, `data_ext`), a fused
-  bank's per-voice schedule and lane tables, truncated-IR spectra (`h`)
-  and shaping curves (`curve`); an oscillator or constant-source bank's
+  bank's per-voice schedule and lane tables, truncated-IR spectra (`h`:
+  the LTI biquad's and the IIR filter's, (1, K, P+1) complex64, and the
+  convolver's, one row per lane) and shaping curves (`curve`); an oscillator or constant-source bank's
   per-voice constants (`freq_const`, `det_const`, `computed_const`,
   `off_const`, `gain_const`, `ratios`), custom wave `tables`, IR spectra
   stack `h`, pan gains (`pan_gl`, `pan_gr`) and `curves`; an oscillator's
   custom `table`; an OscillatorBankNode's voices (`freq`, `start`, ...);
 - the node states that cross a suspend boundary: the FDL delay line
-  (`spectra`, `tail`), the buffer playhead (`buffer_time`, `elapsed`,
+  (`spectra`, `tail`: a biquad's, an IIR filter's, a convolver's), a
+  DelayNode's `ring` (C, R) of the last R input frames (frame t at
+  t mod R), the buffer playhead (`buffer_time`, `elapsed`,
   `entered`), the a-rate biquad's history (`xy`), an oscillator's f64
   `phase` carry, a voice bank's f64 `phase` (one per voice) with its
   filter stage's FDL (`fdl_spectra`, `fdl_tail`), an oversampled

@@ -22,13 +22,22 @@ own (`convert.stage_resources`).  `render_compiled` (the offline context)
 runs it with N = 1; `parallel/batch.py::GraphBatch` with N instances.
 
 Source fusion (`graph/fusion.py`) rewrites banks of same-buffer buffer
-sources into one node before planning, as the JAX package does.  Feedback
-cycles and the two-rate cycle compiler are not ported yet: a graph that
-needs one raises `NotSupportedError`.
+sources into one node before planning, as the JAX package does.
+
+Feedback cycles run through the cycle-breaking DelayNode, split into a
+writer and a reader vertex (graph/ir.py).  The delay bounds the block of
+the nodes on a cycle, so the two-rate compiler steps each cycle group at
+an inner block of `inner_frames` frames, `two_rate_m` sub-steps a block,
+while the acyclic rest runs the outer block; the plan is the JAX
+package's.  The inner loop is a Python loop over sub-steps here (JAX: a
+`lax.scan`), with the same math per sub-step, so a two-rate render is
+bit-equal to one that steps every node at the inner block
+(`WEBAUDIO_TWO_RATE=0`) or one quantum at a time (`WEBAUDIO_CYCLE_BLOCKS=1`).
 """
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass, field
 from typing import Any, Optional
 
@@ -53,6 +62,8 @@ class RenderContext:
     block_frames: int
     input_channel_counts: list[int]
     device: torch.device
+    # a cycle-breaking delay whose writer->reader edge was cut
+    in_cycle: bool = False
     # this node's compiled param timelines (name -> CompiledParam), so
     # kernels can pick const-specialized strategies and read baked values
     param_plans: dict = field(default_factory=dict)
@@ -135,6 +146,10 @@ class CompiledGraph:
     failed: dict = field(default_factory=dict)
     dense_params: list = field(default_factory=list)  # packed row order
     param_alias: dict = field(default_factory=dict)   # fused (nid, p) remaps
+    muted: set = field(default_factory=set)          # in delay-free cycles
+    cycle_groups: list = field(default_factory=list)  # broken SCCs, in order
+    two_rate_m: int = 1        # inner sub-steps per block (1 = single-rate)
+    inner_frames: int = 0      # delay-bounded inner block (frames)
 
 
 def _propagate_channel_counts(nodes, edges):
@@ -170,39 +185,42 @@ def _propagate_channel_counts(nodes, edges):
     return in_counts, out_counts, in_edges
 
 
-def compile_graph(nodes: dict, edges: list[Edge], sample_rate: float,
-                  total_frames: int, dest_id: int, device,
-                  start_frame: int = 0) -> CompiledGraph:
-    """Plan a graph snapshot: block size, node order, param rows, kernels."""
-    from . import fusion as _fusion
+def _budget_quanta(nodes) -> int:
+    """Quanta a block may hold under the compile-weight memory budget
+    (2^25 frames shared by the nodes' weights)."""
+    weight = sum(getattr(n, "compile_weight", 1) for n in nodes)
+    return ((1 << 25) // max(weight, 1)) // RENDER_QUANTUM_SIZE
 
-    device = torch.device(device)
-    # rewrite homogeneous source chains into fused banks before anything
-    # looks at the topology (see graph/fusion.py)
-    nodes, edges, param_alias = _fusion.fuse_sources(
-        nodes, edges, dest_id, sample_rate=sample_rate)
-    ordered = order_graph(list(nodes.keys()), list(edges), set())
-    if ordered.has_cycle:
-        raise NotSupportedError(
-            "graphs with cycles are not ported to webaudio_tpu_torch yet")
 
-    total_quanta = -(-total_frames // RENDER_QUANTUM_SIZE)
-    # pick the largest divisor of the total quantum count <= a memory-aware
-    # cap, so the blocks cover exactly ceil(T/128) quanta; partitioned-FFT
-    # kernels (the biquad's truncated IR) want blocks with a large
-    # power-of-two factor, since their partition is the block's largest
-    # pow2 divisor (choose_partition).  The plan is the JAX package's,
-    # unchanged, so both packages pick the same block and padding.
-    weight = sum(getattr(n, "compile_weight", 1) for n in nodes.values())
-    budget_frames = (1 << 25) // max(weight, 1)
-    max_qpb = max(DEFAULT_QUANTA_PER_BLOCK,
-                  budget_frames // RENDER_QUANTUM_SIZE)
+def _pow2_only(nodes) -> bool:
+    return any(getattr(n, "block_constraint", lambda: None)() == "pow2"
+               for n in nodes)
+
+
+def _wants_pow2(nodes) -> bool:
+    """Partitioned-FFT kernels (the biquad's truncated IR, the convolver,
+    the IIR filter) take the block's largest pow2 divisor as partition."""
+    return any(getattr(n, "wants_pow2_partitions", False) for n in nodes)
+
+
+def _content(quanta: int) -> int:
+    """The largest power of two dividing a block of `quanta` quanta, in
+    frames: the partition a partitioned-FFT kernel gets there."""
+    bf = quanta * RENDER_QUANTUM_SIZE
+    return bf & -bf
+
+
+def _acyclic_qpb(nodes, total_quanta: int) -> int:
+    """Quanta per block of an acyclic graph: the largest divisor of the
+    total quantum count <= a memory-aware cap, so the blocks cover exactly
+    ceil(T/128) quanta; partitioned-FFT kernels want blocks with a large
+    power-of-two factor (`_content`).  The plan is the JAX package's,
+    unchanged, so both packages pick the same block and padding."""
+    max_qpb = max(DEFAULT_QUANTA_PER_BLOCK, _budget_quanta(nodes.values()))
     qpb = 1
     best8 = 0
-    pow2_only = any(getattr(n, "block_constraint", lambda: None)() == "pow2"
-                    for n in nodes.values())
-    wants_pow2 = any(getattr(n, "wants_pow2_partitions", False)
-                     for n in nodes.values())
+    pow2_only = _pow2_only(nodes.values())
+    wants_pow2 = _wants_pow2(nodes.values())
     for d in range(min(max_qpb, total_quanta), 0, -1):
         if total_quanta % d == 0 and (not pow2_only or (d & (d - 1)) == 0):
             if qpb == 1:
@@ -223,11 +241,6 @@ def compile_graph(nodes: dict, edges: list[Edge], sample_rate: float,
             cands.add(best8)
         if total_quanta > DEFAULT_QUANTA_PER_BLOCK:
             cands.add(DEFAULT_QUANTA_PER_BLOCK)
-
-        def _content(q):
-            bf = q * RENDER_QUANTUM_SIZE
-            return bf & -bf
-
         good = [q for q in cands if _content(q) >= 4096]
         if good:
             cands = good
@@ -239,6 +252,56 @@ def compile_graph(nodes: dict, edges: list[Edge], sample_rate: float,
         qpb = min(cands, key=_cost)
     if qpb < 24 and total_quanta > DEFAULT_QUANTA_PER_BLOCK:
         qpb = DEFAULT_QUANTA_PER_BLOCK
+    return qpb
+
+
+def compile_graph(nodes: dict, edges: list[Edge], sample_rate: float,
+                  total_frames: int, dest_id: int, device,
+                  start_frame: int = 0) -> CompiledGraph:
+    """Plan a graph snapshot: block size, node order, param rows, kernels."""
+    from . import fusion as _fusion
+    from ..nodes.delay import DelayNode  # the nodes import this module
+
+    device = torch.device(device)
+    # rewrite homogeneous source chains into fused banks before anything
+    # looks at the topology (see graph/fusion.py)
+    nodes, edges, param_alias = _fusion.fuse_sources(
+        nodes, edges, dest_id, sample_rate=sample_rate)
+    delay_ids = {nid for nid, n in nodes.items() if isinstance(n, DelayNode)}
+    ordered = order_graph(list(nodes.keys()), list(edges), delay_ids)
+
+    total_quanta = -(-total_frames // RENDER_QUANTUM_SIZE)
+    two_rate_m = 1          # inner sub-steps per block (two-rate compiler)
+    inner_frames = None     # delay-bounded inner block (frames)
+    fast_ids: set = set()   # nodes stepped at the inner rate
+    if not ordered.has_cycle:
+        qpb = _acyclic_qpb(nodes, total_quanta)
+    elif os.environ.get("WEBAUDIO_CYCLE_BLOCKS", "auto") == "1":
+        qpb = 1
+    else:
+        # a constant delay of d frames admits blocks of up to d - 1 frames
+        # (`_cycle_safe_qpb`); the delay bound applies only to nodes on a
+        # cycle, so each broken SCC steps at the bounded rate inside the
+        # larger blocks of the acyclic rest (two-rate).  The plan, switches
+        # included, is the JAX package's default one.
+        qpb = _cycle_safe_qpb(nodes, edges, ordered.cycle_breakers,
+                              sample_rate, total_quanta)
+        # JAX steps a cycle of pow2-constrained blocks through a second
+        # chooser that no ported node needs (none sets block_constraint);
+        # such a graph renders single-rate here.
+        if (qpb >= 2 and ordered.cycle_groups
+                and os.environ.get("WEBAUDIO_TWO_RATE", "1") != "0"
+                and not _pow2_only(nodes.values())
+                and _two_rate_eligible(nodes, edges, ordered)):
+            # the inner block and m chosen jointly
+            plan = _two_rate_plan(nodes, edges, ordered.cycle_breakers,
+                                  sample_rate, total_quanta)
+            if plan and plan[1] >= 2:
+                inner_qpb, two_rate_m = plan
+                inner_frames = inner_qpb * RENDER_QUANTUM_SIZE
+                fast_ids = {nid for grp in ordered.cycle_groups
+                            for (nid, _) in grp}
+                qpb = inner_qpb * two_rate_m
     block_frames = qpb * RENDER_QUANTUM_SIZE
 
     in_counts, out_counts, in_edges = _propagate_channel_counts(nodes, edges)
@@ -264,12 +327,24 @@ def compile_graph(nodes: dict, edges: list[Edge], sample_rate: float,
     # build kernels
     kernels = {}
     failed: dict = {}
+
+    def fail(nid, exc):
+        # per-node failure isolation: a processor that throws is removed
+        # from the graph (its outputs go silent) and the rest keeps
+        # rendering (reference: graph.rs:507-521, tests/processor_error.rs)
+        failed[nid] = exc
+        cb = getattr(nodes[nid], "_onprocessorerror", None)
+        if cb is not None:
+            cb(exc)
+
     for nid, node in nodes.items():
         rc = RenderContext(
             sample_rate=sample_rate,
-            block_frames=block_frames,
+            # two-rate: cycle-group members process inner_frames at a time
+            block_frames=(inner_frames if nid in fast_ids else block_frames),
             input_channel_counts=in_counts[nid],
             device=device,
+            in_cycle=nid in ordered.cycle_breakers,
             param_plans={pname: param_plan[(nid, pname)]
                          for pname in node.params},
         )
@@ -284,11 +359,8 @@ def compile_graph(nodes: dict, edges: list[Edge], sample_rate: float,
             # a process()-time failure: its outputs are silent,
             # onprocessorerror fires, the rest of the graph renders
             # (reference: worklet.rs:301-321 + graph.rs:507-521)
-            failed[nid] = exc
             kernels[nid] = Kernel()
-            cb = getattr(node, "_onprocessorerror", None)
-            if cb is not None:
-                cb(exc)
+            fail(nid, exc)
 
     interp_of = {nid: nodes[nid]._channel_config.interpretation for nid in nodes}
     constants = {}
@@ -299,6 +371,29 @@ def compile_graph(nodes: dict, edges: list[Edge], sample_rate: float,
                 min(max(plan.scalar, p.min_value), p.max_value),
                 dtype=torch.float32, device=device)
 
+    # execution plan: vertices in topological order, each broken-SCC group
+    # collapsed into one ("g", gi) step at its first vertex (the groups are
+    # contiguous in ordered.order, graph/ir.py)
+    group_of = {v: gi for gi, grp in enumerate(ordered.cycle_groups)
+                for v in grp} if two_rate_m > 1 else {}
+    exec_plan = []
+    seen_groups: set = set()
+    for v in ordered.order:
+        gi = group_of.get(v)
+        if gi is None:
+            exec_plan.append(("v", v))
+        elif gi not in seen_groups:
+            seen_groups.add(gi)
+            exec_plan.append(("g", gi))
+
+    def run_node(kern, role, scope, state, ins, prm):
+        """One vertex: (state', outputs); a writer has no outputs."""
+        if role == "node":
+            return kern.process(scope, state, ins, prm)
+        if role == "reader":
+            return kern.process_reader(scope, state, prm)
+        return kern.process_writer(scope, state, ins, prm), []
+
     def block_fn(states, frame0, xs_params, resources):
         """One block of N instances: run every node in topological order.
         xs_params: (N, P, B) dense param rows; returns (states', the
@@ -308,20 +403,20 @@ def compile_graph(nodes: dict, edges: list[Edge], sample_rate: float,
         signals: dict = {}
         new_states = dict(states)
 
-        def silence(channels):
-            return torch.zeros((n, channels, block_frames),
+        def silence(channels, frames=block_frames):
+            return torch.zeros((n, channels, frames),
                                dtype=torch.float32, device=device)
 
+        def mix(nid, i, sigs, frames):
+            return sum_inputs(sigs, in_counts[nid][i], interp_of[nid],
+                              frames, device, batch=n)
+
         def gather_inputs(nid, node):
-            ins = []
-            for i in range(node.number_of_inputs):
-                sigs = [signals[(e.src, e.src_output)]
-                        for e in in_edges[nid][i]
-                        if (e.src, e.src_output) in signals]
-                ins.append(sum_inputs(sigs, in_counts[nid][i],
-                                      interp_of[nid], block_frames, device,
-                                      batch=n))
-            return ins
+            return [mix(nid, i, [signals[(e.src, e.src_output)]
+                                 for e in in_edges[nid][i]
+                                 if (e.src, e.src_output) in signals],
+                        block_frames)
+                    for i in range(node.number_of_inputs)]
 
         def gather_params(nid, node):
             vp = getattr(kernels[nid], "vector_params", None)
@@ -364,23 +459,104 @@ def compile_graph(nodes: dict, edges: list[Edge], sample_rate: float,
                 out[pname] = val
             return out
 
-        for nid, _role in ordered.order:
+        def run_group(grp):
+            """Two-rate inner loop: step one broken SCC's members at the
+            delay-bounded inner block, m sub-steps of this block.  Outside
+            signals and dense params are sliced per sub-step (views), in-
+            group signals resolve inside the sub-step, member states carry
+            from one sub-step to the next: the math of stepping these nodes
+            at the inner block, so cycle feedback is bit-equal to it."""
+            m, Bi = two_rate_m, inner_frames
+            members = {nid for nid, _ in grp}
+            built = []          # (nid, role, per-input sources, params)
+            for nid, role in grp:
+                if nid in ordered.muted or nid in failed:
+                    continue
+                node = nodes[nid]
+                try:
+                    srcs = [] if role == "reader" else [
+                        [("loc", (e.src, e.src_output)) if e.src in members
+                         else ("out", signals[(e.src, e.src_output)])
+                         for e in in_edges[nid][i]
+                         if e.src in members
+                         or (e.src, e.src_output) in signals]
+                        for i in range(node.number_of_inputs)]
+                    built.append((nid, role, srcs, gather_params(nid, node)))
+                except (NotSupportedError, KernelError):
+                    raise
+                except Exception as exc:
+                    fail(nid, exc)
+
+            def step(val, s):
+                # a dense (.., B) value's sub-step s; constants pass as-is
+                if val is not None and val.dim() >= 1 and \
+                        val.shape[-1] == block_frames:
+                    return val[..., s * Bi:(s + 1) * Bi]
+                return val
+
+            carry = {_k(nid): states.get(_k(nid)) for nid, *_ in built}
+            outs: dict = {}
+            for s in range(m):
+                sc = BlockScope(frame0 + s * Bi, Bi, n, device)
+                local: dict = {}
+                for nid, role, srcs, prm in built:
+                    if nid in failed:
+                        continue
+                    sc.node_resources = resources.get(_k(nid))
+                    try:
+                        ins = [mix(nid, i, [local[ref] if kind == "loc"
+                                            else step(ref, s)
+                                            for kind, ref in src
+                                            if kind == "out" or ref in local],
+                                   Bi)
+                               for i, src in enumerate(srcs)]
+                        st, o = run_node(
+                            kernels[nid], role, sc, carry[_k(nid)], ins,
+                            {a: step(v, s) for a, v in prm.items()})
+                        carry[_k(nid)] = st
+                        for oi, y in enumerate(o):
+                            local[(nid, oi)] = y.expand((n,) + y.shape[1:])
+                    except (NotSupportedError, KernelError):
+                        raise
+                    except Exception as exc:
+                        fail(nid, exc)
+                for nid, role, *_ in built:
+                    if role == "writer" or nid in failed:
+                        continue
+                    for oi, c in enumerate(out_counts[nid]):
+                        outs.setdefault((nid, oi), []).append(
+                            local[(nid, oi)] if (nid, oi) in local
+                            else silence(c, Bi))
+            new_states.update(carry)
+            for key, parts in outs.items():
+                signals[key] = torch.cat(parts, dim=-1)     # (N, C, m * Bi)
+            # muted and failed members emit the block's silence
+            for nid, role in grp:
+                if role != "writer":
+                    for oi, c in enumerate(out_counts[nid]):
+                        if (nid, oi) not in signals or nid in failed:
+                            signals[(nid, oi)] = silence(c)
+
+        for tag, payload in exec_plan:
+            if tag == "g":
+                run_group(ordered.cycle_groups[payload])
+                continue
+            nid, role = payload
             node = nodes[nid]
-            kern = kernels[nid]
             scope.node_resources = resources.get(_k(nid))
-            if nid in failed:
+            if nid in ordered.muted or nid in failed:
                 for oi, c in enumerate(out_counts[nid]):
                     signals[(nid, oi)] = silence(c)
                 continue
-            # per-node failure isolation: a processor that throws is removed
-            # from the graph (its outputs go silent) and the rest keeps
-            # rendering (reference: graph.rs:507-521,
-            # tests/processor_error.rs).  Kernel faults are not processor
-            # errors and propagate.
+            # a processor that throws is isolated; capability fences and
+            # kernel faults are not processor errors and propagate
             try:
-                ins = gather_inputs(nid, node)
+                ins = [] if role == "reader" else gather_inputs(nid, node)
                 prm = gather_params(nid, node)
-                st, outs = kern.process(scope, states.get(_k(nid)), ins, prm)
+                # a delay's writer ran earlier in this block unless the
+                # delay breaks a cycle: its reader sees the written ring
+                st, outs = run_node(kernels[nid], role, scope,
+                                    new_states.get(_k(nid)), ins, prm)
                 new_states[_k(nid)] = st
                 for oi, o in enumerate(outs):
                     # an output shared by all instances broadcasts (a view)
@@ -388,12 +564,9 @@ def compile_graph(nodes: dict, edges: list[Edge], sample_rate: float,
             except (NotSupportedError, KernelError):
                 raise
             except Exception as exc:
-                failed[nid] = exc
+                fail(nid, exc)
                 for oi, c in enumerate(out_counts[nid]):
                     signals[(nid, oi)] = silence(c)
-                cb = getattr(node, "_onprocessorerror", None)
-                if cb is not None:
-                    cb(exc)
 
         return new_states, signals[(dest_id, 0)]
 
@@ -402,7 +575,9 @@ def compile_graph(nodes: dict, edges: list[Edge], sample_rate: float,
         param_plan=param_plan, block_frames=block_frames,
         total_frames=total_frames, device=device, sample_rate=sample_rate,
         in_counts=in_counts, out_counts=out_counts, failed=failed,
-        dense_params=dense_params, param_alias=param_alias)
+        dense_params=dense_params, param_alias=param_alias,
+        muted=ordered.muted, cycle_groups=ordered.cycle_groups,
+        two_rate_m=two_rate_m, inner_frames=inner_frames or 0)
 
 
 def collect_resources(cg: CompiledGraph) -> dict:
@@ -446,6 +621,141 @@ def block_rows(packed: np.ndarray, block_frames: int) -> np.ndarray:
     *lead, P, padded = packed.shape
     nb = padded // block_frames
     return np.swapaxes(packed.reshape(*lead, P, nb, block_frames), -3, -2)
+
+
+def _cycle_delay_bound(nodes, edges, cycle_breakers, sample_rate) -> int:
+    """Max safe quanta-per-block for cyclic stepping: a cycle-breaking
+    delay of (constant) d frames only ever reads samples written >= d
+    frames ago, so any block <= d-1 frames keeps every in-cycle read
+    inside the carried ring state.  Automated or audio-driven delays (read
+    distance can shrink mid-render) pin the graph to one-quantum
+    stepping."""
+    from ..nodes.delay import DelayNode  # the nodes import this module
+
+    d_min = None
+    for nid in cycle_breakers:
+        node = nodes.get(nid)
+        if not isinstance(node, DelayNode):
+            return 1
+        p = node.params["delay_time"]
+        driven = any(e.param == "delay_time" and e.dst == nid for e in edges)
+        if driven or not p.is_constant_schedule():
+            return 1
+        num = float(np.float32(p.value)) * sample_rate
+        d_min = num if d_min is None else min(d_min, num)
+    if d_min is None:
+        return 1  # delay-free (muted) cycle
+    return max(1, int((d_min - 1) // RENDER_QUANTUM_SIZE))
+
+
+def _cycle_safe_qpb(nodes, edges, cycle_breakers, sample_rate,
+                    total_quanta, constraint_ids=None) -> int:
+    """Largest safe quanta-per-block for a cyclic graph (see
+    _cycle_delay_bound), shaped to the render length (divisor / pow2
+    preferences).  `constraint_ids` restricts the block-shape preference
+    scan (pow2 constraint, FFT-partition content) to the nodes that will
+    actually step at this block — the two-rate inner set — while the
+    memory budget stays whole-graph."""
+    max_by_delay = _cycle_delay_bound(nodes, edges, cycle_breakers,
+                                      sample_rate)
+    if max_by_delay < 2:
+        return 1
+    cons = (nodes.values() if constraint_ids is None
+            else [nodes[i] for i in constraint_ids])
+    budget = max(1, _budget_quanta(nodes.values()))
+    cap = min(max_by_delay, budget, total_quanta)
+    pow2_only = _pow2_only(cons)
+    qpb = 1
+    for d in range(cap, 0, -1):
+        if total_quanta % d == 0 and (not pow2_only or (d & (d - 1)) == 0):
+            qpb = d
+            break
+    if (qpb < 24 or qpb % 8) and cap >= 24:
+        # no good divisor: accept block padding.  With partitioned-FFT
+        # kernels in the graph prefer the largest power of two <= cap (the
+        # partition is the block's largest pow2 divisor, so e.g. a
+        # 104-quanta block caps partitions at 512 while a 64-quanta block
+        # gets 8192); otherwise just take the largest multiple of 8.
+        if pow2_only or _wants_pow2(cons):
+            qpb = 1 << (cap.bit_length() - 1)
+        else:
+            qpb = max(cap - cap % 8, qpb)
+    return qpb
+
+
+def _two_rate_eligible(nodes, edges, ordered) -> bool:
+    """Two-rate stepping requires every group-internal data dependency to
+    be expressible inside the inner scan: audio-driven params whose source
+    is IN the group, and foreign-param subscriptions by group members,
+    fall back to single-rate (the flat delay-bounded scan)."""
+    fast = {nid for grp in ordered.cycle_groups for (nid, _) in grp}
+    if not fast:
+        return False
+    for e in edges:
+        if e.param is not None and e.dst in fast and e.src in fast:
+            return False
+    for nid in fast:
+        if nodes[nid].foreign_params():
+            return False
+    return True
+
+
+def _two_rate_plan(nodes, edges, cycle_breakers, sample_rate,
+                   total_quanta):
+    """Joint (inner_qpb, m) choice for the two-rate compiler (r5).
+
+    The inner block is constrained only by the cycle-delay bound (cycle
+    members carry no FFT-partition or pow2 preferences; a pow2-constrained
+    graph stays single-rate).  Candidates: divisors of the render,
+    multiples of 8, and powers of two up to the bound.  For each, the
+    best m minimizes  padded_total + 16*outer_steps + 4*inner_substeps
+    (quanta-equivalents; 16/outer-step is the acyclic chooser's measured
+    per-scan-step overhead, 4/substep its small-body analog), preferring
+    outer blocks whose pow2 content keeps partitioned-FFT kernels on
+    >= 4096-sample partitions.  Returns (inner_qpb, m) or None."""
+    bound = _cycle_delay_bound(nodes, edges, cycle_breakers, sample_rate)
+    budget = max(1, _budget_quanta(nodes.values()))
+    cap = min(bound, budget, total_quanta)
+    if cap < 2:
+        return None
+    wants_pow2 = _wants_pow2(nodes.values())
+
+    cands = {cap}
+    cands.update(q for q in range(8, cap + 1, 8))
+    q = 1
+    while q * 2 <= cap:
+        q *= 2
+    cands.add(q)
+    for d in range(2, int(total_quanta ** 0.5) + 1):
+        if total_quanta % d == 0:
+            if d <= cap:
+                cands.add(d)
+            if total_quanta // d <= cap:
+                cands.add(total_quanta // d)
+
+    best = None
+    best_good = None
+    for qi in sorted(cands):
+        max_m = min(budget // qi, -(-total_quanta // qi))
+        for m in range(1, max_m + 1):
+            outer = m * qi
+            nb = -(-total_quanta // outer)
+            cost = ((nb * outer + 16 * nb + 4 * nb * m,
+                     -_content(outer) if wants_pow2 else 0), qi, m)
+            if best is None or cost < best:
+                best = cost
+            # the FFT-partition content preference is GLOBAL: any plan
+            # with >= 4096-sample pow2 content beats every plan without
+            # one (a per-inner-candidate filter let inner blocks with no
+            # good m win on raw cost while degrading the partitioned
+            # kernels' FDL 32x — caught by test_block_policy)
+            if wants_pow2 and _content(outer) >= 4096 and \
+                    (best_good is None or cost < best_good):
+                best_good = cost
+    chosen = best_good if best_good is not None else best
+    if chosen is None:
+        return None
+    return chosen[1], chosen[2]
 
 
 def _pad_len(total_frames: int, block_frames: int) -> int:

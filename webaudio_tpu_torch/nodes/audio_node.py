@@ -48,6 +48,9 @@ class AudioNode:
 
     _number_of_inputs = 1
     _number_of_outputs = 1
+    # a DelayNode splits into writer and reader vertices so that a feedback
+    # cycle through it can be cut (graph/ir.py)
+    is_cycle_breaker = False
 
     def __init__(self, context, options: Optional[AudioNodeOptions] = None,
                  channel_config: Optional[ChannelConfig] = None):
@@ -177,6 +180,12 @@ class AudioNode:
     def set_onprocessorerror(self, callback):
         """reference: audio_node.rs:449-465."""
         self._onprocessorerror = callback
+
+    def foreign_params(self) -> dict:
+        """Params of *other* nodes this node's kernel reads, as
+        alias -> (node, param_name).  No ported node reads one yet; the
+        two-rate planner asks (graph/compiler.py::_two_rate_eligible)."""
+        return {}
 
     def output_channel_count(self, input_counts: list[int]) -> list[int]:
         """Static channel propagation: channel count of each output given the

@@ -300,6 +300,9 @@ def graph_fingerprint(cg) -> str:
         f"B{cg.block_frames}", f"fs{cg.sample_rate}",
         f"T{cg.total_frames}",   # render length: nb/total may differ
         f"dev{cg.device!r}",
+        # the two-rate plan: inner sub-steps and their block (a constant
+        # delay's read offset is baked into its kernel, below)
+        f"m{cg.two_rate_m}", f"Bi{cg.inner_frames}",
         repr(cg.order),
         repr(cg.dense_params),
         repr(sorted(cg.in_counts.items())),
