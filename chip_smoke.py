@@ -245,6 +245,38 @@ through 0.4), each main path with every kernel's launch count from 0:
      card; instance-audio-seconds per wall second, peak device memory and
      the busy share.
 
+Then spatial audio (the PannerNode, its HRTF model and the AudioListener)
+and the buffer source's automated-rate playhead, 44.1 kHz, stereo, each
+main path with every kernel's launch count from 0:
+
+  z. BASELINE config 4 (benches/suite.py::case_hrtf_moving), 10 s: a 220
+     Hz sawtooth into an HRTF PannerNode at z = -2, the listener orbiting
+     at radius 3 (64 linear ramps of position_x and position_z).  The plan
+     must be one block of 441,088 frames; the render within 1e-5 x peak
+     of the port's CPU render and 1e-4 x peak of a numpy f64 oracle (each
+     quantum's HRIR interpolated in the time domain at the port's grid
+     cell, the quanta whose cell differs from the f64 geometry's counted;
+     direct convolution, the crossfade and the gain lerp in f64); end to
+     end (one warm-up, median of 5), the block loop, peak device memory,
+     and device operations, device time by op and the busy share
+     (torch.profiler);
+  za. examples/doppler.py's graph, 10 s (bench.py's synthetic buffer,
+     looped, standing in for siren.mp3): a delay swept 0.29 -> 0 -> 0.29 s
+     into an equal-power inverse-distance panner moving along y from +100
+     to -100; then again with the playback rate ramped 0.8 -> 1.25 (the
+     automated-rate playhead on the card).  Each within 1e-5 x peak of the
+     port's CPU render and 1e-4 x peak of a numpy f64 oracle on the
+     params' compiled rows (a sequential f64 playhead, the delay's lerp,
+     the panner's gains from f64 geometry); end to end and the busy share;
+  zb. the binaural corpus: a GraphBatch of the graph looping clip -> HRTF
+     panner -> destination, 2 s, 256 instances, each its own mono clip
+     (override_buffer) and listener orbit (override_param on the
+     listener's position_x and position_z, seeded phases and radii): K5
+     launched by render_i16 and equal to the plain dither, a second render
+     equal to the first, lanes 0, 127 and 255 within 1e-6 x peak of their
+     own start_rendering_sync on the card; instance-audio-seconds per wall
+     second, peak device memory and the busy share.
+
 Prints the measurements, a {"kernels": [...]} line (each kernel's launches
 on its path, error against its plain version, device time, the plain
 version's, the least time the card could take (`bound_ms`: the larger of
@@ -253,7 +285,7 @@ its share of that bound (for the curve and grain kernels, of their
 cold-L2 time: the bound reads every input from HBM) and one PyTorch call's
 time where one computes the same function; the curve kernel's row also
 carries S1-S8, the floor and its launches on the offline, voice,
-mastering and corpus paths; the dither kernel's its launches on both
+mastering and corpus paths; the dither kernel's its launches on the three
 corpus paths; the detector kernel's row its launches on the
 seq-mode and default 5a paths, its plain version's host time, the latency
 floor of one sequential chain and the chunked path's time)
@@ -3091,6 +3123,437 @@ def phase_y(wt, compiler, dither, kernels):
             "peak": peak, "busy": busy, "ops": ops}
 
 
+SPATIAL_FS = 44100.0
+SPATIAL_FRAMES = int(SPATIAL_FS * SECONDS)
+HRTF_BLOCK = 441088          # config 4's one block (3,446 quanta)
+BINAURAL_CORPUS = 256
+BINAURAL_FRAMES = int(SPATIAL_FS * BATCH_SECONDS)
+DOPPLER_MAX = 100.0 / 343.0  # s: 100 m at the speed of sound
+
+
+def hrtf_context(wt, device, frames=SPATIAL_FRAMES):
+    """BASELINE config 4 (benches/suite.py::case_hrtf_moving): a 220 Hz
+    sawtooth into an HRTF PannerNode at z = -2, the listener orbiting it
+    at radius 3 once in 10 s (64 linear ramps a coordinate), 44.1 kHz,
+    stereo."""
+    ctx = wt.OfflineAudioContext(2, frames, SPATIAL_FS, device=device)
+    osc = ctx.create_oscillator(type="sawtooth", frequency=220.0)
+    p = ctx.create_panner(panning_model="HRTF", position_z=-2.0)
+    for t in np.linspace(0, SECONDS, 64):
+        ang = 2 * np.pi * t / SECONDS
+        ctx.listener.position_x.linear_ramp_to_value_at_time(
+            float(np.sin(ang) * 3), float(t))
+        ctx.listener.position_z.linear_ramp_to_value_at_time(
+            float(np.cos(ang) * 3), float(t))
+    osc.connect(p)
+    p.connect(ctx.destination)
+    osc.start()
+    return ctx
+
+
+def _hrtf_kernel(compiler, ctx):
+    """(plan, blocks, the HRTF kernel's node id) of ctx's whole render."""
+    cg, nb = _plan(compiler, ctx)
+    (nid,) = [k for k, kern in cg.kernels.items()
+              if type(kern).__name__ == "HrtfPannerKernel"]
+    return cg, nb, nid
+
+
+def _quantum_params(cg, nid, node, nq):
+    """The panner's own and foreign (listener) params at each quantum's
+    first sample, from a compiled plan: alias -> (nq,) f32."""
+    items = [(p, nid, p) for p in node.params]
+    items += [(a, src.node_id, p)
+              for a, (src, p) in node.foreign_params().items()]
+    out = {}
+    for alias, pnid, pname in items:
+        plan = cg.param_plan[(pnid, pname)]
+        out[alias] = (np.full(nq, plan.scalar, np.float32) if plan.is_constant
+                      else np.asarray(plan.dense, np.float32)[::128][:nq])
+    return out
+
+
+def _geometry64(q):
+    """Azimuth, elevation (degrees) and the inverse-distance gain of
+    spatial.rs:205-270 and panner.rs:955-985 in numpy f64, for the default
+    cone, from per-quantum params q (the config 4 panner's settings)."""
+    sp = np.stack([q[f"position_{a}"] for a in "xyz"]).astype(np.float64)
+    lp = np.stack([q[f"l_position_{a}"] for a in "xyz"]).astype(np.float64)
+    lf = np.stack([q[f"l_forward_{a}"] for a in "xyz"]).astype(np.float64)
+    lu = np.stack([q[f"l_up_{a}"] for a in "xyz"]).astype(np.float64)
+
+    def unit(v):
+        n = np.linalg.norm(v, axis=0)
+        return v / np.where(n > 0, n, 1.0), n
+
+    rel, dist = unit(sp - lp)
+    right, _ = unit(np.cross(lf, lu, axis=0))
+    fwd, _ = unit(lf)
+    up = np.cross(right, fwd, axis=0)
+    dot_up = np.clip(np.sum(rel * up, axis=0), -1.0, 1.0)
+    el = 90.0 - np.degrees(np.arccos(dot_up))
+    proj, _ = unit(rel - up * dot_up)
+    az = np.degrees(np.arccos(np.clip(np.sum(proj * right, axis=0), -1, 1)))
+    az = np.where(np.sum(proj * fwd, axis=0) < 0.0, 360.0 - az, az)
+    az = np.where((az >= 0.0) & (az <= 270.0), 90.0 - az, 450.0 - az)
+    gain = np.where(dist > 0.0, 1.0 / (1.0 + (np.maximum(dist, 1.0) - 1.0)),
+                    1.0)
+    return az, el, gain
+
+
+def _sawtooth64(freq, frames, fs):
+    """The OscillatorNode's sawtooth with the polyBLEP step correction
+    (oscillator.rs:588-645) in f64, phase 0 at frame 0."""
+    dt = freq / fs
+    p = np.mod(np.arange(frames) * dt + 0.5, 1.0)
+    t1, t2 = p / dt, (p - 1.0) / dt
+    blep = np.where(p < dt, 2 * t1 - t1 * t1 - 1.0,
+                    np.where(p > 1.0 - dt, t2 * t2 + 2 * t2 + 1.0, 0.0))
+    return 2.0 * p - 1.0 - blep
+
+
+def hrtf_oracle(compiler, ctx, frames=SPATIAL_FRAMES):
+    """Config 4 in numpy f64, the HRTF panner quantum by quantum: the
+    HRIR of each quantum interpolated in the time domain at the port's
+    grid cell (irfft of the staged spectra; a cell differing from the f64
+    geometry's is counted), direct convolution of the f64 sawtooth with
+    it and with the previous quantum's HRIR (the front direction at gain 0
+    before the first), their crossfade and the f64 gains' lerp.  Returns
+    (the (2, frames) oracle, quanta whose cell differs from the f64
+    geometry's, quanta)."""
+    from webaudio_tpu_torch.nodes import hrtf
+
+    cg, _, nid = _hrtf_kernel(compiler, ctx)
+    kern = cg.kernels[nid]
+    P, nq = 128, -(-frames // 128)
+    q = _quantum_params(cg, nid, ctx._nodes[nid], nq)
+    dense = {k: torch.from_numpy(np.repeat(v, P))[None, None]
+             for k, v in q.items()}
+    az, el, _ = kern.quantum_directions(dense, 1, nq)
+    cells = [t[0].numpy() for t in hrtf.grid_cells(az, el, kern.az_bins,
+                                                   kern.el_bins)]
+    az64, el64, gain = _geometry64(q)
+    az_i = np.clip(((np.radians(az64) / (2 * np.pi) + 0.5) * kern.az_bins)
+                   .astype(np.int64), 0, kern.az_bins - 1)
+    el_i = np.clip(((np.radians(el64) / np.pi + 0.5) * kern.el_bins)
+                   .astype(np.int64), 0, kern.el_bins - 1)
+    differ = int(np.sum((az_i != cells[0]) | (el_i != cells[1])))
+
+    # the vertex HRIRs in the time domain, (V, 2, K * P)
+    spectra = kern.spectra_host.astype(np.complex128)
+    hrir = np.fft.irfft(spectra, axis=-1)[..., :P]
+    hrir = hrir.reshape(spectra.shape[0], 2, -1)
+    vids, w = kern.vids_host, kern.w_host.astype(np.float64)
+
+    def interp(ai, ei):
+        return np.einsum("qv,qvet->qet", w[ai, ei], hrir[vids[ai, ei]])
+
+    h = interp(*cells)                                     # (nq, 2, taps)
+    front = interp(np.array([kern.az_bins // 2]),
+                   np.array([kern.el_bins // 2]))[0]
+    h_prev = np.concatenate([front[None], h[:-1]])
+    g_prev = np.concatenate([[0.0], gain[:-1]])
+    taps = h.shape[-1]
+    x = np.concatenate([np.zeros(taps - 1), _sawtooth64(220.0, nq * P,
+                                                        SPATIAL_FS)])
+    win = np.lib.stride_tricks.sliding_window_view(x, taps)[:, ::-1]
+    k = np.arange(P) / P
+    out = np.zeros((2, nq * P))
+    for q0 in range(0, nq, 256):
+        q1 = min(q0 + 256, nq)
+        xs = win[q0 * P:q1 * P].reshape(q1 - q0, P, taps)
+        yn = np.matmul(xs, h[q0:q1].transpose(0, 2, 1)).transpose(0, 2, 1)
+        yp = np.matmul(xs, h_prev[q0:q1].transpose(0, 2, 1)).transpose(0, 2, 1)
+        g = g_prev[q0:q1, None] + (gain - g_prev)[q0:q1, None] * k
+        y = (yp * (1.0 - k) + yn * k) * g[:, None, :]
+        out[:, q0 * P:q1 * P] = y.transpose(1, 0, 2).reshape(2, -1)
+    return out[:, :frames], differ, nq
+
+
+def phase_z(wt, compiler, kernels):
+    """BASELINE config 4 at full width through start_rendering_sync:
+    the plan, the CPU render, the f64 oracle, end to end, the block loop,
+    and the profile (device operations, device time by op, busy share,
+    peak memory).  Returns the numbers."""
+    label = "z. config 4, HRTF panner, moving listener, 10 s 44.1 kHz"
+    ctx = hrtf_context(wt, "cuda")
+    cg, nb, _ = _hrtf_kernel(compiler, ctx)
+    print(f"{label}: plan block_frames {cg.block_frames} ({nb} block(s)), "
+          f"dense rows {cg.dense_params}", flush=True)
+    if (cg.block_frames, nb) != (HRTF_BLOCK, 1):
+        raise AssertionError(f"config 4's plan ({cg.block_frames}, {nb}) is "
+                             f"not the JAX package's ({HRTF_BLOCK}, 1)")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    out, launches = _main_path(ctx, kernels)
+    peak = torch.cuda.max_memory_allocated() - base
+    print(f"{label}: main path launched {launches} (no hand kernel lies on "
+          f"this path: cuFFT, gathers and PyTorch ops); peak device memory "
+          f"{peak / 2**20:.1f} MiB above the context's", flush=True)
+    cpu = hrtf_context(wt, "cpu").start_rendering_sync().to_array()
+    err_cpu = _check_close(f"{label}: vs the port's CPU render", out, cpu,
+                           1e-5)
+    want, differ, nq = hrtf_oracle(compiler, hrtf_context(wt, "cpu"))
+    print(f"{label}: the port's grid cell differs from the f64 geometry's "
+          f"in {differ} of {nq} quanta", flush=True)
+    err = _check_close(f"{label}: vs the f64 numpy oracle (time-domain "
+                       "HRIRs, direct convolution, crossfade, gain lerp)",
+                       out, want, 1e-4)
+    print(f"{label}: errors {err_cpu / np.abs(cpu).max():.3e} x peak (CPU), "
+          f"{err / np.abs(want).max():.3e} x peak (oracle)", flush=True)
+
+    def make():
+        return hrtf_context(wt, "cuda")
+
+    e2e = _render_ms(label, make, SECONDS)
+    loop_ms, runs, args = _loop_ms(compiler, cg, SPATIAL_FRAMES)
+    print(f"{label}: block loop on a compiled plan: median {loop_ms:.3f} ms "
+          f"of {['%.3f' % r for r in runs]} (3 renders each) -> realtime "
+          f"factor {SECONDS * 1000.0 / loop_ms:.1f}x", flush=True)
+    busy, ops = _busy_launches(label, "start_rendering_sync",
+                               [make().start_rendering_sync
+                                for _ in range(3)])
+    loop_busy, loop_ops = _busy_launches(
+        label, "block loop", [lambda: compiler.scan_render(cg, *args)] * 3)
+    del args, cg
+    torch.cuda.empty_cache()
+    return {"launches": launches, "e2e_ms": e2e, "loop_ms": loop_ms,
+            "busy": busy, "ops": ops, "loop_busy": loop_busy,
+            "loop_ops": loop_ops, "peak": peak, "err_cpu": err_cpu,
+            "err_oracle": err, "cells_differ": differ, "quanta": nq}
+
+
+def doppler_context(wt, device, rate_ramp=False, frames=SPATIAL_FRAMES):
+    """examples/doppler.py's graph at 44.1 kHz: a looping source (bench.py's
+    synthetic buffer standing in for siren.mp3) -> a DelayNode swept 0.29
+    -> 0 -> 0.29 s (the finite speed of sound) -> an equal-power,
+    inverse-distance PannerNode moving along y from +100 to -100 (cone
+    inner 360, outer 0); with `rate_ramp` the source's playback_rate ramps
+    0.8 -> 1.25 over the render (the automated-rate playhead)."""
+    seconds = frames / SPATIAL_FS
+    ctx = wt.OfflineAudioContext(2, frames, SPATIAL_FS, device=device)
+    src = ctx.create_buffer_source(loop=True)
+    src.buffer = wt.AudioBuffer.from_array(_reverb_dry(), SPATIAL_FS)
+    if rate_ramp:
+        src.playback_rate.set_value_at_time(0.8, 0.0)
+        src.playback_rate.linear_ramp_to_value_at_time(1.25, seconds)
+    panner = ctx.create_panner(
+        panning_model="equalpower", distance_model="inverse",
+        position_x=0.0, position_y=100.0, position_z=1.0,
+        orientation_x=1.0, orientation_y=0.0, orientation_z=0.0,
+        ref_distance=1.0, max_distance=10000.0, rolloff_factor=1.0,
+        cone_inner_angle=360.0, cone_outer_angle=0.0, cone_outer_gain=0.0)
+    panner.position_y.linear_ramp_to_value_at_time(-100.0, seconds)
+    delay = ctx.create_delay(max_delay_time=1.0)
+    delay.delay_time.set_value_at_time(DOPPLER_MAX, 0.0)
+    delay.delay_time.linear_ramp_to_value_at_time(0.0, seconds / 2)
+    delay.delay_time.linear_ramp_to_value_at_time(DOPPLER_MAX, seconds)
+    src.connect(delay)
+    delay.connect(panner)
+    panner.connect(ctx.destination)
+    src.start()
+    return ctx, src, delay, panner
+
+
+def doppler_oracle(compiler, rate_ramp=False, frames=SPATIAL_FRAMES):
+    """doppler_context in numpy f64 on its params' compiled f32 rows: the
+    source read by a sequential f64 playhead (np.cumsum of the k-rate
+    playback rates, wrapped into the 2 s loop and lerped), the delay's lerp
+    at t - d(t) fs (silence before the first sample), and the panner in
+    f64: the source lies behind the listener (azimuth 180, folded to 0),
+    so the stereo input's ears take L = l + r cos(pi/2) and
+    R = r sin(pi/2), times 1 / max(distance, 1) (the inverse model, ref 1,
+    rolloff 1; the cone passes everything 90 degrees off the source's
+    axis)."""
+    import webaudio_tpu_torch as wt
+
+    ctx, src, delay, panner = doppler_context(wt, "cpu", rate_ramp, frames)
+    cg, _ = _plan(compiler, ctx)
+
+    def row(node, name):
+        plan = cg.param_plan[(node.node_id, name)]
+        if plan.is_constant:
+            return np.full(frames, np.float32(plan.scalar), np.float64)
+        return np.asarray(plan.dense[:frames], np.float64)
+
+    data = _reverb_dry().astype(np.float64)          # (2, L), equal rows
+    L = data.shape[1]
+    rate = row(src, "playback_rate")
+    pos = np.mod(np.concatenate([[0.0], np.cumsum(rate)[:-1]]), L)
+    i0 = np.floor(pos).astype(np.int64)
+    fr = pos - i0
+    x = data[:, i0] * (1.0 - fr) + data[:, (i0 + 1) % L] * fr
+    dpos = np.arange(frames) - row(delay, "delay_time") * SPATIAL_FS
+    j0 = np.floor(dpos).astype(np.int64)
+    k = dpos - j0
+    xa = np.where(j0 >= 0, x[:, np.clip(j0, 0, frames - 1)], 0.0)
+    xb = np.where(j0 + 1 >= 0, x[:, np.clip(j0 + 1, 0, frames - 1)], 0.0)
+    y = xa * (1.0 - k) + xb * k
+    g = 1.0 / np.maximum(np.sqrt(row(panner, "position_y") ** 2
+                                 + row(panner, "position_z") ** 2), 1.0)
+    return np.stack([(y[0] + y[1] * np.cos(np.pi / 2)) * g,
+                     y[1] * np.sin(np.pi / 2) * g])
+
+
+def phase_za(wt, compiler, kernels):
+    """The Doppler graph at full width, at a constant and an automated
+    playback rate: the CPU render, the f64 oracle, end to end and the busy
+    share.  Returns the numbers."""
+    res = {}
+    for rate_ramp in (False, True):
+        key = "rate ramp" if rate_ramp else "constant rate"
+        label = f"za. Doppler, {key}, 10 s 44.1 kHz"
+        ctx = doppler_context(wt, "cuda", rate_ramp)[0]
+        cg, nb = _plan(compiler, ctx)
+        (src,) = [k for k in cg.kernels.values()
+                  if type(k).__name__ == "_BufferSourceKernel"]
+        print(f"{label}: plan block_frames {cg.block_frames} ({nb} "
+              f"block(s)), the source's playhead "
+              f"{'cumsum' if src.const_rate is None else 'closed form'} "
+              f"({src.read_mode} read)", flush=True)
+        if (src.const_rate is None) != rate_ramp:
+            raise AssertionError(f"{label}: the wrong playhead")
+        out, launches = _main_path(ctx, kernels)
+        cpu = doppler_context(wt, "cpu", rate_ramp)[0] \
+            .start_rendering_sync().to_array()
+        err_cpu = _check_close(f"{label}: vs the port's CPU render", out,
+                               cpu, 1e-5)
+        want = doppler_oracle(compiler, rate_ramp)
+        err = _check_close(f"{label}: vs the f64 numpy oracle (playhead, "
+                           "delay lerp, panner gains)", out, want, 1e-4)
+        print(f"{label}: errors {err_cpu / np.abs(cpu).max():.3e} x peak "
+              f"(CPU), {err / np.abs(want).max():.3e} x peak (oracle); "
+              f"launched {launches}", flush=True)
+
+        def make(rate_ramp=rate_ramp):
+            return doppler_context(wt, "cuda", rate_ramp)[0]
+
+        e2e = _render_ms(label, make, SECONDS)
+        busy, ops = _busy_launches(label, "start_rendering_sync",
+                                   [make().start_rendering_sync
+                                    for _ in range(3)])
+        res[key] = {"e2e_ms": e2e, "busy": busy, "ops": ops,
+                    "err_cpu": err_cpu, "err_oracle": err,
+                    "blocks": nb, "launches": launches}
+    return res
+
+
+def orbit(listener, phase, radius, seconds):
+    """One binaural-corpus instance's listener orbit: 16 linear ramps a
+    coordinate once around the source in `seconds`, from angle `phase`."""
+    for t in np.linspace(0.0, seconds, 16):
+        ang = phase + 2 * np.pi * t / seconds
+        listener.position_x.linear_ramp_to_value_at_time(
+            float(radius * np.sin(ang)), float(t))
+        listener.position_z.linear_ramp_to_value_at_time(
+            float(radius * np.cos(ang)), float(t))
+
+
+def binaural_context(wt, device, clip=None, phase=0.0, radius=2.0):
+    """The binaural corpus's graph, 2 s at 44.1 kHz: a looping mono clip
+    (bench.py's synthetic buffer unless given) -> an HRTF PannerNode at
+    z = -1 -> destination, the listener orbiting (`orbit`).  Returns
+    (ctx, src)."""
+    ctx = wt.OfflineAudioContext(2, BINAURAL_FRAMES, SPATIAL_FS,
+                                 device=device)
+    src = ctx.create_buffer_source(loop=True)
+    src.buffer = wt.AudioBuffer.from_array(
+        _reverb_dry()[:1] if clip is None else clip, SPATIAL_FS)
+    p = ctx.create_panner(panning_model="HRTF", position_z=-1.0)
+    orbit(ctx.listener, phase, radius, BATCH_SECONDS)
+    src.connect(p)
+    p.connect(ctx.destination)
+    src.start()
+    return ctx, src
+
+
+def binaural_orbits(wt, count, seed):
+    """Each instance's orbit, a phase and a radius from a seed, and its
+    listener rows as a context compiles them: (phases, radii, (2, count,
+    frames) f32 position_x and position_z rows)."""
+    rng = np.random.default_rng(seed)
+    phases = rng.uniform(0.0, 2 * np.pi, count)
+    radii = rng.uniform(1.5, 4.0, count)
+    rows = np.zeros((2, count, BINAURAL_FRAMES), np.float32)
+    for i in range(count):
+        ctx = wt.OfflineAudioContext(2, BINAURAL_FRAMES, SPATIAL_FS,
+                                     device="cpu")
+        orbit(ctx.listener, phases[i], radii[i], BATCH_SECONDS)
+        for r, name in enumerate(("position_x", "position_z")):
+            rows[r, i] = getattr(ctx.listener, name).compile_for_render(
+                SPATIAL_FS, BINAURAL_FRAMES).dense[:BINAURAL_FRAMES]
+    return phases, radii, rows
+
+
+def phase_zb(wt, compiler, dither, kernels):
+    """The binaural corpus: a GraphBatch of BINAURAL_CORPUS instances of
+    the binaural graph, each its own mono clip (override_buffer) and
+    listener orbit (override_param on the listener's position_x and
+    position_z), bounced by K5.  Returns the launches, throughput, peak
+    memory and busy share."""
+    label = (f"zb. binaural corpus, {BINAURAL_CORPUS} clips of "
+             f"{BATCH_SECONDS:g} s")
+    clips = reverb_clips(BINAURAL_CORPUS, BINAURAL_FRAMES, SEED + 40)[:, :1]
+    phases, radii, rows = binaural_orbits(wt, BINAURAL_CORPUS, SEED + 41)
+    ctx, src = binaural_context(wt, "cuda")
+    gb = wt.GraphBatch(ctx, batch=BINAURAL_CORPUS)
+    gb.override_buffer(src, clips)
+    gb.override_param(ctx.listener, "position_x", rows[0])
+    gb.override_param(ctx.listener, "position_z", rows[1])
+    print(f"{label}: plan block_frames {gb.cg.block_frames} ({gb.nb} "
+          f"block(s)), dense rows {gb.cg.dense_params}", flush=True)
+    for k in kernels:
+        k.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    out = gb.render()
+    codes = gb.render_i16(SEED)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    launches = {k.__name__: k.launches for k in kernels}
+    print(f"{label}: render() and render_i16 launched {launches}; peak "
+          f"device memory {peak / 2**30:.2f} GiB ({(peak - base) / 2**30:.2f} "
+          "GiB above the staged batch)", flush=True)
+    if launches["dither_i16"] != 1:
+        raise AssertionError("K5 did not launch on the binaural corpus path")
+    host = _host(out)[..., :BINAURAL_FRAMES]
+    if not np.isfinite(host).all() or np.abs(host).max() < 0.05:
+        raise AssertionError("the corpus render is not finite or silent")
+    again = _host(gb.render())[..., :BINAURAL_FRAMES]
+    if not np.array_equal(host, again):
+        raise AssertionError("a second render of the staged batch differs "
+                             "(a state written in place?)")
+    for i in (0, BINAURAL_CORPUS // 2 - 1, BINAURAL_CORPUS - 1):
+        own = binaural_context(wt, "cuda", clips[i], phases[i], radii[i])[0]
+        _check_close(f"{label}: lane {i} vs its own start_rendering_sync on "
+                     "the card", host[i], own.start_rendering_sync()
+                     .to_array(), 1e-6)
+    want = dither.dither_i16_reference(out, SEED)
+    if not torch.equal(codes, want):
+        raise AssertionError("render_i16 differs from the plain dither of "
+                             "render()")
+    print(f"{label}: render_i16 {tuple(codes.shape)} equals the plain dither "
+          "of render(); a second render() equals the first", flush=True)
+    del out, codes, want
+    torch.cuda.empty_cache()
+    ms = _median_events_ms(gb.render)
+    rate = BINAURAL_CORPUS * BATCH_SECONDS * 1000.0 / ms
+    print(f"{label}: staged render median {ms:.3f} ms -> {rate:.1f} "
+          f"instance-audio-s per wall s, {BINAURAL_CORPUS * 1000.0 / ms:.1f} "
+          "clips/s", flush=True)
+    i16_ms = _median_events_ms(lambda: gb.render_i16(SEED).cpu())
+    print(f"{label}: render_i16 + host copy median {i16_ms:.3f} ms -> "
+          f"{BINAURAL_CORPUS * BATCH_SECONDS * 1000.0 / i16_ms:.1f} "
+          "instance-audio-s per wall s", flush=True)
+    busy, ops = _busy_launches(label, "staged render", [gb.render] * 2)
+    del gb
+    torch.cuda.empty_cache()
+    return {"launches": launches, "ms": ms, "rate": rate, "i16_ms": i16_ms,
+            "peak": peak, "busy": busy, "ops": ops}
+
+
 def _ptxas_build(cuda_lib, name, source):
     """nvcc `source` with the port's flags and `-Xptxas -v` into the
     git-ignored build directory; returns the loaded library and ptxas's
@@ -3253,6 +3716,13 @@ def main() -> int:
     phase_x(wt, compiler, every)
     y = phase_y(wt, compiler, dither, every)
 
+    # spatial audio, z-zb: config 4, the Doppler graph with and without
+    # the automated-rate playhead, the binaural corpus; each main path
+    # counts every kernel's launches from 0
+    phase_z(wt, compiler, every)
+    phase_za(wt, compiler, every)
+    zb = phase_zb(wt, compiler, dither, every)
+
     n_q = QUANT_SHAPE[0] * QUANT_SHAPE[1]
     k5_bound = _bound(n_q * 6, 25 * n_q)
     k6_bound = _bound(n_q * 5, 50 * n_q)
@@ -3291,6 +3761,7 @@ def main() -> int:
          "launches": launches["dither_i16"],
          "launches_corpus_path": u5b["launches"]["dither_i16"],
          "launches_reverb_corpus_path": y["launches"]["dither_i16"],
+         "launches_binaural_corpus_path": zb["launches"]["dither_i16"],
          "max_abs_err": q_err[0],
          "ms": times["dither_i16"][0], "plain_ms": times["dither_i16"][1],
          "bound_ms": k5_bound[0], "bound_by": k5_bound[1],

@@ -918,3 +918,126 @@ def test_iir_filter_on_the_card_matches_cpu(cuda):
         outs.append(ctx.start_rendering_sync().to_array())
     peak = float(np.abs(outs[1]).max())
     assert float(np.abs(outs[0] - outs[1]).max()) <= 1e-5 * peak
+
+
+# --- spatial audio and the automated-rate playhead ---------------------------
+
+def _hrtf_orbit(device, seconds=1.0, fs=44100.0):
+    """Config 4 (a sawtooth into an HRTF panner, the listener orbiting)
+    cut to `seconds`."""
+    ctx = wt.OfflineAudioContext(2, int(fs * seconds), fs, device=device)
+    osc = ctx.create_oscillator(type="sawtooth", frequency=220.0)
+    p = ctx.create_panner(panning_model="HRTF", position_z=-2.0)
+    for t in np.linspace(0, 10.0, 64):
+        ang = 2 * np.pi * t / 10.0
+        ctx.listener.position_x.linear_ramp_to_value_at_time(
+            float(np.sin(ang) * 3), float(t))
+        ctx.listener.position_z.linear_ramp_to_value_at_time(
+            float(np.cos(ang) * 3), float(t))
+    osc.connect(p)
+    p.connect(ctx.destination)
+    osc.start()
+    return ctx
+
+
+def _close(got, want, rel):
+    peak = float(np.abs(want).max())
+    assert peak > 0.01 and np.isfinite(got).all()
+    assert float(np.abs(got - want).max()) <= rel * peak
+
+
+def test_hrtf_on_the_card_matches_cpu(cuda):
+    """cuFFT's and the CPU's 256-point transforms, the gathers and the
+    crossfade: within 1e-5 x peak."""
+    _close(_hrtf_orbit(cuda).start_rendering_sync().to_array(),
+           _hrtf_orbit("cpu").start_rendering_sync().to_array(), 1e-5)
+
+
+def _playhead(device, model=None, x=(1.5, -1.5), z=-2.0):
+    """A looping buffer with its playback rate ramped through 0 into
+    reverse and its detune stepped (the cumsum playhead), optionally into
+    a panner moving along x at depth z while the listener turns."""
+    ctx = wt.OfflineAudioContext(2, 24000, 48000.0, device=device)
+    src = ctx.create_buffer_source(loop=True, loop_start=0.01, loop_end=0.2)
+    src.buffer = wt.AudioBuffer.from_array(
+        np.sin(np.arange(12000) * 0.021, dtype=np.float32)[None], 44100.0)
+    src.playback_rate.set_value_at_time(1.3, 0.0)
+    src.playback_rate.linear_ramp_to_value_at_time(-0.7, 0.5)
+    src.detune.set_value_at_time(250.0, 0.2)
+    out = src
+    if model is not None:
+        out = ctx.create_panner(panning_model=model, distance_model="linear",
+                                max_distance=20.0, position_x=x[0],
+                                position_z=z)
+        out.position_x.linear_ramp_to_value_at_time(x[1], 0.5)
+        ctx.listener.forward_x.linear_ramp_to_value_at_time(0.5, 0.4)
+        src.connect(out)
+    out.connect(ctx.destination)
+    src.start(0.001)
+    return ctx
+
+
+def test_automated_playhead_on_the_card_matches_cpu(cuda):
+    """The cumsum playhead's within-quantum f32 sums run in XLA's order on
+    every device (ops/oscillator.py::cumsum_f32), so the card holds to the
+    CPU render within 1e-5 x peak."""
+    _close(_playhead(cuda).start_rendering_sync().to_array(),
+           _playhead("cpu").start_rendering_sync().to_array(), 1e-5)
+
+
+@pytest.mark.parametrize("model", ("equalpower", "HRTF"))
+def test_panner_on_the_card_matches_cpu(cuda, model):
+    """The panners on the automated playhead, the source kept in front of
+    the listener: within 1e-5 x peak of the CPU render."""
+    _close(_playhead(cuda, model).start_rendering_sync().to_array(),
+           _playhead("cpu", model).start_rendering_sync().to_array(), 1e-5)
+
+
+def test_equal_power_across_the_ear_axis_on_the_card(cuda):
+    """A source crossing the listener's ear axis: there the azimuth is an
+    f32 arccos of a cosine within an ulp of -1, which moves it by
+    hundredths of a degree and the far ear's gain sin(xx pi / 2) by up to
+    ~2.5e-4 of its value from an f64 geometry's on this graph
+    (tests/test_torch_spatial.py::test_f32_geometry_at_the_ear_axis).  The
+    card's and the CPU's f32 trigonometry round apart there, so they are
+    held to 3e-4 x peak, the geometry's own conditioning; away from the
+    axis the test above holds 1e-5."""
+    got = _playhead(cuda, "equalpower", x=(2.0, -4.0), z=-1.0)
+    want = _playhead("cpu", "equalpower", x=(2.0, -4.0), z=-1.0)
+    _close(got.start_rendering_sync().to_array(),
+           want.start_rendering_sync().to_array(), 3e-4)
+
+
+def test_binaural_batch_on_the_card_repeats_and_matches_own_renders(cuda):
+    """Per-instance listener rows (override_param on the listener) and
+    clips: a second render equals the first, each lane its own render
+    within 1e-6 x peak."""
+    fs, n = 44100.0, 8192
+    rng = np.random.default_rng(4)
+    clips = rng.uniform(-0.5, 0.5, (3, 1, 3000)).astype(np.float32)
+    xs = rng.uniform(-3.0, 3.0, (3, 2)).astype(np.float32)
+
+    def build(i=None):
+        ctx = wt.OfflineAudioContext(2, n, fs, device=cuda)
+        src = ctx.create_buffer_source(loop=True)
+        src.buffer = wt.AudioBuffer.from_array(
+            clips[0] if i is None else clips[i], fs)
+        p = ctx.create_panner(panning_model="HRTF", position_z=-1.0)
+        a, b = (0.0, 1.0) if i is None else xs[i]
+        ctx.listener.position_x.set_value_at_time(float(a), 0.0)
+        ctx.listener.position_x.linear_ramp_to_value_at_time(float(b), n / fs)
+        src.connect(p)
+        p.connect(ctx.destination)
+        src.start()
+        return ctx, src
+
+    rows = np.stack([build(i)[0].listener.position_x.compile_for_render(
+        fs, n).dense[:n] for i in range(3)])
+    ctx, src = build()
+    gb = wt.GraphBatch(ctx, batch=3)
+    gb.override_buffer(src, clips)
+    gb.override_param(ctx.listener, "position_x", rows)
+    first = gb.render().cpu().numpy()[..., :n]
+    np.testing.assert_array_equal(first, gb.render().cpu().numpy()[..., :n])
+    for i in range(3):
+        _close(first[i], build(i)[0].start_rendering_sync().to_array(), 1e-6)

@@ -1,0 +1,292 @@
+"""The buffer source's automated-rate (cumsum) playhead on the port
+(webaudio_tpu_torch) against the JAX package, on the CPU.
+
+An automated playback_rate or detune makes the playhead an exclusive
+masked cumsum of the per-sample increments (an f32 cumsum within each
+quantum in XLA's order, f64 sums across quanta) carried across blocks.
+Every case renders synthetic buffers made from a seed through both
+packages and holds the port to 1e-5 x peak; the cumsum itself is held to
+the JAX package's to 1e-13 relative: its f32 part runs in XLA's order (an
+f32 cumsum in another order would be ~1e-7 off), and only the f64 sums
+of each quantum may round apart.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+import webaudio_tpu as wa
+import webaudio_tpu_torch as wt
+from webaudio_tpu.graph import compiler as jcomp
+from webaudio_tpu.nodes import buffer_source as jbs
+from webaudio_tpu_torch.graph import compiler as tcomp
+from webaudio_tpu_torch.nodes import buffer_source as tbs
+
+FS = 48000.0
+
+
+def _context(mod, channels, length, fs=FS):
+    if mod is wt:
+        return wt.OfflineAudioContext(channels, length, fs, device="cpu")
+    return wa.OfflineAudioContext(channels, length, fs)
+
+
+def _assert_close(got, want, rel=1e-5):
+    assert got.shape == want.shape
+    assert np.isfinite(got).all()
+    np.testing.assert_allclose(got, want,
+                               atol=rel * max(np.abs(want).max(), 1e-6))
+
+
+def _data(channels, frames, seed):
+    rng = np.random.default_rng(seed)
+    t = np.arange(frames)
+    x = np.sin(t * rng.uniform(0.01, 0.2, (channels, 1)))
+    return (0.8 * x + 0.1 * rng.standard_normal((channels, frames))
+            ).astype(np.float32)
+
+
+def _source(mod, ctx, data, rate, **kw):
+    src = ctx.create_buffer_source(**kw)
+    src.buffer = mod.AudioBuffer.from_array(data, rate)
+    return src
+
+
+def _render_both(graph_fn, *args, rel=1e-5):
+    want = np.asarray(graph_fn(wa, *args).start_rendering_sync().to_array())
+    ctx = graph_fn(wt, *args)
+    got = ctx.start_rendering_sync().to_array()
+    _assert_close(got, want, rel)
+    return got, want, ctx
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_masked_cumsum_equals_jax(seed):
+    rng = np.random.default_rng(seed)
+    B = 1024
+    vals = rng.uniform(-2.0, 3.0, B)
+    mask = rng.uniform(size=B) > 0.2
+    want, want_total = jbs._masked_cumsum_f64(jnp.asarray(vals),
+                                              jnp.asarray(mask))
+    got, total = tbs._masked_cumsum_f64(torch.from_numpy(vals)[None],
+                                        torch.from_numpy(mask))
+    np.testing.assert_allclose(got[0].numpy(), np.asarray(want), rtol=1e-13,
+                               atol=1e-13)
+    np.testing.assert_allclose(float(total[0]), float(want_total),
+                               rtol=1e-13)
+
+
+# --- automation of the rate --------------------------------------------------
+
+def _automated(mod, case, length=6000):
+    ctx = _context(mod, 2, length)
+    data = _data(2, 2500, 7)
+    src = _source(mod, ctx, data, 44100.0, loop=True)
+    pr, dt = src.playback_rate, src.detune
+    if case == "rate_ramp":
+        pr.linear_ramp_to_value_at_time(2.5, length / FS)
+    elif case == "rate_exp_ramp":
+        pr.set_value_at_time(0.5, 0.0)
+        pr.exponential_ramp_to_value_at_time(1.7, 0.1)
+    elif case == "detune_ramp":
+        dt.set_value_at_time(-700.0, 0.0)
+        dt.linear_ramp_to_value_at_time(1200.0, 0.11)
+    elif case == "set_value_at_time":
+        pr.set_value_at_time(1.5, 0.02)
+        pr.set_value_at_time(0.25, 0.05)
+        dt.set_value_at_time(300.0, 0.07)
+    elif case == "through_zero_into_reverse":
+        pr.set_value_at_time(1.0, 0.0)
+        pr.linear_ramp_to_value_at_time(-1.5, 0.1)
+    elif case == "set_target":
+        pr.set_target_at_time(0.3, 0.01, 0.02)
+    src.connect(ctx.destination)
+    src.start()
+    return ctx
+
+
+@pytest.mark.parametrize("case", ["rate_ramp", "rate_exp_ramp", "detune_ramp",
+                                  "set_value_at_time",
+                                  "through_zero_into_reverse", "set_target"])
+def test_automated_rate_matches_jax(case):
+    got, _, _ = _render_both(_automated, case)
+    assert np.abs(got).max() > 0.1
+    # the cumsum playhead runs (the closed form needs a constant rate)
+    ctx = _automated(wt, case)
+    cg = tcomp.compile_graph(dict(ctx._nodes), list(ctx._edges), FS,
+                             ctx.length, ctx._destination.node_id, "cpu")
+    (src,) = [k for k in cg.kernels.values()
+              if isinstance(k, tbs._BufferSourceKernel)]
+    assert src.const_rate is None and src.read_mode == "gather"
+
+
+def _looped(mod, loop_start, loop_end, start, offset, duration, rate_to):
+    ctx = _context(mod, 1, 8192)
+    src = _source(mod, ctx, _data(1, 3000, 3), FS, loop=True,
+                  loop_start=loop_start, loop_end=loop_end)
+    src.playback_rate.set_value_at_time(0.8, 0.0)
+    src.playback_rate.linear_ramp_to_value_at_time(rate_to, 8192 / FS)
+    src.connect(ctx.destination)
+    src.start(start, offset, duration)
+    return ctx
+
+
+@pytest.mark.parametrize("args", [
+    (0.01, 0.04, 0.0, None, None, 2.0),        # loop points, forward
+    (0.01, 0.04, 0.0, 0.05, None, -1.5),       # offset past the loop, reverse
+    (0.0, 0.0, 0.0, None, None, 1.3),          # whole-buffer loop
+    (0.02, 0.03, 1001.37 / FS, 0.001, None, 1.6),   # sub-sample start
+    (0.01, 0.05, 0.003, 0.0, 0.07, 2.2),       # the duration limit
+])
+def test_loops_start_and_duration_match_jax(args):
+    _render_both(_looped, *args)
+
+
+def _one_shot(mod, start, offset, duration):
+    ctx = _context(mod, 2, 6144)
+    src = _source(mod, ctx, _data(2, 2000, 5), 22050.0)
+    src.detune.set_value_at_time(-1200.0, 0.0)
+    src.detune.linear_ramp_to_value_at_time(900.0, 0.1)
+    src.connect(ctx.destination)
+    src.start(start, offset, duration)
+    return ctx
+
+
+@pytest.mark.parametrize("args", [(0.0, None, None), (333.5 / FS, 0.01, None),
+                                  (0.002, 0.0, 0.03)])
+def test_one_shot_end_of_buffer_matches_jax(args):
+    _render_both(_one_shot, *args)
+
+
+# --- blocks and suspends ------------------------------------------------------
+
+def _two_blocks(mod, length=48000 * 3 + 77):
+    """A lowpass after the source makes the plan prefer power-of-two
+    blocks, so the render spans two."""
+    ctx = _context(mod, 2, length)
+    src = _source(mod, ctx, _data(2, 9000, 9), 44100.0, loop=True,
+                  loop_start=0.05, loop_end=0.18)
+    src.playback_rate.set_value_at_time(0.7, 0.0)
+    src.playback_rate.linear_ramp_to_value_at_time(1.9, 2.0)
+    src.detune.set_value_at_time(150.0, 1.1)
+    filt = ctx.create_biquad_filter(frequency=5000.0)
+    src.connect(filt)
+    filt.connect(ctx.destination)
+    src.start(0.01)
+    return ctx
+
+
+def test_render_over_two_blocks_matches_jax():
+    _, _, ctx = _render_both(_two_blocks)
+    cg = tcomp.compile_graph(dict(ctx._nodes), list(ctx._edges), FS,
+                             ctx.length, ctx._destination.node_id, "cpu")
+    assert tcomp._pad_len(ctx.length, cg.block_frames) >= 2 * cg.block_frames
+
+
+def _suspended(mod):
+    ctx = _context(mod, 1, 12000)
+    src = _source(mod, ctx, _data(1, 4000, 13), FS, loop=True,
+                  loop_start=0.02, loop_end=0.07)
+    src.playback_rate.set_value_at_time(1.2, 0.0)
+    src.playback_rate.linear_ramp_to_value_at_time(0.6, 0.1)
+
+    def bend(c):
+        src.playback_rate.linear_ramp_to_value_at_time(-0.9, 0.24)
+        src.detune.set_value_at_time(200.0, 0.15)
+
+    ctx.suspend_sync(0.08, bend)
+    src.connect(ctx.destination)
+    src.start(0.004)
+    return ctx
+
+
+def test_render_across_a_suspend_matches_jax():
+    got, _, ctx = _render_both(_suspended)
+    assert len(ctx.render_stats["segments"]) == 2
+    jctx = _suspended(wa)
+    jctx.start_rendering_sync()
+    jsrc = [n for n in jctx._nodes.values() if hasattr(n, "playback_rate")][0]
+    tsrc = [n for n in ctx._nodes.values() if hasattr(n, "playback_rate")][0]
+    assert tsrc.position == pytest.approx(jsrc.position, abs=1e-9)
+
+
+def test_batch_lanes_with_their_own_rate_rows():
+    """Each instance of a GraphBatch carries its own rate row, so each
+    has its own playhead; every lane equals its own render."""
+    length, n = 4096, 3
+    rows = np.stack([np.linspace(r0, r1, length, dtype=np.float32)
+                     for r0, r1 in ((0.5, 2.0), (1.0, -1.0), (1.7, 0.9))])
+
+    def build(mod, row=None):
+        ctx = _context(mod, 2, length)
+        src = _source(mod, ctx, _data(2, 1500, 17), FS, loop=True)
+        if row is None:
+            src.playback_rate.linear_ramp_to_value_at_time(2.0, 0.05)
+        else:
+            src.playback_rate.set_value_curve_at_time(row, 0.0, length / FS)
+        src.connect(ctx.destination)
+        src.start()
+        return ctx, src
+
+    ctx, src = build(wt)
+    gb = wt.GraphBatch(ctx, batch=n)
+    gb.override_param(src, "playback_rate", rows)
+    out = gb.render().numpy()[..., :length]
+    for i in range(n):
+        own_ctx, own = build(wt)
+        gb1 = wt.GraphBatch(own_ctx, batch=1)
+        gb1.override_param(own, "playback_rate", rows[i:i + 1])
+        own_out = gb1.render().numpy()[0, :, :length]
+        _assert_close(out[i], own_out, 1e-6)
+        jctx, jsrc = build(wa)
+        jgb = wa.GraphBatch(jctx, batch=1)
+        jgb.override_param(jsrc, "playback_rate", rows[i:i + 1])
+        _assert_close(out[i], np.asarray(jgb.render())[0, :, :length])
+
+
+# --- port-side copies of JAX tests that automate the rate --------------------
+
+def test_krate_automation_with_unaligned_length():
+    """tests/test_offline.py::test_krate_automation_with_unaligned_length
+    on the port, held to the JAX render."""
+    def build(mod):
+        ctx = _context(mod, 1, 1000, 44100.0)
+        src = _source(mod, ctx, np.ones((1, 1000), np.float32), 44100.0)
+        src.playback_rate.set_value_at_time(2.0, 0.01)  # a k-rate event
+        src.connect(ctx.destination)
+        src.start()
+        return ctx
+
+    got, _, _ = _render_both(build)
+    assert np.isfinite(got).all()
+
+
+def test_looping_or_automated_buffer_sources_not_fused(monkeypatch):
+    """tests/test_fusion.py::test_looping_or_automated_buffer_sources_not_fused
+    on the port: loops and automated rates stay unfused, and the render
+    equals JAX's."""
+    monkeypatch.setenv("WEBAUDIO_FUSE_THRESHOLD", "4")
+
+    def build(mod):
+        ctx = _context(mod, 1, 2048)
+        sample = mod.AudioBuffer.from_array(np.ones((1, 1000), np.float32), FS)
+        for i in range(6):
+            src = ctx.create_buffer_source(loop=(i % 2 == 0))
+            src.buffer = sample
+            if i % 2 == 1:
+                src.playback_rate.linear_ramp_to_value_at_time(2.0, 0.02)
+            src.connect(ctx.destination)
+            src.start()
+        return ctx
+
+    ctx = build(wt)
+    cg = tcomp.compile_graph(dict(ctx._nodes), list(ctx._edges), FS,
+                             ctx.length, ctx._destination.node_id, "cpu")
+    jctx = build(wa)
+    jcg = jcomp.compile_graph(dict(jctx._nodes), list(jctx._edges), FS,
+                              jctx.length, jctx._destination.node_id)
+    assert not any(nid < 0 for nid in cg.kernels)
+    assert sorted(cg.kernels) == sorted(jcg.kernels)
+    _render_both(build)

@@ -330,7 +330,7 @@ def test_processor_error_is_isolated_like_jax(monkeypatch):
 def test_unported_parts_raise_not_supported():
     ctx = _context(wt, 1, 1024)
     with pytest.raises(wt.NotSupportedError):
-        ctx.create_panner()
+        ctx.create_script_processor()
 
     # an oversampled shaper, refused until its resamplers were ported,
     # renders as JAX's
@@ -342,12 +342,16 @@ def test_unported_parts_raise_not_supported():
         rendered.append(ctx.start_rendering_sync().to_array())
     _assert_close(*rendered)
 
-    ctx = bench_graph(wt, 4096)
-    [n for n in ctx._nodes.values()
-     if hasattr(n, "playback_rate")][0].playback_rate.linear_ramp_to_value_at_time(
-        2.0, 0.05)
-    with pytest.raises(wt.NotSupportedError):
-        ctx.start_rendering_sync()
+    # an automated playback rate, refused until the cumsum playhead was
+    # ported, renders as JAX's
+    rendered = []
+    for mod in (wt, wa):
+        ctx = bench_graph(mod, 4096)
+        [n for n in ctx._nodes.values()
+         if hasattr(n, "playback_rate")][0].playback_rate \
+            .linear_ramp_to_value_at_time(2.0, 0.05)
+        rendered.append(ctx.start_rendering_sync().to_array())
+    _assert_close(*rendered)
 
     # a cycle without a delay, refused until cycles were ported, is muted
     # (reference: graph.rs:331-402) and renders silence, as JAX's
@@ -403,10 +407,10 @@ def test_device_defaults_to_the_card():
 def test_every_jax_context_name_works_or_is_refused():
     """Every public name of the JAX package's OfflineAudioContext exists on
     the port: a factory or method that is ported builds or runs, one that
-    is not raises NotSupportedError (never AttributeError), and so does
-    the `listener` attribute."""
-    refused = {"listener", "create_audio_param", "start_rendering", "suspend",
-               "resume", "create_audio_worklet", "create_panner", "create_script_processor",
+    is not raises NotSupportedError (never AttributeError); the `listener`
+    attribute is the AudioListener."""
+    refused = {"create_audio_param", "start_rendering", "suspend",
+               "resume", "create_audio_worklet", "create_script_processor",
                "decode_audio_data", "decode_audio_data_sync"}
     calls = {"create_buffer": (1, 16, FS), "create_oscillator_bank": ([220.0],),
              "create_iir_filter": ([1.0], [1.0]),

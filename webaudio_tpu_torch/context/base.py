@@ -7,8 +7,7 @@ The control side *is* the graph IR here; the compiler snapshots `_nodes` /
 `webaudio_tpu/context/base.py`.  The context carries the torch device that
 every render of its graph runs on (the card unless the caller names
 another).  Factories of nodes that are not ported yet, and the other JAX
-surfaces the port lacks (`listener`, `create_audio_param`), raise
-`NotSupportedError`.
+surface the port lacks (`create_audio_param`), raise `NotSupportedError`.
 """
 
 from __future__ import annotations
@@ -44,6 +43,7 @@ class BaseAudioContext:
         self._state = AudioContextState.SUSPENDED
         self._current_time = 0.0
         self._destination = None
+        self._listener = None
         self._event_handlers: dict[str, list[Callable]] = {}
 
     # --- registration / connections -------------------------------------
@@ -114,9 +114,13 @@ class BaseAudioContext:
 
     @property
     def listener(self):
-        raise NotSupportedError(
-            "listener (the PannerNode's AudioListener) is not ported to "
-            "webaudio_tpu_torch yet")
+        """The AudioListener, created on first use (a hidden node whose
+        params every PannerNode reads)."""
+        from ..nodes.panner import AudioListener
+
+        if self._listener is None:
+            self._listener = AudioListener(self)
+        return self._listener
 
     # --- events ------------------------------------------------------------
     def _add_event_handler(self, name: str, cb: Callable):
@@ -224,6 +228,11 @@ class BaseAudioContext:
 
         return OscillatorNode(self, **kw)
 
+    def create_panner(self, **kw):
+        from ..nodes.panner import PannerNode
+
+        return PannerNode(self, **kw)
+
     def create_stereo_panner(self, **kw):
         from ..nodes.stereo_panner import StereoPannerNode
 
@@ -245,10 +254,10 @@ def _not_ported(name: str):
 
 
 # the JAX package's factories and methods that are not ported yet: the
-# panner and listener wait for the spatial slice, the worklet and script
-# processor for the host-callback nodes, decoding for media I/O
+# worklet and script processor wait for the host-callback nodes, decoding
+# for media I/O
 for _name in ("create_audio_param", "create_audio_worklet",
-              "create_panner", "create_script_processor",
+              "create_script_processor",
               "decode_audio_data", "decode_audio_data_sync"):
     setattr(BaseAudioContext, _name, _not_ported(_name))
 del _name

@@ -12,6 +12,9 @@ The engine has no learned weights.  What one render hands the next is:
   `off_const`, `gain_const`, `ratios`), custom wave `tables`, IR spectra
   stack `h`, pan gains (`pan_gl`, `pan_gr`) and `curves`; an oscillator's
   custom `table`; an OscillatorBankNode's voices (`freq`, `start`, ...);
+  an HRTF panner's vertex spectra (`spectra`, (V, 2, K, P+1) complex64),
+  direction grid (`grid_vids`, `grid_w`) and front-direction spectra
+  (`front`; the JAX package stages DFT matrices in its place);
 - the node states that cross a suspend boundary: the FDL delay line
   (`spectra`, `tail`: a biquad's, an IIR filter's, a convolver's), a
   DelayNode's `ring` (C, R) of the last R input frames (frame t at
@@ -22,8 +25,10 @@ The engine has no learned weights.  What one render hands the next is:
   WaveShaper's FIR histories (`up`: the last 48 input samples a channel,
   `down`: the last 48 x factor upsampled ones), a DynamicsCompressor's
   level `detector`, lookahead `delay` ring (C, frames) and last
-  `reduction` in dB, and an AnalyserNode's `ring` of the last 32,768 mono
-  samples.
+  `reduction` in dB, an AnalyserNode's `ring` of the last 32,768 mono
+  samples, and an HRTF panner's FDL (`xspec`, the last K-1 input spectra;
+  `tail`, the last input quantum) with its previous quantum's HRIR
+  spectra and gain (`h_prev`, `g_prev`) and `started`.
 
 Both arrive as trees of dicts whose leaves are numpy arrays (a JAX tree
 converts with `jax.tree_util.tree_map(np.asarray, tree)`, which this

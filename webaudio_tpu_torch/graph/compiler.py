@@ -268,7 +268,14 @@ def compile_graph(nodes: dict, edges: list[Edge], sample_rate: float,
     nodes, edges, param_alias = _fusion.fuse_sources(
         nodes, edges, dest_id, sample_rate=sample_rate)
     delay_ids = {nid for nid, n in nodes.items() if isinstance(n, DelayNode)}
-    ordered = order_graph(list(nodes.keys()), list(edges), delay_ids)
+    # ordering also respects foreign-param subscriptions: when node X reads
+    # node Y's param P, whatever drives (Y, P) with audio runs before X
+    order_edges = list(edges)
+    for xid, xnode in nodes.items():
+        for src_node, pname in xnode.foreign_params().values():
+            order_edges += [Edge(e.src, e.src_output, xid, -2) for e in edges
+                            if e.param == pname and e.dst == src_node.node_id]
+    ordered = order_graph(list(nodes.keys()), order_edges, delay_ids)
 
     total_quanta = -(-total_frames // RENDER_QUANTUM_SIZE)
     two_rate_m = 1          # inner sub-steps per block (two-rate compiler)
@@ -323,6 +330,17 @@ def compile_graph(nodes: dict, edges: list[Edge], sample_rate: float,
     dense_params = [key for key, plan in param_plan.items()
                     if not plan.is_constant]
     dense_index = {key: i for i, key in enumerate(dense_params)}
+
+    # foreign params: a node can read another node's params (the
+    # reference's hidden listener->panner port, concrete_base.rs:511-534),
+    # alias -> (node id, param name)
+    foreign = {}
+    for nid, node in nodes.items():
+        fp = node.foreign_params()
+        if fp:
+            foreign[nid] = {alias: (src.node_id, pname)
+                            for alias, (src, pname) in fp.items()
+                            if src.node_id in nodes}
 
     # build kernels
     kernels = {}
@@ -438,13 +456,17 @@ def compile_graph(nodes: dict, edges: list[Edge], sample_rate: float,
                     out[gname] = xs_params[:, r0:r0 + len(rows), :]
                 return out
             out = {}
-            for pname, p in node.params.items():
-                if (nid, pname) in constants:
-                    val = constants[(nid, pname)]
+            items = [(pname, nid, pname) for pname in node.params]
+            items += [(alias, src, pname) for alias, (src, pname)
+                      in foreign.get(nid, {}).items()]
+            for alias, pnid, pname in items:
+                p = nodes[pnid].params[pname]
+                if (pnid, pname) in constants:
+                    val = constants[(pnid, pname)]
                 else:
-                    i = dense_index[(nid, pname)]
+                    i = dense_index[(pnid, pname)]
                     val = xs_params[:, i:i + 1, :]                   # (N, 1, B)
-                aedges = param_edges.get((nid, pname))
+                aedges = param_edges.get((pnid, pname))
                 if aedges:
                     sigs = [signals[s] for s in aedges if s in signals]
                     audio = sum_inputs(sigs, 1, ChannelInterpretation.SPEAKERS,
@@ -454,9 +476,9 @@ def compile_graph(nodes: dict, edges: list[Edge], sample_rate: float,
                         audio = q.expand(n, 1, q.shape[2], RENDER_QUANTUM_SIZE
                                          ).reshape(n, 1, block_frames)
                     val = p.clamp(val + audio)
-                elif (nid, pname) not in constants:
+                elif (pnid, pname) not in constants:
                     val = torch.clamp(val, *p.f32_bounds())
-                out[pname] = val
+                out[alias] = val
             return out
 
         def run_group(grp):

@@ -514,6 +514,9 @@ class _FusedVoicesNode:
     def params(self):
         return self._params
 
+    def foreign_params(self):
+        return {}
+
     def output_channel_count(self, input_counts):
         if self.panners[0] is not None:
             return [2]

@@ -183,8 +183,8 @@ class AudioNode:
 
     def foreign_params(self) -> dict:
         """Params of *other* nodes this node's kernel reads, as
-        alias -> (node, param_name).  No ported node reads one yet; the
-        two-rate planner asks (graph/compiler.py::_two_rate_eligible)."""
+        alias -> (node, param_name): a PannerNode reads the listener's
+        (graph/compiler.py passes them to the kernel under their aliases)."""
         return {}
 
     def output_channel_count(self, input_counts: list[int]) -> list[int]:

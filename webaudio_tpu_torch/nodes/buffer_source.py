@@ -1,12 +1,18 @@
 """AudioBufferSourceNode: buffer playback with resampling and looping.
 
 reference: src/node/audio_buffer_source.rs.  The reference's per-sample
-playhead state machine (audio_buffer_source.rs:625-800) becomes
-closed-form tensor math for a constant compound rate
+playhead state machine (audio_buffer_source.rs:625-800) becomes tensor
+math over the block, on the compound rate
 `playback_rate * 2^(detune/1200)`:
 
-- the playhead is a pure function of the global sample index, in f64
-  buffer-sample units;
+- a constant compound rate makes the playhead a pure function of the
+  global sample index, in f64 buffer-sample units (closed form);
+- an automated (k-rate) compound rate makes it an exclusive masked cumsum
+  of the per-sample increments, an f32 cumsum within each quantum and f64
+  sums across quanta (`_masked_cumsum_f64`), carried across blocks; the
+  within-quantum cumsum runs in XLA's summation order
+  (`ops/oscillator.py::cumsum_f32`), so the card, the CPU and the JAX
+  package round it alike;
 - loop wrapping (`while bt >= loop_end: bt -= len`) is `mod` arithmetic on
   the unwrapped playhead;
 - the sample fetch is one contiguous slice from a pre-tiled copy of the
@@ -17,13 +23,12 @@ closed-form tensor math for a constant compound rate
   lerp kernel instead (`ops/grain_read.py::grouped_lerp`), and =gather
   forces the pair gathers, as in the JAX package.
 
-Ported from `webaudio_tpu/nodes/buffer_source.py`.  The playhead is
-shared by every instance of a batched render; the buffer layouts are
-staged with a leading axis of 1 (one buffer for all instances) or N (one
-per instance, `GraphBatch.override_buffer`), and the fetch returns
-(1 or N, C, B).  Automated (k-rate) playback rate or detune needs the
-masked-cumsum playhead, which is not ported yet and raises
-`NotSupportedError`.
+Ported from `webaudio_tpu/nodes/buffer_source.py`.  The closed-form
+playhead is shared by every instance of a batched render; the cumsum
+playhead is one per instance (each instance may carry its own rate rows).
+The buffer layouts are staged with a leading axis of 1 (one buffer for all
+instances) or N (one per instance, `GraphBatch.override_buffer`), and the
+fetch returns (1 or N, C, B).
 """
 
 from __future__ import annotations
@@ -35,10 +40,11 @@ import numpy as np
 import torch
 
 from ..buffer import AudioBuffer
-from ..constants import InvalidStateError, NotSupportedError
+from ..constants import RENDER_QUANTUM_SIZE, InvalidStateError
 from ..graph.compiler import Kernel
-from ..ops.bufread import edge_vals, gather_pairs, pair_rows
+from ..ops.bufread import edge_vals, gather_lanes, gather_pairs, pair_rows
 from ..ops.grain_read import EDGE_FRAC, grouped_lerp, pick_group, pick_window
+from ..ops.oscillator import cumsum_f32
 from ..param import AudioParamDescriptor, AutomationRate
 from .scheduled_source import AudioScheduledSourceNode
 
@@ -60,6 +66,22 @@ def _loop_wrap(pos, ls, le, loop_len):
     return torch.where(le - wrapped <= tol, torch.full_like(wrapped, ls), wrapped)
 
 
+def _masked_cumsum_f64(values64, mask):
+    """Exclusive masked cumsum over the last axis of (M, B) f64 values,
+    with the f32 within-quantum / f64 across-quantum split of
+    `ops/oscillator.py::accumulate_phase`.  Returns ((M, B) f64, the
+    (M,) f64 totals)."""
+    M, B = values64.shape
+    q = RENDER_QUANTUM_SIZE
+    m64 = torch.where(mask, values64, 0.0).reshape(M, B // q, q)
+    m32 = m64.to(torch.float32)
+    within = (cumsum_f32(m32) - m32).to(torch.float64)
+    qsums = m64.sum(dim=-1)
+    qoffs = torch.cumsum(qsums, dim=-1) - qsums
+    total = qoffs[:, -1] + qsums[:, -1]
+    return (qoffs[..., None] + within).reshape(M, B), total
+
+
 class _BufferSourceKernel(Kernel):
     # data_host is only ever read through the staged-resource path
     # (data_rows/edge_vals/_read_resources), so MixedGraphBatch may bucket
@@ -72,15 +94,14 @@ class _BufferSourceKernel(Kernel):
         plans = rc.param_plans
         buf = node.buffer
         self.has_buffer = buf is not None
-        if self.has_buffer:
-            if not (plans["playback_rate"].is_constant
-                    and plans["detune"].is_constant):
-                raise NotSupportedError(
-                    "automated playback_rate/detune needs the cumsum "
-                    "playhead, which webaudio_tpu_torch does not port yet")
+        # a constant compound rate takes the closed-form playhead, an
+        # automated one the masked cumsum (const_rate None)
+        self.const_rate = None
+        if plans["playback_rate"].is_constant and plans["detune"].is_constant:
             pr = np.float64(np.float32(plans["playback_rate"].scalar))
             dt_ = np.float64(np.float32(plans["detune"].scalar))
             self.const_rate = float(pr * np.exp2(dt_ / 1200.0))
+        if self.has_buffer:
             self.buf_len = buf.length
             self.buf_rate = buf.sample_rate
             self.buf_duration = buf.length / buf.sample_rate
@@ -123,8 +144,8 @@ class _BufferSourceKernel(Kernel):
         whole_loop = (self.loop and self.loop_start <= 0.0
                       and self.loop_end >= self.buf_duration - 1e-9)
         mode = os.environ.get("WEBAUDIO_GRAIN_READ", "auto")
-        if mode == "gather" or not self.has_buffer or \
-                (self.loop and not whole_loop):
+        if mode == "gather" or self.const_rate is None or \
+                not self.has_buffer or (self.loop and not whole_loop):
             return
         if mode not in ("auto", "aligned"):
             self._pick_window(mode, rc)
@@ -225,7 +246,9 @@ class _BufferSourceKernel(Kernel):
         if not self.has_buffer:
             return state, [torch.zeros((1, 1, scope.frames),
                                        dtype=torch.float32, device=scope.device)]
-        return self._process_closed_form(scope, state)
+        if self.const_rate is not None:
+            return self._process_closed_form(scope, state)
+        return self._process_cumsum(scope, state, params)
 
     def _entered(self, pos, offset_pos, ls, le, rate):
         """The reference's sticky entered_loop flag, closed form: the
@@ -305,17 +328,100 @@ class _BufferSourceKernel(Kernel):
         }
         return new_state, [out]
 
+    def _process_cumsum(self, scope, state, params):
+        """Automated (k-rate) compound rate: the playhead is the exclusive
+        masked cumsum of the per-sample increments, one per instance,
+        carried across blocks in f64 (buffer_time, elapsed, entered).
+        Whether the start falls in this block is known on the host, so
+        nothing here waits for the device."""
+        B = scope.frames
+        fs = self.sample_rate
+        dt = 1.0 / fs
+        # k-rate compound rate (reference: audio_buffer_source.rs:489-493)
+        rate = params["playback_rate"].to(torch.float64) * torch.exp2(
+            params["detune"].to(torch.float64) / 1200.0)
+        rate = rate.reshape(-1, B) if rate.dim() else rate.expand(1, B)
+        sched = scope.active_mask(self.start_frame, self.stop_frame)
+
+        # all playhead math runs in buffer-sample units
+        ratio = self.buf_rate / fs
+        L = float(self.buf_len)
+
+        # sub-sample start: the first active sample advances the offset by
+        # delta * rate (reference: audio_buffer_source.rs:672-690)
+        if self.start_frame < 2**31 - 1:
+            delta = self.start_frame * dt - self.start_time
+        else:
+            delta = 0.0
+        in_block = scope.frame0 <= self.start_frame < scope.frame0 + B
+        if in_block:
+            rate_n0 = rate[:, self.start_frame - scope.frame0]
+        else:
+            rate_n0 = torch.zeros_like(rate[:, 0])
+        offset_eff = torch.clamp(self.offset + delta * rate_n0, 0.0,
+                                 self.buf_duration)
+        if self.loop:
+            offset_eff = torch.where(
+                rate_n0 >= 0.0, torch.clamp(offset_eff, max=self.loop_end),
+                torch.clamp(offset_eff, min=self.loop_start))
+        pos0_val = offset_eff * self.buf_rate
+
+        # the elapsed-duration limit: a masked |rate| cumsum in context
+        # samples, monotone, so the mask is elapsed < duration * fs
+        # (reference: :652-667); a sub-sample start adds |delta * rate|
+        # up front (reference: :689)
+        excl_abs, total_abs = _masked_cumsum_f64(torch.abs(rate), sched)
+        delta_elapsed = (torch.abs(delta * rate_n0) * fs if in_block
+                         else torch.zeros_like(rate_n0))
+        elapsed0 = state["elapsed"] + delta_elapsed
+        active = sched & (elapsed0[:, None] + excl_abs < self.duration * fs)
+
+        excl, total = _masked_cumsum_f64(rate * ratio, active)
+        pos0 = pos0_val if in_block else state["buffer_time"]
+        pos = pos0[:, None] + excl
+
+        if self.loop:
+            ls = self.loop_start * self.buf_rate
+            le = self.loop_end * self.buf_rate
+            # the reference's entered_loop flag is sticky
+            # (audio_buffer_source.rs:700-717): once playback crosses into
+            # the loop region the wrap applies, carried across blocks
+            cond = (pos >= ls) if self.offset * self.buf_rate < le \
+                else (pos < le)
+            entered = state["entered"][:, None] | (
+                torch.cumsum((cond & active).to(torch.int32), dim=-1) > 0)
+            pos_eff = torch.where(entered, _loop_wrap(pos, ls, le, le - ls),
+                                  pos)
+            entered_end = entered[:, -1]
+        else:
+            pos_eff = pos
+            entered_end = state["entered"]
+
+        valid = active & (pos_eff >= 0.0) & (pos_eff < L)
+        out = self._fetch(scope, pos_eff[:, None], valid[:, None])
+        n = scope.n
+        new_state = {
+            "buffer_time": (pos0 + total).expand(n).clone(),
+            "elapsed": (elapsed0 + total_abs).expand(n).clone(),
+            "entered": entered_end.expand(n).clone(),
+        }
+        return new_state, [out]
+
     def _fetch(self, scope, playhead, valid):
         """Pair-row gather + lerp (ops/bufread.py): both taps of every
         channel in one row gather; the end-of-buffer neighbor is a
-        per-buffer constant patched in with a `where`."""
+        per-buffer constant patched in with a `where`.  A (B,) playhead
+        is shared by the instances; an (M, 1, B) one is each instance's
+        own (the cumsum playhead)."""
         floored = torch.floor(playhead)
         # clamp in f64 before the cast: out-of-range float->int casts are
         # undefined in torch (XLA saturates, then the JAX code clips)
         prev_i = torch.clamp(floored, 0.0, float(self.buf_len - 1)).to(torch.int64)
         k = (playhead - floored).to(torch.float32)
         beyond = prev_i + 1 >= self.buf_len
-        a, b = gather_pairs(scope.node_resources["data_rows"], prev_i)
+        rows = scope.node_resources["data_rows"]
+        a, b = (gather_pairs(rows, prev_i) if playhead.dim() == 1
+                else gather_lanes(rows, prev_i))
         edge_c = scope.node_resources["edge_vals"][..., None]  # (R, C, 1)
         if self.loop:
             # end-of-buffer neighbor wraps into the loop

@@ -52,3 +52,15 @@ def gather_pairs(rows: torch.Tensor, idx: torch.Tensor):
     g = flat.reshape(lead + idx.shape + (2, C))
     g = torch.movedim(g, (-2, -1), (0, len(lead) + 1))  # (2, ..., C, *idx.shape)
     return g[0], g[1]
+
+
+def gather_lanes(rows: torch.Tensor, idx: torch.Tensor):
+    """rows (R, L, 2C), integer idx (M, 1, B), one row of indices an
+    instance -> (a, b) each (max(R, M), C, B): instance i reads its own
+    buffer (R = N) or the shared one (R = 1) at its own indices (M = N) or
+    the shared ones (M = 1)."""
+    C = rows.shape[-1] // 2
+    r = torch.arange(rows.shape[0], device=rows.device)[:, None]
+    g = rows[r, idx[:, 0]]                           # (max(R, M), B, 2C)
+    g = g.transpose(1, 2)                            # (.., 2C, B)
+    return g[:, :C], g[:, C:]
