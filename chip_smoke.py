@@ -277,6 +277,50 @@ main path with every kernel's launch count from 0:
      own start_rendering_sync on the card; instance-audio-seconds per wall
      second, peak device memory and the busy share.
 
+Then resumable, segmented and off-thread renders and user code, each
+main path with every kernel's launch count from 0:
+
+  zc. RenderSession at full width, steps of 128 quanta (16,384 frames),
+     every param a dense row compiled on the host each step: the slice
+     graph of phase b, 30 steps (491,520 frames), K1 once a step and its
+     first launch bit-equal to its plain version; saved after step 15 and
+     restored into a fresh context's session, whose steps 16-30 must be
+     bit-equal to the uninterrupted session's; the first 2 s within
+     1e-5 x peak of the port's CPU session, all 10 s within 1e-4 x peak of
+     the one-shot start_rendering_sync; K5 bounces each step's chunk, equal
+     to the plain dither.  The same for config 3 (27 steps, the cycle
+     clamps the block to 8,192 frames, saved after step 13: the FDL and
+     the delay ring cross the checkpoint).  Printed: host ms a step (the
+     dense rows and the timelines' advance), the block walk's device ms a
+     step, the realtime factor and the checkpoint's bytes.  Then 64 grains
+     of case_granular_grains over 1 s through RenderSession(
+     quanta_per_block=1): 128-frame blocks through the grain bank, the
+     kernel its read mode picks bit-equal to its plain version, the card's
+     session within 3e-5 of the CPU session's;
+  zd. render_time_sharded of the slice graph at 10 s in 8 segments on the
+     card (devices=["cuda"] * 8, in turn): the JAX package's block (117
+     quanta) and halo, K1 once a block in every segment, within 5e-5 x
+     peak of the sequential render; wall time against it; config 3 and 5a
+     raise NotTimeShardableError;
+  ze. bench.py's graph (a looping source -> lowpass 2000 Hz, Q 2) -> a
+     PyTorch port of examples/worklet_bitcrusher.py's processor (bit_depth
+     ramped 16 -> 4 a-rate, frequency_reduction 0.5) -> destination, 10 s:
+     within 1e-5 x peak of the port's CPU render and 1e-6 x peak of a
+     per-sample numpy oracle on the worklet's recorded input, apart from
+     rounding-boundary flips (samples one quantization step apart whose
+     input lies within the inputs' difference of a boundary, counted);
+     the same graph as a 64-instance GraphBatch with a bit_depth ramp of
+     its own a lane (the worklet under torch.func.vmap), lanes 0, 31 and
+     63 within 1e-6 x peak of their own renders, flips apart; a
+     ScriptProcessorNode(4096, 2, 2) doubling its input after bench.py's
+     graph: the output equals the handler's input x2 delayed 8,192 frames
+     exactly, the input within 1e-5 x peak of the graph rendered alone;
+     the callbacks and ms a callback;
+  zf. start_rendering() of the slice graph with suspend(5.0), the filter's
+     frequency set to 500 Hz while suspended, resume(): bit-equal to the
+     same mutation through suspend_sync; profile_render's Chrome trace
+     holds CUDA kernel events; collect_diagnostics reports the block.
+
 Prints the measurements, a {"kernels": [...]} line (each kernel's launches
 on its path, error against its plain version, device time, the plain
 version's, the least time the card could take (`bound_ms`: the larger of
@@ -285,8 +329,10 @@ its share of that bound (for the curve and grain kernels, of their
 cold-L2 time: the bound reads every input from HBM) and one PyTorch call's
 time where one computes the same function; the curve kernel's row also
 carries S1-S8, the floor and its launches on the offline, voice,
-mastering and corpus paths; the dither kernel's its launches on the three
-corpus paths; the detector kernel's row its launches on the
+mastering and corpus paths; the curve kernel's row also its launches on the session and segment
+paths; the dither kernel's its launches on the three corpus paths and the
+session's bounce; the grain kernels' their launches in the 128-frame
+session; the detector kernel's row its launches on the
 seq-mode and default 5a paths, its plain version's host time, the latency
 floor of one sequential chain and the chunked path's time)
 and the card's name and power limit, then as
@@ -3554,6 +3600,560 @@ def phase_zb(wt, compiler, dither, kernels):
             "peak": peak, "busy": busy, "ops": ops}
 
 
+SESSION_QPB = 128            # 16,384-frame session steps
+SESSION_STEPS = 30           # 491,520 frames >= 10 s at 48 kHz
+SESSION_SAVE_AT = 15         # save after this step; restore and go on
+REVERB_STEPS = 27            # 442,368 frames >= 10 s at 44.1 kHz
+REVERB_SAVE_AT = 13
+CPU_PREFIX_STEPS = 6         # 98,304 frames >= the 2 s CPU prefix
+GRAIN_SESSION_SECONDS = 1.0
+GRAIN_SESSION_GRAINS = 64
+SEGMENTS = 8                 # render_time_sharded's segments on one card
+CRUSH_BATCH = 64
+CRUSH_FRED = 0.5             # frequency_reduction: exact in f32 sums
+SCRIPT_BUFFER = 4096
+
+
+def bench_context(wt, device, frames=FRAMES):
+    """bench.py's graph without its destination edge: a looping source of
+    the synthetic 2 s buffer -> lowpass 2000 Hz, Q 2.  Returns (ctx,
+    filt); the caller connects filt."""
+    ctx = wt.OfflineAudioContext(2, frames, FS, device=device)
+    src = ctx.create_buffer_source(loop=True)
+    src.buffer = wt.AudioBuffer.from_array(_bench_data(), FS)
+    src.start()
+    filt = ctx.create_biquad_filter(type="lowpass", frequency=2000.0, q=2.0)
+    src.connect(filt)
+    return ctx, filt
+
+
+def bitcrusher_processor(wt):
+    """A PyTorch port of examples/worklet_bitcrusher.py's processor (the
+    reference's examples/worklet_bitcrusher.rs): quantize to `bit_depth`
+    bits and sample-and-hold at the rate `frequency_reduction`, with a
+    cumsum for the phase and a cummax for the index of the latest trigger.
+    A class attribute `record`, when a list, receives each block's input
+    and bit depth (single-instance renders only)."""
+    from webaudio_tpu_torch.param import AudioParamDescriptor, AutomationRate
+
+    class BitCrusherProcessor(wt.AudioWorkletProcessor):
+        record = None
+
+        @classmethod
+        def parameter_descriptors(cls):
+            return [AudioParamDescriptor("bit_depth", AutomationRate.A,
+                                         12.0, 1.0, 16.0),
+                    AudioParamDescriptor("frequency_reduction",
+                                         AutomationRate.A, 0.5, 0.0, 1.0)]
+
+        def init_state(self, rc):
+            f32 = dict(dtype=torch.float32, device=rc.device)
+            return {"phase": torch.zeros((), **f32),
+                    "held": torch.zeros((max(1, rc.input_channel_counts[0]),),
+                                        **f32)}
+
+        def process(self, scope, state, inputs, params):
+            x = inputs[0]                                    # (C, B)
+            B = x.shape[1]
+            depth = torch.broadcast_to(params["bit_depth"], (B,))
+            fred = torch.broadcast_to(params["frequency_reduction"], (B,))
+            if self.record is not None:
+                self.record.append((x.clone(), depth.clone()))
+            step = torch.pow(0.5, depth)                     # quantum step
+            quant = step * torch.floor(x / step + 0.5)       # (C, B)
+            # phase accumulation with subtract-1-on-trigger == ceil
+            # arithmetic on the running sum
+            P = state["phase"] + torch.cumsum(fred, 0)
+            prev = torch.cat([state["phase"][None], P[:-1]])
+            trig = P > 1.0 + torch.clamp(torch.ceil(prev - 1.0), min=0.0)
+            phase_out = P[-1] - torch.clamp(torch.ceil(P[-1] - 1.0), min=0.0)
+            # sample-and-hold: the quantized value at the latest trigger
+            idx = torch.where(trig, torch.arange(B, device=x.device), -1)
+            last = torch.cummax(idx, 0).values
+            taken = quant.index_select(1, torch.clamp(last, min=0))
+            out = torch.where(last[None, :] >= 0, taken, state["held"][:, None])
+            return {"phase": phase_out, "held": out[:, -1]}, [out]
+
+    return BitCrusherProcessor
+
+
+def crusher_context(wt, device, frames=FRAMES, depth_end=4.0, proc=None):
+    """bench_context -> the bitcrusher worklet (bit_depth ramped a-rate
+    from 16 to `depth_end` over the render, frequency_reduction
+    CRUSH_FRED) -> destination.  Returns (ctx, crusher)."""
+    ctx, filt = bench_context(wt, device, frames)
+    crusher = ctx.create_audio_worklet(proc or bitcrusher_processor(wt))
+    crusher.parameters["bit_depth"].set_value_at_time(16.0, 0.0)
+    crusher.parameters["bit_depth"].linear_ramp_to_value_at_time(
+        depth_end, frames / FS)
+    crusher.parameters["frequency_reduction"].value = CRUSH_FRED
+    filt.connect(crusher)
+    crusher.connect(ctx.destination)
+    return ctx, crusher
+
+
+def crusher_oracle(x, depth, fred=CRUSH_FRED):
+    """The reference bitcrusher sample by sample in numpy f32: x (C, T)
+    the worklet's input, depth (T,) its bit depth.  The phase gains
+    `fred` a sample; when it passes 1 it drops by 1 and the held value
+    takes the sample quantized to 0.5 ** depth.  Returns (the output, each
+    sample's trigger sample, -1 before the first)."""
+    x = np.asarray(x, np.float32)
+    step = np.power(np.float32(0.5), np.asarray(depth, np.float32))
+    quant = step * np.floor(x / step + np.float32(0.5))
+    src = np.empty(x.shape[1], np.int64)
+    phase, last = 0.0, -1
+    for t in range(x.shape[1]):
+        phase += fred
+        if phase > 1.0:
+            phase -= 1.0
+            last = t
+        src[t] = last
+    out = np.where(src >= 0, quant[:, np.maximum(src, 0)], 0.0)
+    return out.astype(np.float32), src
+
+
+def crush_close(name, got, want, depth, rel, x, src, delta):
+    """A bitcrusher's output against another render or an oracle: every
+    sample within rel x peak, apart from rounding-boundary flips: samples
+    that differ by one quantization step (0.5 ** depth) and whose trigger
+    sample's input, x at src (the input of `want`), lies within `delta` of
+    a rounding boundary, where inputs that differ by up to `delta` may
+    round to neighbouring levels.  Returns (max error off the flips,
+    flips)."""
+    got = np.asarray(got, np.float64)
+    want = np.asarray(want, np.float64)
+    peak = float(np.abs(want).max())
+    diff = np.abs(got - want)
+    depth = np.asarray(depth, np.float64)
+    step = 0.5 ** depth[np.maximum(src, 0)]
+    v = np.asarray(x, np.float64)[:, np.maximum(src, 0)] / step + 0.5
+    near = (np.abs(v - np.round(v)) * step <= delta) & (src >= 0)
+    flips = (diff > rel * peak) & (np.abs(diff - step) <= 1e-2 * step) & near
+    err = float(np.where(flips, 0.0, diff).max())
+    n_flips = int(flips.sum())
+    ok = got.shape == want.shape and bool(np.isfinite(got).all()) and \
+        err <= rel * peak
+    print(f"{name}: max_abs_err {err:.3e} peak {peak:.6f} limit {rel:g} x "
+          f"peak, apart from {n_flips} rounding-boundary flips of one "
+          f"quantization step ({n_flips / diff.size:.2e} of the samples; "
+          f"their inputs within {delta:.2e} of a boundary) -> "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise AssertionError(f"{name}: {err} > {rel} x {peak}")
+    return err, n_flips
+
+
+def _session_steps(session, n_steps, kernels=()):
+    """`n_steps` session steps of its block on the card with every
+    kernel's count from 0: (each step's (C, frames) output on the card,
+    host ms, block-walk device ms and wall s per step, launches)."""
+    for k in kernels:
+        k.launches = 0
+    torch.cuda.synchronize()
+    chunks, host, walk, wall = [], [], [], []
+    for _ in range(n_steps):
+        t0 = time.perf_counter()
+        chunks.append(session.step_device(session.block_frames))
+        walk.append(session.walk_ms())       # waits for the step's walk
+        wall.append(time.perf_counter() - t0)
+        host.append(session.host_ms)
+    return chunks, host, walk, wall, {k.__name__: k.launches for k in kernels}
+
+
+def _resumed_session(wt, make, steps, save_at, tmp):
+    """A session of a fresh context from make(): `save_at` steps, saved;
+    a fresh context's session restored from it runs the remaining steps.
+    Returns (the restored session's output, the checkpoint's bytes)."""
+    first = wt.RenderSession(make(), quanta_per_block=SESSION_QPB)
+    for _ in range(save_at):
+        first.step_device(first.block_frames)
+    path = os.path.join(tmp, "session.npz")
+    first.save(path)
+    second = wt.RenderSession(make(), quanta_per_block=SESSION_QPB)
+    second.restore(path)
+    if second.frame != save_at * second.block_frames:
+        raise AssertionError(f"restored at frame {second.frame}")
+    out = torch.cat([second.step_device(second.block_frames)
+                     for _ in range(steps - save_at)], dim=-1)
+    return out, os.path.getsize(path)
+
+
+def _session_case(wt, label, make, make_cpu, steps, save_at, oneshot_frames,
+                  kernels, fs):
+    """A RenderSession of make()'s context on the card (steps of
+    SESSION_QPB quanta): resumed at `save_at` bit-equal, the CPU session's
+    2 s prefix at 1e-5 x peak, the one-shot render at 1e-4 x peak.
+    Returns (each step's output on the card, measurements)."""
+    import tempfile
+
+    session = wt.RenderSession(make(), quanta_per_block=SESSION_QPB)
+    chunks, host, walk, wall, launches = _session_steps(session, steps,
+                                                        kernels)
+    out = torch.cat(chunks, dim=-1)
+    cg = session._cg
+    print(f"{label}: {steps} steps of {session.block_frames} frames, plan "
+          f"block {cg.block_frames} ({session.block_frames // cg.block_frames}"
+          f" a step), dense rows {len(cg.dense_params)}; launched "
+          f"{launches}", flush=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        resumed, nbytes = _resumed_session(wt, make, steps, save_at, tmp)
+    tail = out[:, save_at * session.block_frames:]
+    if not torch.equal(resumed, tail):
+        err = float((resumed - tail).abs().max())
+        raise AssertionError(f"{label}: the restored session differs from "
+                             f"the uninterrupted one by {err}")
+    print(f"{label}: saved after step {save_at} ({nbytes} bytes), restored "
+          f"into a fresh context: steps {save_at + 1}-{steps} bit-equal to "
+          "the uninterrupted session", flush=True)
+    host_out = _host(out)
+    cpu = wt.RenderSession(make_cpu(), quanta_per_block=SESSION_QPB)
+    want = np.concatenate([cpu.step(cpu.block_frames)
+                           for _ in range(CPU_PREFIX_STEPS)], axis=1)
+    n = min(int(2.0 * fs), want.shape[1])
+    err_cpu = _check_close(f"{label}: first 2 s vs the port's CPU session",
+                           host_out[:, :n], want[:, :n], 1e-5)
+    one = make().start_rendering_sync().to_array()
+    err_one = _check_close(f"{label}: vs the one-shot start_rendering_sync",
+                           host_out[:, :oneshot_frames], one, 1e-4)
+    step_s = session.block_frames / fs
+    med_host, med_walk = statistics.median(host[1:]), statistics.median(walk[1:])
+    med_wall = statistics.median(wall[1:])
+    total = sum(wall)
+    print(f"{label}: per step (median of steps 2-{steps}; step 1 in "
+          f"brackets) host {med_host:.3f} ms [{host[0]:.3f}] (dense rows and "
+          f"timelines), block walk {med_walk:.3f} ms [{walk[0]:.3f}] device "
+          f"time, wall {1000 * med_wall:.3f} ms [{1000 * wall[0]:.3f}] -> "
+          f"realtime factor {step_s / med_wall:.1f}x a step, "
+          f"{steps * step_s / total:.1f}x over the {steps} steps "
+          f"({total:.3f} s); checkpoint {nbytes} bytes", flush=True)
+    return chunks, {"launches": launches, "host_ms": med_host,
+                    "walk_ms": med_walk, "step_wall_ms": 1000 * med_wall,
+                    "first_step_ms": 1000 * wall[0], "wall_s": total,
+                    "realtime_step": step_s / med_wall,
+                    "realtime": steps * step_s / total, "ckpt_bytes": nbytes,
+                    "err_cpu": err_cpu, "err_oneshot": err_one}
+
+
+def phase_zc(wt, ck, gr, dither, fusion, kernels):
+    """RenderSession at full width: the slice graph (K1 once a step, K5
+    bouncing its chunks), config 3 (steps clamped by the cycle) and the
+    64-grain session in 128-frame blocks (R5).  Returns the
+    measurements."""
+    from webaudio_tpu_torch.nodes import waveshaper
+
+    res = {}
+    label = "zc. RenderSession, slice graph 10 s 48 kHz"
+    with _recording(waveshaper, "curve_lookup") as shaped:
+        chunks, res["slice"] = _session_case(
+            wt, label, lambda: slice_context(wt, "cuda", _bench_data(), FS),
+            lambda: slice_context(wt, "cpu", _bench_data(), FS),
+            SESSION_STEPS, SESSION_SAVE_AT, FRAMES, kernels, FS)
+    k1 = res["slice"]["launches"]["curve_lookup"]
+    if k1 != SESSION_STEPS or len(shaped) < SESSION_STEPS:
+        raise AssertionError(f"{label}: K1 launched {k1} times in "
+                             f"{SESSION_STEPS} steps")
+    curve, x = shaped[0]
+    res["k1_err"] = _curve_equal(f"{label}: K1's first launch",
+                                 ck.curve_lookup(curve, x),
+                                 ck.curve_lookup_reference(curve, x))
+    print(f"{label}: K1 launched once a step, its launch {tuple(x.shape)} "
+          "bit-equal to its plain version", flush=True)
+    dither.dither_i16.launches = 0
+    for i, chunk in enumerate(chunks):
+        codes = dither.dither_i16(chunk, SEED + i)
+        if not torch.equal(codes, dither.dither_i16_reference(chunk,
+                                                              SEED + i)):
+            raise AssertionError(f"{label}: K5 differs from the plain "
+                                 f"dither on chunk {i}")
+    res["k5_launches"] = dither.dither_i16.launches
+    print(f"{label}: K5 bounced the {len(chunks)} chunks "
+          f"({res['k5_launches']} launches), each equal to the plain "
+          "dither", flush=True)
+    del chunks
+
+    label = "zc. RenderSession, config 3 10 s 44.1 kHz"
+    _, res["reverb"] = _session_case(
+        wt, label, lambda: reverb_context(wt, "cuda")[0],
+        lambda: reverb_context(wt, "cpu")[0], REVERB_STEPS, REVERB_SAVE_AT,
+        REVERB_FRAMES, kernels, REVERB_FS)
+
+    # R5: 128-frame blocks through the grain bank
+    label = (f"zc. RenderSession(quanta_per_block=1), "
+             f"{GRAIN_SESSION_GRAINS} grains {GRAIN_SESSION_SECONDS:g} s")
+    steps = -(-int(GRAIN_FS * GRAIN_SESSION_SECONDS) // (SESSION_QPB * 128))
+
+    def grains(device):
+        return granular_context(wt, device, GRAIN_SESSION_GRAINS,
+                                GRAIN_SESSION_SECONDS)
+
+    outs = {}
+    with _grain_read(None), _recording(fusion, "grain_bank") as banked, \
+            _recording(fusion, "grouped_lerp") as lerped:
+        for device in ("cuda", "cpu"):
+            s = wt.RenderSession(grains(device), quanta_per_block=1)
+            for k in kernels:
+                k.launches = 0
+            outs[device] = np.concatenate(
+                [s.step(SESSION_QPB * 128) for _ in range(steps)], axis=1)
+            if device == "cuda":
+                (fk,) = [k for k in s._cg.kernels.values()
+                         if type(k).__name__ == "_FusedVoicesKernel"]
+                glaunch = {k.__name__: k.launches for k in kernels}
+                calls = list(banked if fk.read_mode == "fused" else lerped)
+    print(f"{label}: plan block {s._cg.block_frames}, read mode "
+          f"{fk.read_mode}, lanes {fk.use_lanes}; launched {glaunch}",
+          flush=True)
+    kern = gr.grain_bank if fk.read_mode == "fused" else gr.grouped_lerp
+    ref = gr.grain_bank_reference if fk.read_mode == "fused" else \
+        gr.grouped_lerp_reference
+    if glaunch[kern.__name__] < 1 or not calls:
+        raise AssertionError(f"{label}: {kern.__name__} did not launch")
+    cuda_args = [a for a in calls if any(isinstance(t, torch.Tensor)
+                                         and t.is_cuda for t in a)]
+    res["grain_err"] = {kern.__name__: max(
+        _equal(f"{label}: {kern.__name__} launch {i}", kern(*a), ref(*a))
+        for i, a in enumerate(cuda_args[:3]))}
+    err = float(np.abs(outs["cuda"] - outs["cpu"]).max())
+    energy = float(np.sum((outs["cuda"] - outs["cpu"]) ** 2.0))
+    ok = err <= 3e-5 and energy <= 1e-9 * float(np.sum(outs["cpu"] ** 2.0))
+    print(f"{label}: card vs CPU session max_abs_err {err:.3e} (limit 3e-5, "
+          f"the granular bound), error energy {energy:.3e} -> "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    if not ok or np.abs(outs["cpu"]).max() < 0.05:
+        raise AssertionError(f"{label}: {err} > 3e-5 or silent")
+    res["grain"] = {"read_mode": fk.read_mode, "launches": glaunch,
+                    "err": err}
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_zd(wt, compiler, ck, kernels):
+    """render_time_sharded on one card: the slice graph in SEGMENTS
+    segments against the sequential render; config 3 and 5a refuse."""
+    from webaudio_tpu_torch.parallel import segments
+
+    label = f"zd. render_time_sharded, slice graph 10 s, {SEGMENTS} segments"
+    devices = ["cuda"] * SEGMENTS
+    ctx = slice_context(wt, "cuda", _bench_data(), FS)
+    qpb = max(1, min(-(-FRAMES // 128) // (SEGMENTS * 4) or 1, 128))
+    cg = compiler.compile_graph(dict(ctx._nodes), list(ctx._edges), FS,
+                                FRAMES, ctx._destination.node_id, "cuda",
+                                quanta_per_block=qpb)
+    halo = segments.halo_frames(cg)
+    halo_blocks, nb_net, starts = segments.segment_plan(
+        FRAMES, SEGMENTS, cg.block_frames, halo)
+    print(f"{label}: block {cg.block_frames} frames, halo {halo} frames -> "
+          f"{halo_blocks} block(s) a segment, {nb_net} net blocks a "
+          f"segment, segment starts {starts[:, halo_blocks].tolist()}",
+          flush=True)
+    for k in kernels:
+        k.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = segments.render_time_sharded(ctx, devices=devices)
+    wall = time.perf_counter() - t0
+    launches = {k.__name__: k.launches for k in kernels}
+    per_segment = starts.shape[1]
+    if launches["curve_lookup"] != SEGMENTS * per_segment:
+        raise AssertionError(f"{label}: K1 launched {launches} times, not "
+                             f"once a block in every segment")
+    seq_ctx = slice_context(wt, "cuda", _bench_data(), FS)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    seq = seq_ctx.start_rendering_sync().to_array()
+    seq_wall = time.perf_counter() - t0
+    err = _check_close(f"{label}: vs the sequential render", got, seq, 5e-5)
+    print(f"{label}: launched {launches} (K1 once a block, "
+          f"{per_segment} blocks in each of {SEGMENTS} segments); wall "
+          f"{wall:.3f} s against {seq_wall:.3f} s sequential (segments run "
+          "in turn on one card)", flush=True)
+    for name, make in (("config 3", lambda: reverb_context(wt, "cuda")[0]),
+                       ("5a", lambda: mastering_context(wt, "cuda")[0])):
+        try:
+            segments.render_time_sharded(make(), devices=devices)
+        except segments.NotTimeShardableError as exc:
+            print(f"zd. {name} refuses: NotTimeShardableError: {exc}",
+                  flush=True)
+        else:
+            raise AssertionError(f"zd. {name} did not refuse")
+    torch.cuda.empty_cache()
+    return {"launches": launches, "err": err, "wall_s": wall,
+            "seq_wall_s": seq_wall, "halo": halo}
+
+
+def phase_ze(wt, kernels):
+    """User code at full width: the bitcrusher worklet after bench.py's
+    graph (against the CPU render and a per-sample numpy oracle on its
+    input), the same as a CRUSH_BATCH-instance GraphBatch, and a
+    ScriptProcessorNode passthrough x2."""
+    label = "ze. bench graph -> bitcrusher worklet, 10 s 48 kHz"
+    proc = bitcrusher_processor(wt)
+
+    def recorded(depth_end, device="cuda"):
+        """A single render of the crusher graph with its worklet's input
+        and bit depth recorded: (output, input, depth)."""
+        proc.record = []
+        ctx, _ = crusher_context(wt, device, depth_end=depth_end, proc=proc)
+        out, launches = _main_path(ctx, kernels)
+        rec, proc.record = proc.record, None
+        x = np.concatenate([_host(r[0]) for r in rec], axis=1)[:, :FRAMES]
+        d = np.concatenate([_host(r[1]) for r in rec])[:FRAMES]
+        return out, x, d, launches, ctx
+
+    out, x, d, launches, ctx = recorded(4.0)
+    print(f"{label}: segments {ctx.render_stats['segments']}, launched "
+          f"{launches}", flush=True)
+    want, src = crusher_oracle(x, d)
+    cpu, cx, _, _, _ = recorded(4.0, "cpu")
+    peak_in = float(np.abs(x).max())
+    err_cpu, flips_cpu = crush_close(
+        f"{label}: vs the port's CPU render", out, cpu, d, 1e-5, cx, src,
+        1e-5 * peak_in)
+    err_or, flips_or = crush_close(
+        f"{label}: vs a per-sample numpy oracle on the worklet's input",
+        out, want, d, 1e-6, x, src, 1e-6 * peak_in)
+    e2e = _render_ms(label, lambda: crusher_context(wt, "cuda")[0], SECONDS)
+
+    blabel = f"ze. the same as a {CRUSH_BATCH}-instance GraphBatch"
+    ends = 4.0 + 8.0 * np.arange(CRUSH_BATCH) / (CRUSH_BATCH - 1)
+    rows = np.stack([crusher_context(wt, "cpu", depth_end=e)[1]
+                     .parameters["bit_depth"].compile_for_render(
+                         FS, FRAMES).dense for e in ends])
+    bctx, bcrusher = crusher_context(wt, "cuda")
+    gb = wt.GraphBatch(bctx, batch=CRUSH_BATCH)
+    gb.override_param(bcrusher, "bit_depth", rows)
+    host = _host(gb.render())[..., :FRAMES]
+    (wk,) = [k for k in gb.cg.kernels.values()
+             if type(k).__name__ == "_WorkletKernel"]
+    print(f"{blabel}: plan block_frames {gb.cg.block_frames}, the worklet "
+          f"ran {'under torch.func.vmap' if wk.vmap_ok else 'per instance'}",
+          flush=True)
+    for i in (0, CRUSH_BATCH // 2 - 1, CRUSH_BATCH - 1):
+        own, ox, od, _, _ = recorded(ends[i])
+        crush_close(f"{blabel}: lane {i} vs its own render on the card",
+                    host[i], own, od, 1e-6, ox, src, 1e-6 * peak_in)
+    b_ms = _median_events_ms(gb.render)
+    print(f"{blabel}: staged render median {b_ms:.3f} ms -> "
+          f"{CRUSH_BATCH * SECONDS * 1000.0 / b_ms:.1f} instance-audio-s "
+          "per wall s", flush=True)
+    del gb, host
+
+    slabel = (f"ze. ScriptProcessorNode({SCRIPT_BUFFER}, 2, 2) passthrough "
+              "x2 after bench.py's graph, 10 s")
+    seen, times = [], []
+
+    def handler(ev):
+        seen.append(np.array(ev.input_buffer))
+        ev.output_buffer[:] = ev.input_buffer * 2.0
+
+    from webaudio_tpu_torch.nodes import script_processor as spn
+
+    def timed(self, chunk, frame):
+        t0 = time.perf_counter()
+        r = orig(self, chunk, frame)
+        times.append(time.perf_counter() - t0)
+        return r
+
+    sctx, filt = bench_context(wt, "cuda")
+    sp = sctx.create_script_processor(SCRIPT_BUFFER, 2, 2)
+    sp.set_onaudioprocess(handler)
+    filt.connect(sp)
+    sp.connect(sctx.destination)
+    orig = spn._ScriptProcessorKernel._host_process
+    spn._ScriptProcessorKernel._host_process = timed
+    try:
+        t0 = time.perf_counter()
+        sout = sctx.start_rendering_sync().to_array()
+        s_wall = time.perf_counter() - t0
+    finally:
+        spn._ScriptProcessorKernel._host_process = orig
+    lag = 2 * SCRIPT_BUFFER
+    inp = np.concatenate(seen, axis=1)
+    if np.any(sout[:, :lag]) or not np.array_equal(
+            sout[:, lag:], 2.0 * inp[:, :FRAMES - lag]):
+        raise AssertionError(f"{slabel}: the output is not the input x2 "
+                             f"delayed {lag} frames")
+    pctx, pfilt = bench_context(wt, "cuda")
+    pfilt.connect(pctx.destination)
+    plain = pctx.start_rendering_sync().to_array()
+    _check_close(f"{slabel}: its input vs bench.py's graph rendered alone",
+                 inp[:, :FRAMES], plain, 1e-5)
+    cb_ms = 1000.0 * statistics.mean(times)
+    print(f"{slabel}: plan block {sctx.render_stats['segments']}; the "
+          f"output equals the input x2 delayed {lag} frames exactly; "
+          f"{len(seen)} callbacks, {cb_ms:.3f} ms a callback (device->host "
+          f"copy, handler, upload), render {s_wall:.3f} s -> realtime "
+          f"factor {SECONDS / s_wall:.1f}x", flush=True)
+    torch.cuda.empty_cache()
+    return {"launches": launches, "err_cpu": err_cpu, "flips_cpu": flips_cpu,
+            "err_oracle": err_or, "flips_oracle": flips_or, "e2e_ms": e2e,
+            "batch_ms": b_ms, "callbacks": len(seen), "callback_ms": cb_ms}
+
+
+def phase_zf(wt, kernels):
+    """start_rendering with suspend(5.0)/resume and a mutation while
+    suspended, against suspend_sync; profile_render and
+    collect_diagnostics."""
+    import json as _json
+    import tempfile
+
+    from webaudio_tpu_torch.diagnostics import (collect_diagnostics,
+                                                 profile_render)
+
+    label = "zf. start_rendering + suspend(5.0)/resume, slice graph 10 s"
+
+    def filt_of(ctx):
+        (f,) = [n for n in ctx._nodes.values()
+                if type(n).__name__ == "BiquadFilterNode"]
+        return f
+
+    ctx = slice_context(wt, "cuda", _bench_data(), FS)
+    for k in kernels:
+        k.launches = 0
+    reached = ctx.suspend(SECONDS / 2.0)
+    fut = ctx.start_rendering()
+    reached.result(timeout=300)
+    if ctx.state.value != "suspended" or fut.done():
+        raise AssertionError(f"{label}: not parked at the suspend")
+    filt_of(ctx).frequency.value = 500.0
+    ctx.resume().result(timeout=10)
+    got = fut.result(timeout=300).to_array()
+    launches = {k.__name__: k.launches for k in kernels}
+    sync = slice_context(wt, "cuda", _bench_data(), FS)
+    sync.suspend_sync(SECONDS / 2.0, lambda c: setattr(filt_of(c).frequency, "value",
+                                             500.0))
+    want = sync.start_rendering_sync().to_array()
+    if not np.array_equal(got, want):
+        raise AssertionError(f"{label}: differs from the suspend_sync "
+                             f"render by {np.abs(got - want).max()}")
+    print(f"{label}: launched {launches}; bit-equal to the same mutation "
+          f"through suspend_sync (segments' blocks "
+          f"{[s['block_frames'] for s in ctx.render_stats['segments']]})",
+          flush=True)
+
+    plabel = "zf. profile_render of the 10 s slice"
+    with tempfile.TemporaryDirectory() as tmp:
+        pctx = slice_context(wt, "cuda", _bench_data(), FS)
+        with profile_render(tmp) as prof:
+            pctx.start_rendering_sync()
+        with open(prof.path) as f:
+            events = _json.load(f)["traceEvents"]
+    kern = [e for e in events if e.get("cat") == "kernel"]
+    names = sorted({e["name"] for e in kern if "curve" in e["name"]})
+    if not kern:
+        raise AssertionError(f"{plabel}: the trace holds no CUDA kernel")
+    diag = collect_diagnostics(pctx)
+    block = diag["compiled"]["block_frames"]
+    if block != pctx.render_stats["segments"][-1]["block_frames"]:
+        raise AssertionError(f"{plabel}: diagnostics report block {block}")
+    print(f"{plabel}: the Chrome trace holds {len(kern)} CUDA kernel "
+          f"events ({names}); collect_diagnostics: block_frames {block}, "
+          f"{len(diag['graph']['nodes'])} nodes, fusion "
+          f"{diag['fusion']}", flush=True)
+    return {"launches": launches, "trace_kernels": len(kern)}
+
+
 def _ptxas_build(cuda_lib, name, source):
     """nvcc `source` with the port's flags and `-Xptxas -v` into the
     git-ignored build directory; returns the loaded library and ptxas's
@@ -3723,6 +4323,13 @@ def main() -> int:
     phase_za(wt, compiler, every)
     zb = phase_zb(wt, compiler, dither, every)
 
+    # sessions, segments, futures and user code, zc-zf: each main path counts
+    # every kernel's launches from 0
+    zc = phase_zc(wt, ck, gr, dither, fusion, every)
+    zd = phase_zd(wt, compiler, ck, every)
+    phase_ze(wt, every)
+    phase_zf(wt, every)
+
     n_q = QUANT_SHAPE[0] * QUANT_SHAPE[1]
     k5_bound = _bound(n_q * 6, 25 * n_q)
     k6_bound = _bound(n_q * 5, 50 * n_q)
@@ -3748,7 +4355,9 @@ def main() -> int:
          "launches_voice_path": voice_launches,
          "launches_mastering_path": t5a["launches"]["curve_lookup"],
          "launches_corpus_path": u5b["launches"]["curve_lookup"],
-         "max_abs_err": max(max_err, s7_err),
+         "launches_session_path": zc["slice"]["launches"]["curve_lookup"],
+         "launches_segments_path": zd["launches"]["curve_lookup"],
+         "max_abs_err": max(max_err, s7_err, zc["k1_err"]),
          **{k: v for k, v in k1["S1"].items() if k != "plan"},
          "library_ms": k1_lib_ms, "library_max_abs_err": k1_lib_err,
          "floor_ms": k1["floor_ms"],
@@ -3762,6 +4371,7 @@ def main() -> int:
          "launches_corpus_path": u5b["launches"]["dither_i16"],
          "launches_reverb_corpus_path": y["launches"]["dither_i16"],
          "launches_binaural_corpus_path": zb["launches"]["dither_i16"],
+         "launches_session_path": zc["k5_launches"],
          "max_abs_err": q_err[0],
          "ms": times["dither_i16"][0], "plain_ms": times["dither_i16"][1],
          "bound_ms": k5_bound[0], "bound_by": k5_bound[1],
@@ -3778,7 +4388,9 @@ def main() -> int:
          "replaces": "webaudio_tpu/ops/grain_read.py:634",
          "launches": l400["launches"]["grain_bank"],
          "launches_800_grains": l800["launches"]["grain_bank"],
-         "max_abs_err": grain_err["grain_bank"],
+         "launches_128_frame_session": zc["grain"]["launches"]["grain_bank"],
+         "max_abs_err": max(grain_err["grain_bank"],
+                            zc["grain_err"].get("grain_bank", 0.0)),
          **grain(k2, {"library_ms": None})},
         {"name": "grouped_lerp", "route": "cuda",
          "source": "webaudio_tpu_torch/csrc/grain_read.cu",
@@ -3786,7 +4398,10 @@ def main() -> int:
          "also_replaces": ["webaudio_tpu/ops/grain_read.py:297"],
          "launches": l400["launches"]["grouped_lerp"],
          "launches_800_grains": l800["launches"]["grouped_lerp"],
-         "max_abs_err": grain_err["grouped_lerp"],
+         "launches_128_frame_session":
+             zc["grain"]["launches"]["grouped_lerp"],
+         "max_abs_err": max(grain_err["grouped_lerp"],
+                            zc["grain_err"].get("grouped_lerp", 0.0)),
          **grain(k3, {"library_ms": k3["library_ms"],
                       "library_max_abs_err": k3["library_err"]})},
         {"name": "grouped_lerp (window geometry)", "route": "cuda",

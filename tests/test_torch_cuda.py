@@ -1041,3 +1041,135 @@ def test_binaural_batch_on_the_card_repeats_and_matches_own_renders(cuda):
     np.testing.assert_array_equal(first, gb.render().cpu().numpy()[..., :n])
     for i in range(3):
         _close(first[i], build(i)[0].start_rendering_sync().to_array(), 1e-6)
+
+
+# --- sessions, segments, futures and user code on the card ------------------
+
+@pytest.mark.parametrize("graph", ["slice", "reverb"])
+def test_session_save_and_restore_bit_equal_on_the_card(cuda, graph,
+                                                        tmp_path):
+    """A RenderSession saved mid-render and restored into a fresh context
+    continues bit-equal to the uninterrupted session on the card; the card's
+    session is within 1e-5 x peak of the CPU's."""
+    def make(device):
+        return _slice(device, 65536) if graph == "slice" else \
+            _reverb(device, 1.5)
+
+    def steps(s, n):
+        return np.concatenate([s.step(16384) for _ in range(n)], axis=1)
+
+    whole = steps(wt.RenderSession(make(cuda)), 4)
+    s = wt.RenderSession(make(cuda))
+    steps(s, 2)
+    path = str(tmp_path / "s.npz")
+    s.save(path)
+    r = wt.RenderSession(make(cuda))
+    r.restore(path)
+    np.testing.assert_array_equal(steps(r, 2), whole[:, 32768:])
+    want = steps(wt.RenderSession(make("cpu")), 4)
+    np.testing.assert_allclose(whole, want, atol=1e-5 * np.abs(want).max())
+
+
+def test_time_sharded_on_the_card_matches_sequential(cuda):
+    """8 segments in turn on the card against the sequential render
+    (tests/test_segments.py's bound), K1 once a block in each."""
+    from webaudio_tpu_torch.parallel.segments import render_time_sharded
+
+    seq = _slice(cuda, 96000).start_rendering_sync().to_array()
+    before = ck.curve_lookup.launches
+    got = render_time_sharded(_slice(cuda, 96000), devices=[cuda] * 8)
+    assert ck.curve_lookup.launches - before >= 8
+    np.testing.assert_allclose(got, seq, atol=5e-5 * np.abs(seq).max())
+
+
+def _worklet_graph(device, frames=96000):
+    class Crush(wt.AudioWorkletProcessor):
+        @classmethod
+        def parameter_descriptors(cls):
+            return [wt.AudioParamDescriptor("bits", wt.AutomationRate.A,
+                                            8.0, 1.0, 16.0)]
+
+        def init_state(self, rc):
+            return {"n": torch.zeros((), dtype=torch.int64,
+                                     device=rc.device)}
+
+        def process(self, scope, state, inputs, params):
+            steps = torch.pow(2.0, torch.floor(params["bits"]))
+            return ({"n": state["n"] + scope.frames},
+                    [torch.round(inputs[0] * steps) / steps])
+
+    ctx = wt.OfflineAudioContext(2, frames, 48000.0, device=device)
+    src = ctx.create_buffer_source(loop=True)
+    src.buffer = wt.AudioBuffer.from_array(
+        np.sin(np.arange(2 * 48000) * 0.03, dtype=np.float32)[None]
+        .repeat(2, 0), 48000.0)
+    src.start()
+    node = ctx.create_audio_worklet(Crush)
+    node.parameters["bits"].set_value_at_time(12.0, 0.0)
+    node.parameters["bits"].linear_ramp_to_value_at_time(3.0,
+                                                         frames / 48000.0)
+    src.connect(node)
+    node.connect(ctx.destination)
+    return ctx, node
+
+
+def test_worklet_on_the_card_matches_cpu(cuda):
+    """A worklet processor (a looping buffer read exactly, integer bit
+    depths, so both devices quantize the same values) renders on the card
+    as on the CPU, alone and as lanes of a batch under vmap."""
+    got = _worklet_graph(cuda)[0].start_rendering_sync().to_array()
+    want = _worklet_graph("cpu")[0].start_rendering_sync().to_array()
+    np.testing.assert_array_equal(got, want)
+    ctx, node = _worklet_graph(cuda)
+    gb = wt.GraphBatch(ctx, batch=4)
+    out = gb.render().cpu().numpy()[..., :96000]
+    (wk,) = [k for k in gb.cg.kernels.values()
+             if type(k).__name__ == "_WorkletKernel"]
+    assert wk.vmap_ok
+    for i in range(4):
+        np.testing.assert_array_equal(out[i], want)
+
+
+def test_script_processor_latency_on_the_card(cuda):
+    """The handler's input comes back x2, delayed by exactly two buffers."""
+    seen = []
+
+    def handler(ev):
+        seen.append(np.array(ev.input_buffer))
+        ev.output_buffer[:] = ev.input_buffer * 2.0
+
+    ctx = _slice(cuda, 48000)
+    shaper = [n for n in ctx._nodes.values()
+              if type(n).__name__ == "WaveShaperNode"][0]
+    shaper.disconnect()
+    sp = ctx.create_script_processor(1024, 2, 2)
+    sp.set_onaudioprocess(handler)
+    shaper.connect(sp)
+    sp.connect(ctx.destination)
+    out = ctx.start_rendering_sync().to_array()
+    inp = np.concatenate(seen, axis=1)
+    np.testing.assert_array_equal(out[:, :2048], 0.0)
+    np.testing.assert_array_equal(out[:, 2048:], 2.0 * inp[:, :48000 - 2048])
+    assert np.abs(out).max() > 0.5
+
+
+def test_start_rendering_future_with_suspend_and_resume_on_the_card(cuda):
+    """start_rendering() renders on its own thread on the card; suspend(t)
+    parks it until resume(), and a mutation made meanwhile renders as the
+    same mutation through suspend_sync."""
+    def filt_of(ctx):
+        return [n for n in ctx._nodes.values()
+                if type(n).__name__ == "BiquadFilterNode"][0]
+
+    ctx = _slice(cuda, 96000)
+    reached = ctx.suspend(1.0)
+    fut = ctx.start_rendering()
+    reached.result(timeout=120)
+    assert ctx.state.value == "suspended" and not fut.done()
+    filt_of(ctx).frequency.value = 500.0
+    ctx.resume().result(timeout=10)
+    got = fut.result(timeout=120).to_array()
+    sync = _slice(cuda, 96000)
+    sync.suspend_sync(1.0, lambda c: setattr(filt_of(c).frequency, "value",
+                                             500.0))
+    np.testing.assert_array_equal(got, sync.start_rendering_sync().to_array())

@@ -330,7 +330,24 @@ def test_processor_error_is_isolated_like_jax(monkeypatch):
 def test_unported_parts_raise_not_supported():
     ctx = _context(wt, 1, 1024)
     with pytest.raises(wt.NotSupportedError):
-        ctx.create_script_processor()
+        ctx.decode_audio_data_sync("clip.wav")
+
+    # a script processor, refused until the user-code nodes were ported,
+    # renders as JAX's
+    rendered = []
+    for mod in (wt, wa):
+        ctx = _context(mod, 1, 2048)
+        src = ctx.create_constant_source(offset=0.25)
+        sp = ctx.create_script_processor(256, 1, 1)
+        sp.set_onaudioprocess(
+            lambda ev: ev.output_buffer.__setitem__(
+                slice(None), ev.input_buffer * 2.0))
+        src.connect(sp)
+        sp.connect(ctx.destination)
+        src.start()
+        rendered.append(ctx.start_rendering_sync().to_array())
+    assert rendered[1][0, -1] == 0.5
+    np.testing.assert_array_equal(*rendered)
 
     # an oversampled shaper, refused until its resamplers were ported,
     # renders as JAX's
@@ -409,10 +426,12 @@ def test_every_jax_context_name_works_or_is_refused():
     the port: a factory or method that is ported builds or runs, one that
     is not raises NotSupportedError (never AttributeError); the `listener`
     attribute is the AudioListener."""
-    refused = {"create_audio_param", "start_rendering", "suspend",
-               "resume", "create_audio_worklet", "create_script_processor",
-               "decode_audio_data", "decode_audio_data_sync"}
+    refused = {"decode_audio_data", "decode_audio_data_sync"}
     calls = {"create_buffer": (1, 16, FS), "create_oscillator_bank": ([220.0],),
+             "create_audio_param": (wt.AudioParamDescriptor(
+                 "p", wt.AutomationRate.A, 0.0, -1.0, 1.0),),
+             "create_audio_worklet": (wt.AudioWorkletProcessor,),
+             "suspend": (0.01,),
              "create_iir_filter": ([1.0], [1.0]),
              "set_oncomplete": (lambda ev: None,),
              "oncomplete": (lambda ev: None,),
@@ -428,7 +447,13 @@ def test_every_jax_context_name_works_or_is_refused():
                 attr()
             continue
         attr = getattr(ctx, name)
-        if callable(attr):
+        if name == "resume":
+            # nothing is suspended
+            with pytest.raises(wt.InvalidStateError):
+                attr()
+        elif name == "start_rendering":
+            assert attr().result(timeout=60).length == 1024
+        elif callable(attr):
             attr(*calls.get(name, ()))
     ctx = _context(wt, 1, 1024)
     ctx.create_oscillator().connect(ctx.destination)

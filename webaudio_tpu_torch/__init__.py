@@ -17,10 +17,13 @@ A port of `webaudio_tpu` (JAX) to PyTorch, for NVIDIA Hopper GPUs:
 
 The public API mirrors the JAX package: `OfflineAudioContext(channels,
 length, sample_rate, device="cuda")`, the `create_*` factories, `connect`,
-`start`, AudioParam automation, `suspend_sync` and `start_rendering_sync`;
+`start`, AudioParam automation, `suspend_sync` and `start_rendering_sync`
+(or `start_rendering`, `suspend` and `resume` as futures);
 `GraphBatch` and `MixedGraphBatch` render many graphs in one block walk,
-with dithered int16 and u-law bounces on the device.  This package never
-imports `jax` or `webaudio_tpu`.
+with dithered int16 and u-law bounces on the device; `RenderSession`
+renders in resumable steps with checkpoints, `render_time_sharded` in
+time segments, and `AudioWorkletNode` / `ScriptProcessorNode` run user
+code.  This package never imports `jax` or `webaudio_tpu`.
 """
 
 from .constants import (  # noqa: F401
@@ -37,3 +40,23 @@ from .context.offline import OfflineAudioContext  # noqa: F401
 from .parallel.batch import GraphBatch, MixedGraphBatch  # noqa: F401
 
 __version__ = "0.1.0"
+
+_LAZY = {
+    "AudioWorkletNode": ("webaudio_tpu_torch.worklet", "AudioWorkletNode"),
+    "AudioWorkletProcessor": ("webaudio_tpu_torch.worklet",
+                              "AudioWorkletProcessor"),
+    "MessagePort": ("webaudio_tpu_torch.worklet", "MessagePort"),
+    "render_time_sharded": ("webaudio_tpu_torch.parallel.segments",
+                            "render_time_sharded"),
+    "RenderSession": ("webaudio_tpu_torch.checkpoint", "RenderSession"),
+}
+
+
+def __getattr__(name):
+    # lazy imports for the session, segment and user-code modules
+    if name in _LAZY:
+        import importlib
+
+        mod, attr = _LAZY[name]
+        return getattr(importlib.import_module(mod), attr)
+    raise AttributeError(name)

@@ -6,8 +6,8 @@ The control side *is* the graph IR here; the compiler snapshots `_nodes` /
 `_edges` when it plans a render.  Ported from
 `webaudio_tpu/context/base.py`.  The context carries the torch device that
 every render of its graph runs on (the card unless the caller names
-another).  Factories of nodes that are not ported yet, and the other JAX
-surface the port lacks (`create_audio_param`), raise `NotSupportedError`.
+another).  Decoding (`decode_audio_data`, `decode_audio_data_sync`) waits
+for the port of media I/O and raises `NotSupportedError`.
 """
 
 from __future__ import annotations
@@ -42,6 +42,8 @@ class BaseAudioContext:
         self._next_id = 0
         self._state = AudioContextState.SUSPENDED
         self._current_time = 0.0
+        self._graph_version = 0      # structural changes (re-plan needed)
+        self._param_version = 0      # automation-only changes
         self._destination = None
         self._listener = None
         self._event_handlers: dict[str, list[Callable]] = {}
@@ -51,17 +53,20 @@ class BaseAudioContext:
         nid = self._next_id
         self._next_id += 1
         self._nodes[nid] = node
+        self._invalidate_graph_cache()
         return nid
 
     def _connect(self, src: int, src_output: int, dst: int, dst_input: int):
         e = Edge(src, src_output, dst, dst_input)
         if e not in self._edges:
             self._edges.append(e)
+        self._invalidate_graph_cache()
 
     def _connect_param(self, src: int, src_output: int, dst: int, param: str):
         e = Edge(src, src_output, dst, -1, param)
         if e not in self._edges:
             self._edges.append(e)
+        self._invalidate_graph_cache()
 
     def _disconnect(self, src: int, output: Optional[int],
                     dst: Optional[int], input: Optional[int]):
@@ -79,6 +84,7 @@ class BaseAudioContext:
         kept = [e for e in self._edges if keep(e)]
         removed = len(kept) != len(self._edges)
         self._edges = kept
+        self._invalidate_graph_cache()
         return removed
 
     def _disconnect_param(self, src: int, output: Optional[int],
@@ -89,7 +95,17 @@ class BaseAudioContext:
                     and (output is None or e.src_output == output))]
         removed = len(kept) != len(self._edges)
         self._edges = kept
+        self._invalidate_graph_cache()
         return removed
+
+    def _invalidate_graph_cache(self):
+        self._graph_version += 1
+
+    def _invalidate_param_cache(self):
+        # automation changes leave the plan's structure as it is: offline
+        # renders plan per render anyway, and the streaming renders
+        # (RenderSession) deliver params as dense rows every step
+        self._param_version += 1
 
     # --- spec attributes --------------------------------------------------
     @property
@@ -157,6 +173,11 @@ class BaseAudioContext:
 
         return PeriodicWave(real=real, imag=imag,
                             disable_normalization=disable_normalization)
+
+    def create_audio_param(self, descriptor, node=None):
+        from ..param import AudioParam
+
+        return AudioParam(descriptor, node=node)
 
     # --- node factories (reference: base.rs:126-271) -------------------------
     def create_analyser(self, **kw):
@@ -243,6 +264,21 @@ class BaseAudioContext:
 
         return WaveShaperNode(self, **kw)
 
+    def create_script_processor(self, buffer_size: int = 0,
+                                number_of_input_channels: int = 2,
+                                number_of_output_channels: int = 2):
+        from ..nodes.script_processor import ScriptProcessorNode
+
+        return ScriptProcessorNode(
+            self, buffer_size=buffer_size,
+            number_of_input_channels=number_of_input_channels,
+            number_of_output_channels=number_of_output_channels)
+
+    def create_audio_worklet(self, processor_cls, **kw):
+        from ..worklet import AudioWorkletNode
+
+        return AudioWorkletNode(self, processor_cls, **kw)
+
 
 def _not_ported(name: str):
     def factory(self, *args, **kwargs):
@@ -253,11 +289,8 @@ def _not_ported(name: str):
     return factory
 
 
-# the JAX package's factories and methods that are not ported yet: the
-# worklet and script processor wait for the host-callback nodes, decoding
-# for media I/O
-for _name in ("create_audio_param", "create_audio_worklet",
-              "create_script_processor",
-              "decode_audio_data", "decode_audio_data_sync"):
+# the JAX package's methods that are not ported yet: decoding waits for
+# media I/O
+for _name in ("decode_audio_data", "decode_audio_data_sync"):
     setattr(BaseAudioContext, _name, _not_ported(_name))
 del _name

@@ -23,7 +23,7 @@ from ..constants import (
     assert_valid_number_of_channels,
 )
 from ..graph import compiler as _compiler
-from .base import AudioContextState, BaseAudioContext, _not_ported
+from .base import AudioContextState, BaseAudioContext
 
 
 class OfflineAudioContext(BaseAudioContext):
@@ -43,6 +43,8 @@ class OfflineAudioContext(BaseAudioContext):
         self._rendering_started = False
         self._suspend_callbacks: dict[int, Callable] = {}  # quantum -> cb
         self._render_stats = None
+        self._pending_resume = None   # the gate a suspend(t) waits on
+        self._cg = None               # the last segment's plan
 
         from ..nodes.destination import AudioDestinationNode
 
@@ -129,6 +131,9 @@ class OfflineAudioContext(BaseAudioContext):
                 seg_out[: self._number_of_channels, :seg_len].cpu().numpy()
             segments.append({"block_frames": cg.block_frames,
                              "failed": dict(cg.failed)})
+            # keep the plan for diagnostics, without its staged resources
+            cg.resource_cache = None
+            self._cg = cg
             cursor = boundary
             self._current_time = cursor / fs
             self._advance_param_state(cursor)
@@ -165,6 +170,55 @@ class OfflineAudioContext(BaseAudioContext):
 
         self._dispatch_event("complete", OfflineAudioCompletionEvent(buffer))
         return buffer
+
+    # --- promise-style variants (reference: offline.rs:198-251, 394) -------
+    def start_rendering(self):
+        """Async variant: render on a thread of its own and return a
+        `concurrent.futures.Future[AudioBuffer]` (reference:
+        offline.rs:198-230).  Compose with `suspend(t)`/`resume()` from
+        another thread (or an event loop via `asyncio.wrap_future`).
+
+        The thread is dedicated (not the shared pool): a render parked in
+        `suspend(t)` blocks its thread until `resume()`, and must not
+        occupy a worker other futures are waiting on.  It renders on the
+        context's device, and its kernels launch on that thread's current
+        CUDA stream."""
+        from ..futures import submit_dedicated
+
+        return submit_dedicated(self.start_rendering_sync)
+
+    def suspend(self, suspend_time: float):
+        """Async suspend (reference: offline.rs:241-251): returns a Future
+        that resolves once rendering reaches `suspend_time` and the
+        context is suspended; rendering stays paused until `resume()`.
+        Requires the render to run off-thread (`start_rendering()`).  The
+        parked render waits on a `threading.Event`, which releases the
+        GIL."""
+        import concurrent.futures
+        import threading
+
+        reached: concurrent.futures.Future = concurrent.futures.Future()
+        gate = threading.Event()
+
+        def cb(ctx):
+            self._pending_resume = gate
+            reached.set_result(None)
+            gate.wait()
+            self._pending_resume = None
+
+        self.suspend_sync(suspend_time, cb)
+        return reached
+
+    def resume(self):
+        """Release a pending `suspend(t)` (reference: offline.rs:394).
+        Returns a completed Future for symmetry with the reference."""
+        from ..futures import completed
+
+        gate = self._pending_resume
+        if gate is None:
+            raise InvalidStateError("context is not suspended")
+        gate.set()
+        return completed(None)
 
     @property
     def render_stats(self):
@@ -217,12 +271,6 @@ class OfflineAudioContext(BaseAudioContext):
                 st = states.get(_compiler._k(nid))
                 if st is not None:
                     hook(st)
-
-
-# the promise-style variants (futures.py) wait for their port
-for _name in ("start_rendering", "suspend", "resume"):
-    setattr(OfflineAudioContext, _name, _not_ported(_name))
-del _name
 
 
 def _same_structure(a, b) -> bool:

@@ -1,0 +1,103 @@
+"""Structured diagnostics snapshots and render profiling.
+
+reference: src/context/diagnostics.rs (AudioContextDiagnostics with full
+node/edge dump collected on the render thread via a control message).  Here
+the control side *is* the graph, so the dump is synchronous; the last
+render's plan contributes ordering / block information.  Ported from
+`webaudio_tpu/diagnostics.py`; `profile_render` traces with
+`torch.profiler` instead of the XLA profiler.
+"""
+
+from __future__ import annotations
+
+import os
+
+
+def collect_diagnostics(context) -> dict:
+    nodes = []
+    for nid, node in context._nodes.items():
+        nodes.append({
+            "id": nid,
+            "type": type(node).__name__,
+            "number_of_inputs": node.number_of_inputs,
+            "number_of_outputs": node.number_of_outputs,
+            "channel_count": node.channel_count,
+            "channel_count_mode": str(node.channel_count_mode.value),
+            "channel_interpretation": str(node.channel_interpretation.value),
+            "params": {name: p.value for name, p in node.params.items()},
+        })
+    edges = [{
+        "src": e.src, "src_output": e.src_output,
+        "dst": e.dst, "dst_input": e.dst_input, "param": e.param,
+    } for e in context._edges]
+
+    diag = {
+        "sample_rate": context.sample_rate,
+        "state": str(context.state.value),
+        "current_time": context.current_time,
+        "device": str(context.device),
+        "graph": {"nodes": nodes, "edges": edges},
+    }
+    # fusion preview: what the planner would rewrite (graph/fusion.py)
+    from .graph import fusion as _fusion
+
+    n2, _, _ = _fusion.fuse_sources(
+        dict(context._nodes), list(context._edges),
+        context._destination.node_id, sample_rate=context.sample_rate)
+    fused = {nid: node for nid, node in n2.items() if nid < 0}
+    diag["fusion"] = {
+        "groups": [{
+            "fused_id": nid,
+            "kind": str(getattr(node, "kind", "?")),
+            "voices": len(getattr(node, "sources", [])),
+        } for nid, node in sorted(fused.items())],
+        "nodes_removed": len(context._nodes) + len(fused) - len(n2),
+    }
+    cg = getattr(context, "_cg", None)
+    if cg is not None:
+        diag["compiled"] = {
+            "block_frames": cg.block_frames,
+            "order": [(nid, role) for nid, role in cg.order],
+            "muted": sorted(cg.muted),
+            "cycle_breakers": sorted(cg.cycle_breakers),
+        }
+    return diag
+
+
+class profile_render:
+    """Context manager tracing whatever renders inside it with
+    `torch.profiler` (host operators, and the card's kernels where CUDA
+    is available) into a Chrome trace, `log_dir/trace.json` (the analog
+    of the reference's per-callback timing, SURVEY.md §5):
+
+        with profile_render("webaudio-trace"):
+            ctx.start_rendering_sync()
+
+    Open it in chrome://tracing or Perfetto; `.profiler` holds the
+    `torch.profiler.profile` for `key_averages()`."""
+
+    def __init__(self, log_dir: str):
+        self.log_dir = log_dir
+        self.path = os.path.join(log_dir, "trace.json")
+        self.profiler = None
+
+    def __enter__(self):
+        import torch
+        from torch.profiler import ProfilerActivity, profile
+
+        acts = [ProfilerActivity.CPU]
+        if torch.cuda.is_available():
+            acts.append(ProfilerActivity.CUDA)
+        self.profiler = profile(activities=acts)
+        self.profiler.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        import torch
+
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+        self.profiler.__exit__(*exc)
+        os.makedirs(self.log_dir, exist_ok=True)
+        self.profiler.export_chrome_trace(self.path)
+        return False

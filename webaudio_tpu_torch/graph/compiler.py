@@ -67,6 +67,10 @@ class RenderContext:
     # this node's compiled param timelines (name -> CompiledParam), so
     # kernels can pick const-specialized strategies and read baked values
     param_plans: dict = field(default_factory=dict)
+    # per input port: does any edge feed it?  (the reference's
+    # spec-compliant-worklet-inputs empty-vs-silent distinction,
+    # worklet.rs:367-385)
+    input_connected: list = field(default_factory=list)
 
 
 class BlockScope:
@@ -125,6 +129,13 @@ class Kernel:
         compiled graph); read back in `process` via `scope.node_resources`."""
         return None
 
+    def tail_frames(self):
+        """How much history this kernel's state encodes, in frames, or
+        None if unbounded (not time-shardable).  A kernel with a bounded
+        tail can start from zero state `tail_frames` early and converge:
+        the basis of segment rendering (parallel/segments.py)."""
+        return None
+
     def process(self, scope: BlockScope, state, inputs, params):
         raise NotImplementedError
 
@@ -146,7 +157,9 @@ class CompiledGraph:
     failed: dict = field(default_factory=dict)
     dense_params: list = field(default_factory=list)  # packed row order
     param_alias: dict = field(default_factory=dict)   # fused (nid, p) remaps
+    param_objects: dict = field(default_factory=dict)  # (nid, p) -> param
     muted: set = field(default_factory=set)          # in delay-free cycles
+    cycle_breakers: set = field(default_factory=set)  # cut delays' ids
     cycle_groups: list = field(default_factory=list)  # broken SCCs, in order
     two_rate_m: int = 1        # inner sub-steps per block (1 = single-rate)
     inner_frames: int = 0      # delay-bounded inner block (frames)
@@ -257,8 +270,17 @@ def _acyclic_qpb(nodes, total_quanta: int) -> int:
 
 def compile_graph(nodes: dict, edges: list[Edge], sample_rate: float,
                   total_frames: int, dest_id: int, device,
-                  start_frame: int = 0) -> CompiledGraph:
-    """Plan a graph snapshot: block size, node order, param rows, kernels."""
+                  start_frame: int = 0,
+                  quanta_per_block: Optional[int] = None,
+                  force_dense_params: bool = False) -> CompiledGraph:
+    """Plan a graph snapshot: block size, node order, param rows, kernels.
+
+    `quanta_per_block` fixes the block (the fixed step of RenderSession and
+    of time segments) instead of the chooser; a cyclic graph clamps
+    it to the largest divisor within the cycle-delay bound.
+    `force_dense_params` gives every param a dense row (streamed per step),
+    so no kernel specializes on a constant: the LTI biquad runs the a-rate
+    scan, oscillators the cumsum phase, a delay the automated read."""
     from . import fusion as _fusion
     from ..nodes.delay import DelayNode  # the nodes import this module
 
@@ -281,7 +303,21 @@ def compile_graph(nodes: dict, edges: list[Edge], sample_rate: float,
     two_rate_m = 1          # inner sub-steps per block (two-rate compiler)
     inner_frames = None     # delay-bounded inner block (frames)
     fast_ids: set = set()   # nodes stepped at the inner rate
-    if not ordered.has_cycle:
+    if quanta_per_block is not None:
+        qpb = min(quanta_per_block, total_quanta)
+        if ordered.has_cycle:
+            # an explicit block must still respect the cycle-delay bound (a
+            # feedback read inside one block would see unwritten ring
+            # samples): the largest divisor of the request within the
+            # bound, so callers stepping in multiples of it stay aligned
+            bound = _cycle_delay_bound(nodes, edges, ordered.cycle_breakers,
+                                       sample_rate)
+            if os.environ.get("WEBAUDIO_CYCLE_BLOCKS", "auto") == "1":
+                bound = 1
+            if bound < qpb:
+                qpb = next(d for d in range(bound, 0, -1)
+                           if quanta_per_block % d == 0)
+    elif not ordered.has_cycle:
         qpb = _acyclic_qpb(nodes, total_quanta)
     elif os.environ.get("WEBAUDIO_CYCLE_BLOCKS", "auto") == "1":
         qpb = 1
@@ -293,18 +329,23 @@ def compile_graph(nodes: dict, edges: list[Edge], sample_rate: float,
         # included, is the JAX package's default one.
         qpb = _cycle_safe_qpb(nodes, edges, ordered.cycle_breakers,
                               sample_rate, total_quanta)
-        # JAX steps a cycle of pow2-constrained blocks through a second
-        # chooser that no ported node needs (none sets block_constraint);
-        # such a graph renders single-rate here.
+        # a graph with a pow2-constrained node (the script processor) keeps
+        # a pow2 inner block and takes m from `_two_rate_steps`; any other
+        # chooses the inner block and m jointly (`_two_rate_plan`)
+        pow2_only = _pow2_only(nodes.values())
         if (qpb >= 2 and ordered.cycle_groups
                 and os.environ.get("WEBAUDIO_TWO_RATE", "1") != "0"
-                and not _pow2_only(nodes.values())
+                and not (pow2_only and (qpb & (qpb - 1)))
                 and _two_rate_eligible(nodes, edges, ordered)):
-            # the inner block and m chosen jointly
-            plan = _two_rate_plan(nodes, edges, ordered.cycle_breakers,
-                                  sample_rate, total_quanta)
-            if plan and plan[1] >= 2:
-                inner_qpb, two_rate_m = plan
+            if pow2_only:
+                inner_qpb = qpb
+                m = _two_rate_steps(nodes, total_quanta, qpb, pow2_only)
+            else:
+                plan = _two_rate_plan(nodes, edges, ordered.cycle_breakers,
+                                      sample_rate, total_quanta)
+                inner_qpb, m = plan if plan else (qpb, 1)
+            if m >= 2:
+                two_rate_m = m
                 inner_frames = inner_qpb * RENDER_QUANTUM_SIZE
                 fast_ids = {nid for grp in ordered.cycle_groups
                             for (nid, _) in grp}
@@ -321,10 +362,13 @@ def compile_graph(nodes: dict, edges: list[Edge], sample_rate: float,
 
     # compile every param timeline over the render range
     param_plan = {}
+    param_objects = {}
     for nid, node in nodes.items():
         for pname, p in node.params.items():
+            param_objects[(nid, pname)] = p
             param_plan[(nid, pname)] = p.compile_for_render(
-                sample_rate, _pad_len(total_frames, block_frames), start_frame)
+                sample_rate, _pad_len(total_frames, block_frames), start_frame,
+                force_dense=force_dense_params)
 
     # dense params are packed into one (P, B) tensor per block
     dense_params = [key for key, plan in param_plan.items()
@@ -365,6 +409,8 @@ def compile_graph(nodes: dict, edges: list[Edge], sample_rate: float,
             in_cycle=nid in ordered.cycle_breakers,
             param_plans={pname: param_plan[(nid, pname)]
                          for pname in node.params},
+            input_connected=[bool(in_edges[nid][i])
+                             for i in range(node.number_of_inputs)],
         )
         try:
             kernels[nid] = node.make_kernel(rc)
@@ -598,7 +644,9 @@ def compile_graph(nodes: dict, edges: list[Edge], sample_rate: float,
         total_frames=total_frames, device=device, sample_rate=sample_rate,
         in_counts=in_counts, out_counts=out_counts, failed=failed,
         dense_params=dense_params, param_alias=param_alias,
-        muted=ordered.muted, cycle_groups=ordered.cycle_groups,
+        param_objects=param_objects, muted=ordered.muted,
+        cycle_breakers=set(ordered.cycle_breakers),
+        cycle_groups=ordered.cycle_groups,
         two_rate_m=two_rate_m, inner_frames=inner_frames or 0)
 
 
@@ -728,7 +776,7 @@ def _two_rate_plan(nodes, edges, cycle_breakers, sample_rate,
 
     The inner block is constrained only by the cycle-delay bound (cycle
     members carry no FFT-partition or pow2 preferences; a pow2-constrained
-    graph stays single-rate).  Candidates: divisors of the render,
+    graph takes `_two_rate_steps`).  Candidates: divisors of the render,
     multiples of 8, and powers of two up to the bound.  For each, the
     best m minimizes  padded_total + 16*outer_steps + 4*inner_substeps
     (quanta-equivalents; 16/outer-step is the acyclic chooser's measured
@@ -778,6 +826,29 @@ def _two_rate_plan(nodes, edges, cycle_breakers, sample_rate,
     if chosen is None:
         return None
     return chosen[1], chosen[2]
+
+
+def _two_rate_steps(nodes, total_quanta, qpb_in, pow2_only=False) -> int:
+    """Inner sub-steps per outer block at a fixed inner block (the pow2-
+    constrained case): minimize padded total + per-outer-step overhead
+    (~16 quanta, the acyclic chooser's cost model), keeping partitioned-
+    FFT kernels on >= 4096-sample pow2 content."""
+    max_qpb = max(DEFAULT_QUANTA_PER_BLOCK, _budget_quanta(nodes.values()))
+    max_m = max(1, min(max_qpb // qpb_in, -(-total_quanta // qpb_in)))
+    wants_pow2 = _wants_pow2(nodes.values())
+    cands = [m for m in range(1, max_m + 1)
+             if not pow2_only or ((m * qpb_in) & (m * qpb_in - 1)) == 0]
+    if wants_pow2:
+        good = [m for m in cands if _content(m * qpb_in) >= 4096]
+        if good:
+            cands = good
+
+    def _cost(m):
+        q = m * qpb_in
+        nb = -(-total_quanta // q)
+        return (nb * q + 16 * nb, -_content(q) if wants_pow2 else 0)
+
+    return min(cands, key=_cost) if cands else 1
 
 
 def _pad_len(total_frames: int, block_frames: int) -> int:

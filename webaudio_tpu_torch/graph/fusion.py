@@ -417,7 +417,9 @@ class _LaneEnvParam:
     rows are spliced on the host from each member's own compiled envelope,
     and the kernel reads gain as a plain (N, K, B) slice of the dense rows
     with no per-voice selection.  Rides the same dense-param machinery as
-    real AudioParams through `compile_for_render`."""
+    real AudioParams: `compile_for_render` (offline, batch, segment and
+    session renders; the row is always dense) and `advance_dense`
+    (streaming renders)."""
 
     def __init__(self, plan: _GrainLanePlan, k: int, gains):
         self._plan = plan
@@ -445,7 +447,7 @@ class _LaneEnvParam:
                                gparam.max_value)
 
     def compile_for_render(self, sample_rate: float, length: int,
-                           start_frame: int = 0):
+                           start_frame: int = 0, force_dense: bool = False):
         row = np.zeros(length, np.float32)
         for i in self._members:
             g = self._gains[i].params["gain"]
@@ -453,6 +455,17 @@ class _LaneEnvParam:
             vals = mplan.scalar if mplan.is_constant else mplan.dense
             self._splice(row, i, vals, g, start_frame, length)
         return CompiledParam(None, row, 0.0, None)
+
+    def advance_dense(self, sample_rate: float, length: int,
+                      start_frame: int = 0) -> np.ndarray:
+        row = np.zeros(length, np.float32)
+        for i in self._members:
+            # advance every member's live timeline each chunk (keeps their
+            # state machines in lockstep with the render position)
+            g = self._gains[i].params["gain"]
+            vals = g.advance_dense(sample_rate, length, start_frame)
+            self._splice(row, i, vals, g, start_frame, length)
+        return row
 
 
 class _FusedVoicesNode:

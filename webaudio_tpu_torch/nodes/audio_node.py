@@ -87,6 +87,7 @@ class AudioNode:
         self._validate_channel_count(count)
         assert_valid_number_of_channels(count)
         self._channel_config.count = int(count)
+        self.context._invalidate_graph_cache()
 
     @property
     def channel_count_mode(self) -> ChannelCountMode:
@@ -100,6 +101,7 @@ class AudioNode:
         mode = ChannelCountMode(mode)
         self._validate_channel_count_mode(mode)
         self._channel_config.mode = mode
+        self.context._invalidate_graph_cache()
 
     @property
     def channel_interpretation(self) -> ChannelInterpretation:
@@ -111,6 +113,7 @@ class AudioNode:
 
     def set_channel_interpretation(self, interp):
         self._channel_config.interpretation = ChannelInterpretation(interp)
+        self.context._invalidate_graph_cache()
 
     # per-node constraint hooks (overridden e.g. by the destination)
     def _validate_channel_count(self, count: int):

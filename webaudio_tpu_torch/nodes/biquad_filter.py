@@ -186,6 +186,9 @@ class _BiquadLTIKernel(Kernel):
     def resources(self):
         return {"h": self.h_spectra}
 
+    def tail_frames(self):
+        return (self.k + 1) * self.partition
+
     def init_state(self):
         return fft_conv.init_state(self.channels, self.k, self.partition,
                                    self.device)
@@ -282,6 +285,7 @@ class BiquadFilterNode(AudioNode):
     @type.setter
     def type(self, t):
         self._type = BiquadFilterType(t)
+        self.context._invalidate_graph_cache()
 
     def get_frequency_response(self, frequency_hz, mag_response, phase_response):
         """Transfer-function evaluation on the control side

@@ -234,6 +234,12 @@ class _BufferSourceKernel(Kernel):
             ext[:, L] = edge_vals(self.data_host, False, 0)
         return ext
 
+    def tail_frames(self):
+        # the closed-form playhead is time-indexed; the automated-rate
+        # cumsum carries its position
+        return 0 if (self.const_rate is not None or not self.has_buffer) \
+            else None
+
     def init_state(self):
         f64 = dict(dtype=torch.float64, device=self.device)
         return {
@@ -530,6 +536,7 @@ class AudioBufferSourceNode(AudioScheduledSourceNode):
         if self._buffer is not None:
             raise InvalidStateError("buffer has already been set")
         self._buffer = buf
+        self.context._invalidate_graph_cache()
 
     @property
     def loop_start(self) -> float:
@@ -538,6 +545,7 @@ class AudioBufferSourceNode(AudioScheduledSourceNode):
     @loop_start.setter
     def loop_start(self, v: float):
         self._loop_start = self._clamp_loop_boundary(float(v))
+        self.context._invalidate_graph_cache()
 
     @property
     def loop_end(self) -> float:
@@ -546,6 +554,7 @@ class AudioBufferSourceNode(AudioScheduledSourceNode):
     @loop_end.setter
     def loop_end(self, v: float):
         self._loop_end = self._clamp_loop_boundary(float(v))
+        self.context._invalidate_graph_cache()
 
     def _clamp_loop_boundary(self, v: float) -> float:
         if self._buffer is not None:

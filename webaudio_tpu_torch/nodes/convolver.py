@@ -63,6 +63,9 @@ class _ConvolverKernel(Kernel):
     def resources(self):
         return {"h": self.h_spectra} if self.has_ir else None
 
+    def tail_frames(self):
+        return (self.k + 1) * self.partition if self.has_ir else 0
+
     def init_state(self):
         if not self.has_ir:
             return None
@@ -130,6 +133,7 @@ class ConvolverNode(AudioNode):
             raise NotSupportedError(
                 "the convolution buffer must have 1, 2 or 4 channels")
         self._buffer = buffer
+        self.context._invalidate_graph_cache()
 
     @property
     def normalize(self) -> bool:

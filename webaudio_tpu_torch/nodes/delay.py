@@ -60,6 +60,9 @@ class _DelayKernel(Kernel):
             ks = np.float32(0.0) if k0 == 0.0 else np.float32(1.0) - k0
             self.const_read = (shift, float(np.float32(1.0) - ks), float(ks))
 
+    def tail_frames(self):
+        return None if self.in_cycle else self.R
+
     def init_state(self):
         return {"ring": torch.zeros((self.channels, self.R),
                                     dtype=torch.float32, device=self.device)}

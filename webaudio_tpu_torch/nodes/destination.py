@@ -15,6 +15,9 @@ from .audio_node import AudioNode, ChannelConfig
 
 
 class _PassthroughKernel(Kernel):
+    def tail_frames(self):
+        return 0
+
     def process(self, scope, state, inputs, params):
         return state, [inputs[0]]
 

@@ -11,6 +11,9 @@ from .audio_node import AudioNode, AudioNodeOptions
 
 
 class _GainKernel(Kernel):
+    def tail_frames(self):
+        return 0
+
     def process(self, scope, state, inputs, params):
         return state, [inputs[0] * params["gain"]]
 

@@ -169,6 +169,9 @@ class HrtfPannerKernel(_SpatialKernel):
         return {"spectra": self.spectra_host, "grid_vids": self.vids_host,
                 "grid_w": self.w_host, "front": front}
 
+    def tail_frames(self):
+        return (self.K + 1) * PARTITION
+
     def init_state(self):
         P = PARTITION
         c64 = dict(dtype=torch.complex64, device=self.device)

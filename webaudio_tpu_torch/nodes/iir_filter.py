@@ -33,6 +33,9 @@ class _IIRKernel(Kernel):
     def resources(self):
         return {"h": self.h_spectra}
 
+    def tail_frames(self):
+        return (self.k + 1) * self.partition
+
     def init_state(self):
         return fft_conv.init_state(self.channels, self.k, self.partition,
                                    self.device)

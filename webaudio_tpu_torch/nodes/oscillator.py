@@ -169,10 +169,12 @@ class OscillatorNode(AudioScheduledSourceNode):
             raise InvalidStateError(
                 "set a PeriodicWave via set_periodic_wave to use a custom type")
         self._type = t
+        self.context._invalidate_graph_cache()
 
     def set_periodic_wave(self, wave: PeriodicWave):
         self._periodic_wave = wave
         self._type = OscillatorType.CUSTOM
+        self.context._invalidate_graph_cache()
 
     def output_channel_count(self, input_counts):
         return [1]

@@ -54,6 +54,9 @@ def _param(node, name, default):
 
 
 class _SilentKernel(Kernel):
+    def tail_frames(self):
+        return 0
+
     def process(self, scope, state, inputs, params):
         return state, [torch.zeros((1, 1, scope.frames), dtype=torch.float32,
                                    device=scope.device)]
@@ -216,6 +219,9 @@ class _EqualPowerPannerKernel(_SpatialKernel):
         super().__init__(node)
         self.mono_input = mono_input
 
+    def tail_frames(self):
+        return 0
+
     def process(self, scope, state, inputs, params):
         x = inputs[0]                                   # (N, C, B)
         azimuth, _elevation, g = self.spatial_gains(params)
@@ -298,6 +304,7 @@ class PannerNode(AudioNode):
     @panning_model.setter
     def panning_model(self, v):
         self._panning_model = PanningModelType(v)
+        self.context._invalidate_graph_cache()
 
     def set_position(self, x: float, y: float, z: float):
         self.position_x.set_value(x)

@@ -34,6 +34,7 @@ class AudioScheduledSourceNode(AudioNode):
         # [spec] values below currentTime start immediately
         # (reference: oscillator.rs:419-424 "prevent scheduling in the past")
         self._start_time = max(float(when), self.context.current_time)
+        self.context._invalidate_graph_cache()
 
     def start_at(self, when: float):
         self.start(when)
@@ -47,6 +48,7 @@ class AudioScheduledSourceNode(AudioNode):
         # scheduled_source.rs run_stop_twice, upstream issue #579)
         self._stop_called = True
         self._stop_time = float(when)
+        self.context._invalidate_graph_cache()
 
     def stop_at(self, when: float):
         self.stop(when)

@@ -102,6 +102,7 @@ class WaveShaperNode(AudioNode):
         if curve.ndim != 1 or len(curve) < 2:
             raise InvalidStateError("curve must be a 1-d sequence of length >= 2")
         self._curve = curve
+        self.context._invalidate_graph_cache()
 
     @property
     def oversample(self) -> OverSampleType:
@@ -113,6 +114,7 @@ class WaveShaperNode(AudioNode):
 
     def set_oversample(self, v):
         self._oversample = OverSampleType(v)
+        self.context._invalidate_graph_cache()
 
     def make_kernel(self, render_ctx):
         c = max(1, render_ctx.input_channel_counts[0])

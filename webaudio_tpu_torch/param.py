@@ -68,6 +68,12 @@ class AudioParam:
         self._current_value = float(d.default_value)
         # the node owning this param (for graph connections *into* the param)
         self._node = node
+        self._context = node.context if node is not None else None
+        self._mark_dirty()
+
+    def _mark_dirty(self):
+        if self._context is not None:
+            self._context._invalidate_param_cache()
 
     # --- attributes (reference: param.rs:403-457) -----------------------
     @property
@@ -83,6 +89,7 @@ class AudioParam:
         if self._automation_rate_constrained and value != self._automation_rate:
             raise InvalidStateError("automation rate cannot be changed")
         self._automation_rate = AutomationRate(value)
+        self._mark_dirty()
 
     def set_automation_rate_constrained(self, constrained: bool):
         self._automation_rate_constrained = bool(constrained)
@@ -119,6 +126,7 @@ class AudioParam:
             raise TypeError("TypeError - The provided value is non-finite.")
         self._current_value = float(value)
         self._timeline.handle_event(ParamEvent(SET_VALUE, value=float(value), time=0.0))
+        self._mark_dirty()
         return self
 
     def set_value_at_time(self, value: float, start_time: float) -> "AudioParam":
@@ -127,6 +135,7 @@ class AudioParam:
         assert_valid_time_value(start_time)
         self._timeline.handle_event(
             ParamEvent(SET_VALUE_AT_TIME, value=float(value), time=float(start_time)))
+        self._mark_dirty()
         return self
 
     def linear_ramp_to_value_at_time(self, value: float, end_time: float) -> "AudioParam":
@@ -135,6 +144,7 @@ class AudioParam:
         assert_valid_time_value(end_time)
         self._timeline.handle_event(
             ParamEvent(LINEAR_RAMP, value=float(value), time=float(end_time)))
+        self._mark_dirty()
         return self
 
     def exponential_ramp_to_value_at_time(self, value: float, end_time: float) -> "AudioParam":
@@ -142,6 +152,7 @@ class AudioParam:
         assert_valid_time_value(end_time)
         self._timeline.handle_event(
             ParamEvent(EXPONENTIAL_RAMP, value=float(value), time=float(end_time)))
+        self._mark_dirty()
         return self
 
     def set_target_at_time(self, value: float, start_time: float,
@@ -156,6 +167,7 @@ class AudioParam:
         self._timeline.handle_event(
             ParamEvent(SET_TARGET, value=float(value), time=float(start_time),
                        time_constant=float(time_constant)))
+        self._mark_dirty()
         return self
 
     def set_value_curve_at_time(self, values, start_time: float,
@@ -167,23 +179,27 @@ class AudioParam:
         self._timeline.handle_event(
             ParamEvent(SET_VALUE_CURVE, value=float(values[0]), time=float(start_time),
                        duration=float(duration), values=values.copy()))
+        self._mark_dirty()
         return self
 
     def cancel_scheduled_values(self, cancel_time: float) -> "AudioParam":
         assert_valid_time_value(cancel_time)
         self._timeline.handle_event(
             ParamEvent(CANCEL_SCHEDULED_VALUES, time=float(cancel_time)))
+        self._mark_dirty()
         return self
 
     def cancel_and_hold_at_time(self, cancel_time: float) -> "AudioParam":
         assert_valid_time_value(cancel_time)
         self._timeline.handle_event(
             ParamEvent(CANCEL_AND_HOLD, time=float(cancel_time)))
+        self._mark_dirty()
         return self
 
     # --- engine hooks ----------------------------------------------------
     def compile_for_render(self, sample_rate: float, length: int,
-                           start_frame: int = 0) -> automation.CompiledParam:
+                           start_frame: int = 0,
+                           force_dense: bool = False) -> automation.CompiledParam:
         """Compile the timeline over ``[start_frame, start_frame+length)``.
 
         Operates on a snapshot so repeated compiles from frame 0 are
@@ -191,7 +207,19 @@ class AudioParam:
         tl = self._timeline.snapshot()
         return automation.compile_timeline(
             tl, sample_rate, length, self._automation_rate.is_a_rate,
-            start_frame=start_frame)
+            start_frame=start_frame, force_dense=force_dense)
+
+    def advance_dense(self, sample_rate: float, length: int,
+                      start_frame: int = 0) -> np.ndarray:
+        """Consume the live timeline over the range, returning dense values
+        (the streaming renders' per-chunk path: the reference's per-quantum
+        compute_buffer on the render thread)."""
+        compiled = automation.compile_timeline(
+            self._timeline, sample_rate, length,
+            self._automation_rate.is_a_rate,
+            start_frame=start_frame, force_dense=True)
+        self._current_value = self._timeline.intrinsic_value
+        return compiled.dense
 
     def f32_bounds(self) -> tuple[float, float]:
         """(min, max) rounded to f32, as the f32 tensors they clip see them
