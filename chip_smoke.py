@@ -86,7 +86,8 @@ the dither and u-law kernels:
      the host copy (f32 and int16), render_stream pipelined (int16, uint8),
      the device-busy share of the 256-instance render (torch.profiler), and
      the dither and u-law kernels against their plain versions at
-     (512, 98304) as device time from CUDA-graph replay.
+     (512, 98304) as device time from CUDA-graph replay, L2 warm (the same
+     input) and cold (two copies in turn, each four times the L2).
 
 Then granular synthesis (source fusion, grain lanes), with the grain
 kernels: benches/suite.py::case_granular_grains at full width (10 s,
@@ -123,8 +124,9 @@ grains of 90 ms with linear attack/release envelopes at rates 0.9-1.1):
      call) and cold (each call on its own copy of the inputs, rotating
      through more than 150 MB), in GB/s, the cold time also as share of
      the bound.  With --old SOURCE (an earlier revision of
-     csrc/grain_read.cu or of csrc/curve_lookup.cu, told apart by their C
-     entry points; once for each) that source and this checkout's are also
+     csrc/grain_read.cu, csrc/curve_lookup.cu or csrc/detector.cu, told
+     apart by their C entry points; once for each; the detector's A/B runs
+     in phase v) that source and this checkout's are also
      built with `-Xptxas -v` (registers, shared memory and spills are
      printed), the old kernels are checked bit-equal to the plain versions
      on the same inputs and timed in turns with the new: plain, old, new,
@@ -180,35 +182,53 @@ kernel, each main path with every kernel's launch count from 0:
   s. the detector kernel (csrc/detector.cu) against its plain version (a
      loop over samples, run on the host) bit for bit at N 1, 3 and 1,024
      instances of 4,096 samples, taus per instance and per sample,
-     attack 0, release 0, and B = 1; a non-contiguous, an f64 and a CPU
+     attack 0, release 0, and B = 1; then at the kernel's edges: N 1, 7,
+     8, 9, 132, 1,024 and 1,025 (about its CTA sizes) times B 1, 3 and
+     4,097, B a tile's length from its launch plan times 1, 4 and 9 plus
+     or minus one (9 wraps its 4-slot ring twice), and rows off a 16-byte
+     boundary (the 4-byte staging); a non-contiguous, an f64 and a CPU
      input raise KernelError; upsample and downsample x2 and x4 on the card
      against the CPU at 1e-6 x peak, with cuDNN allowed TF32 as PyTorch
      has it by default;
   t. 5a: 10 s, 48 kHz, stereo through start_rendering_sync: one block of
-     480,000 frames, the chunked detector, K1 launched once (over
-     (1, 2, 1,920,000) samples), within 1e-5 x peak of the port's CPU
-     render and 1e-4 x peak of a numpy f64 oracle (zero-stuffed FIR with
-     the firwin taps, the lerp, the decimating FIR, the sequential
+     480,000 frames, the detector kernel (the card's default detector)
+     launched once and K1 once (over (1, 2, 1,920,000) samples), within
+     1e-5 x peak of the port's CPU render (whose default is the chunked
+     fixed point) and 1e-4 x peak of a numpy f64 oracle (zero-stuffed FIR
+     with the firwin taps, the lerp, the decimating FIR, the sequential
      detector); the compressor's reduction and the analyser's time,
      frequency and byte data against the CPU render's; with
-     WEBAUDIO_DETECTOR=seq the detector kernel launches once and the
-     render holds to the CPU (1e-5), the oracle (1e-4) and the default
-     render (2e-4 x peak); the detector kernel bit-equal to its plain
-     version on the captured attenuation row, and the chunked detector
-     within 1e-4 of it; end to end (one warm-up, median of 5), host
-     planning, the block loop and the device-busy share;
+     WEBAUDIO_DETECTOR=chunked (the chunked fixed point on the card, its
+     solves counted) the render holds to the oracle (1e-4) and the
+     default render to it (2e-4 x peak, the JAX suite's bound between
+     detectors); the detector kernel bit-equal to its plain version on
+     the captured attenuation row, and the chunked detector within 1e-4
+     of it; end to end (one warm-up, median of 5), host planning, the
+     block loop and the device-busy share;
   u. 5b: a GraphBatch of the chain at 2 s, 1,024 instances, each with its
      own synthetic clip (a third each at 38,000, 44,100 and 48,000 Hz,
      resampled to 48 kHz by AudioBuffer.resample, cut or padded to 96,000
-     frames): one block, K1 and K5 launched, lanes 0, 511 and 1,023 within
-     1e-6 x peak of their own start_rendering_sync on the card, a
-     4-instance batch within 1e-5 x peak of the port's CPU batch,
-     render_i16 equal to the plain dither of render(); throughput, peak
-     device memory and the busy share;
+     frames): one block, K1, K5 and the detector kernel (once a render)
+     launched, lanes 0, 511 and 1,023 within 1e-6 x peak of their own
+     start_rendering_sync on the card, a 4-instance batch within 1e-5 x
+     peak of the port's CPU batch with the card's detector
+     (WEBAUDIO_DETECTOR=seq) and 2e-4 x peak of the CPU batch with the
+     CPU's default (the chunked fixed point), render_i16 equal to the
+     plain dither of render(); throughput, peak device memory and the busy
+     share;
   v. K1 at S8 (5a's captured launch) and MDN's 44,100-point curve on S8's
      samples, warm and cold L2, against the plain version, the bound and
-     grid_sample; the detector kernel against the chunked path at 5a's
-     and 5b's detector inputs; the resamplers' device time.
+     grid_sample; the detector's step alone (one thread, clock64: the
+     kernel's byte-permute select, the same step with ?:, the earlier
+     kernel's select-tau step, multiply + add), then the detector kernel
+     against the chunked fixed point (forced) at 5a's and 5b's detector
+     inputs and at DETECTOR_SWEEP's shapes (cut and tiled from 5b's), the
+     rule behind detector_mode, with its bound and its latency floor (B
+     steps of 3 dependent operations, the earlier 4 beside it, and of the
+     step's measured cycles); with --old an earlier detector.cu against
+     this one at 5a's and 5b's shapes, in turns (plain, old, new, new,
+     old, plain), each bit-equal to the plain version; the resamplers'
+     device time.
 
 Then delay, feedback cycles, the ConvolverNode and the IIRFilterNode
 (BASELINE config 3: benches/suite.py::case_convolution_reverb at 44.1 kHz,
@@ -333,8 +353,9 @@ mastering and corpus paths; the curve kernel's row also its launches on the sess
 paths; the dither kernel's its launches on the three corpus paths and the
 session's bounce; the grain kernels' their launches in the 128-frame
 session; the detector kernel's row its launches on the
-seq-mode and default 5a paths, its plain version's host time, the latency
-floor of one sequential chain and the chunked path's time)
+default 5a and 5b paths and the forced-chunked 5a path, its plain
+version's host time, the latency floors of one sequential chain, the
+step's cycles, the chunked path's time, 5b's and the sweep's times)
 and the card's name and power limit, then as
 its last line {"ok": true, "device": {...}}.  Exits non-zero, printing no result, if CUDA is unavailable or any
 phase fails.  Imports nothing of JAX.
@@ -1226,22 +1247,37 @@ def phase_j(wt, gb, filt, dither):
 
     xd = torch.from_numpy(np.random.default_rng(SEED + 3).uniform(
         -1.2, 1.2, QUANT_SHAPE).astype(np.float32)).cuda()
+    # cold L2: calls alternate between two copies of x (201 MB each, four
+    # times the L2), so no call finds its input in L2
+    copies = [xd.clone() for _ in range(2)]
     times = {}
     for name, kern, plain, out_bytes in (
             ("dither_i16", dither.dither_i16, dither.dither_i16_reference, 2),
             ("ulaw_u8", dither.ulaw_u8, dither.ulaw_u8_reference, 1)):
-        k_dev, p_dev = [], []
+        turn = [0]
+
+        def cold():
+            turn[0] += 1
+            return kern(copies[turn[0] % 2], 0)
+
+        k_dev, c_dev, p_dev = [], [], []
         for _ in range(2):
             p_dev.append(_graph_ms(lambda: plain(xd, 0), 5))
             k_dev.append(_graph_ms(lambda: kern(xd, 0), 20))
+            c_dev.append(_graph_ms(cold, 20))
+            c_dev.append(_graph_ms(cold, 20))
             k_dev.append(_graph_ms(lambda: kern(xd, 0), 20))
             p_dev.append(_graph_ms(lambda: plain(xd, 0), 5))
         k_ms, p_ms = statistics.median(k_dev), statistics.median(p_dev)
-        gbs = xd.numel() * (4 + out_bytes) / (k_ms * 1e-3) / 1e9
-        print(f"j. {name} at {QUANT_SHAPE}: device time kernel "
-              f"{k_ms * 1000:.2f} us ({gbs:.0f} GB/s of x in + codes out), "
-              f"plain {p_ms * 1000:.2f} us ({p_ms / k_ms:.1f}x)", flush=True)
-        times[name] = (k_ms, p_ms)
+        c_ms = statistics.median(c_dev)
+        nbytes = xd.numel() * (4 + out_bytes)
+        print(f"j. {name} at {QUANT_SHAPE}: device time kernel warm L2 "
+              f"{k_ms * 1000:.2f} us ({nbytes / k_ms / 1e6:.0f} GB/s of x in "
+              f"+ codes out), cold L2 {c_ms * 1000:.2f} us "
+              f"({nbytes / c_ms / 1e6:.0f} GB/s), plain {p_ms * 1000:.2f} us "
+              f"({p_ms / k_ms:.1f}x)", flush=True)
+        times[name] = (k_ms, p_ms, c_ms)
+    del copies
     return times
 
 
@@ -2438,6 +2474,15 @@ def _detector_kernel_check(label, det, y0, x, at, rt):
     return err, plain_ms
 
 
+def _unaligned(a, offset=1):
+    """numpy `a` on the card `offset` floats into its storage: contiguous,
+    its rows off a 16-byte boundary."""
+    store = torch.zeros(a.size + offset, device="cuda")
+    view = store[offset:].view(a.shape)
+    view.copy_(torch.from_numpy(a))
+    return view
+
+
 def phase_s(det, rs, KernelError):
     """The detector kernel against its plain version on synthetic inputs,
     and the resamplers on the card against the CPU under PyTorch's default
@@ -2449,6 +2494,24 @@ def phase_s(det, rs, KernelError):
              (1024, 4096, True, "none"), (3, 4096, False, "attack 0"),
              (3, 4096, True, "release 0"), (5, 1, False, "none"),
              (5, 1, True, "attack 0")]
+    # the redesigned kernel's edges: N about its CTA sizes (8 instances a
+    # CTA at 1,024; 1,025 leaves one in the last), B one short tile or
+    # past one and not a multiple of 4 (the 4-byte staging), B a tile's
+    # length (the launch plan's) times 1, 4 and 9 plus or minus one (9
+    # wraps the 4-slot ring twice), rows off a 16-byte boundary
+    for N in (1, 7, 8, 9, 132, 1024, 1025):
+        for B in (1, 3, 4097):
+            cases += [(N, B, False, "none"), (N, B, True, "none")]
+    cases += [(3, 4097, False, "release 0"), (1025, 4097, True, "attack 0")]
+    for N in (1, 1024):
+        for per_sample in (False, True):
+            tile = det.launch_plan(N, 1 << 20, per_sample)["tile"]
+            for tiles, delta in ((1, -1), (1, 1), (4, 1), (9, -1)):
+                cases.append((N, tiles * tile + delta, per_sample,
+                              f"tile {tile} x {tiles} {delta:+d}"))
+    cases += [(N, B, per_sample, "unaligned rows")
+              for N, B in ((1, 4096), (1, 4097), (1024, 4096), (9, 12288))
+              for per_sample in (False, True)]
     for N, B, per_sample, edge in cases:
         x = (np.abs(rng.standard_normal((N, B))) * 20).astype(np.float32)
         x[:, B // 3: B // 2] = 25.0
@@ -2460,10 +2523,13 @@ def phase_s(det, rs, KernelError):
         elif edge == "release 0":
             rt[:] = 0.0
         y0 = rng.uniform(0, 10, N).astype(np.float32)
+        move = (_unaligned if edge == "unaligned rows"
+                else lambda a: torch.from_numpy(a).cuda())
         err, _ = _detector_kernel_check(
             f"s. detector_scan N {N} B {B} taus per "
-            f"{'sample' if per_sample else 'instance'}, {edge}", det,
-            *(torch.from_numpy(a).cuda() for a in (y0, x, at, rt)))
+            f"{'sample' if per_sample else 'instance'}, {edge} "
+            f"{det.launch_plan(N, B, per_sample)}", det,
+            *(move(a) for a in (y0, x, at, rt)))
         worst = max(worst, err)
     y0, x = torch.zeros(4).cuda(), torch.ones(4, 64).cuda()
     for what, args in (("non-contiguous", (y0, x.t().contiguous().t())),
@@ -2518,20 +2584,21 @@ def _analyser_data(an):
 
 def phase_t(wt, compiler, ck, det, dc, waveshaper, kernels):
     """5a end to end.  Returns a dict: the main paths' launches (the default
-    detector, then WEBAUDIO_DETECTOR=seq), K1's captured launch (S8), the
-    detector's captured input, the detector kernel's check and timings."""
+    detector, the kernel; then WEBAUDIO_DETECTOR=chunked), K1's captured
+    launch (S8), the detector's captured input, the detector kernel's check
+    and timings."""
     label = "t. 5a mastering chain, 10 s"
     ctx, _, comp, an = mastering_context(wt, "cuda")
     cg, nb = _plan(compiler, ctx)
     (ck_comp,) = [k for k in cg.kernels.values()
                   if type(k).__name__ == "_CompressorKernel"]
-    mode = dc.detector_mode(ck_comp.const_taus, cg.block_frames)
+    mode = dc.detector_mode(ck_comp.const_taus, cg.block_frames, "cuda")
     print(f"{label}: plan {len(cg.kernels)} kernels, block_frames "
           f"{cg.block_frames}, {nb} block(s); compressor const_taus "
           f"{ck_comp.const_taus}, detector {mode}", flush=True)
-    if (cg.block_frames, nb, mode) != (FRAMES, 1, "chunked"):
+    if (cg.block_frames, nb, mode) != (FRAMES, 1, "seq"):
         raise AssertionError("5a did not plan one 480,000-frame block with "
-                             "the chunked detector")
+                             "the detector kernel")
     with _recording(waveshaper, "curve_lookup") as shaped, \
             _recording(dc, "_detector") as detected, \
             _solves(dc) as solves:
@@ -2539,8 +2606,9 @@ def phase_t(wt, compiler, ck, det, dc, waveshaper, kernels):
     print(f"{label}: main path launched {launches}; detector inputs "
           f"{[tuple(c[1].shape) for c in detected]}, fixed-point solves a "
           f"block {solves} (one host sync each)", flush=True)
-    if launches["curve_lookup"] != 1:
-        raise AssertionError("K1 did not launch once on 5a's one block")
+    if launches["curve_lookup"] != 1 or launches["detector_scan"] != 1:
+        raise AssertionError("K1 or the detector kernel did not launch once "
+                             "on 5a's one block")
     cpu_ctx, _, cpu_comp, cpu_an = mastering_context(wt, "cpu")
     cpu = cpu_ctx.start_rendering_sync().to_array()
     err_cpu = _check_close(f"{label}: vs the port's CPU render", out, cpu,
@@ -2567,31 +2635,29 @@ def phase_t(wt, compiler, ck, det, dc, waveshaper, kernels):
     if td_err > 1e-5 * np.abs(cpu).max() or fd_err > 1e-5 or byte_err > 1:
         raise AssertionError("the analyser's data differ from the CPU's")
 
-    # the detector kernel's path: WEBAUDIO_DETECTOR=seq
-    with _env("WEBAUDIO_DETECTOR", "seq"):
-        seq_ctx = mastering_context(wt, "cuda")[0]
-        seq, seq_launches = _main_path(seq_ctx, kernels)
-        cpu_seq = mastering_context(wt, "cpu")[0].start_rendering_sync() \
-            .to_array()
-    print(f"{label}, WEBAUDIO_DETECTOR=seq: main path launched "
-          f"{seq_launches}", flush=True)
-    if seq_launches["detector_scan"] != 1 or seq_launches["curve_lookup"] != 1:
-        raise AssertionError("the seq detector did not launch the detector "
-                             "kernel once")
-    _check_close(f"{label}, WEBAUDIO_DETECTOR=seq: vs the port's CPU render",
-                 seq, cpu_seq, 1e-5)
-    _check_close(f"{label}, WEBAUDIO_DETECTOR=seq: vs the f64 numpy oracle",
-                 seq, want, 1e-4)
-    _check_close(f"{label}, WEBAUDIO_DETECTOR=seq vs the default (chunked) "
-                 "render (the JAX suite's bound between detectors)", seq,
-                 out, 2e-4)
+    # the chunked fixed point, forced: the CPU's default and the card's
+    # before the detector kernel was
+    with _env("WEBAUDIO_DETECTOR", "chunked"), _solves(dc) as chunked_solves:
+        ch_ctx = mastering_context(wt, "cuda")[0]
+        chunked_out, chunked_launches = _main_path(ch_ctx, kernels)
+    print(f"{label}, WEBAUDIO_DETECTOR=chunked: main path launched "
+          f"{chunked_launches}; fixed-point solves a block {chunked_solves}",
+          flush=True)
+    if chunked_launches["curve_lookup"] != 1:
+        raise AssertionError("K1 did not launch once on the chunked path")
+    _check_close(f"{label}: default (the detector kernel) vs the "
+                 "WEBAUDIO_DETECTOR=chunked render (the JAX suite's bound "
+                 "between detectors)", out, chunked_out, 2e-4)
+    _check_close(f"{label}, WEBAUDIO_DETECTOR=chunked: vs the f64 numpy "
+                 "oracle", chunked_out, want, 1e-4)
 
     # the detector kernel on 5a's captured attenuation row
     y0, xl, at, rt = detected[0][:4]
     kerr, plain_ms = _detector_kernel_check(
         f"{label}: detector_scan on the captured attenuation row "
         f"{tuple(xl.shape)}", det, y0.contiguous(), xl.contiguous(), at, rt)
-    chunked = dc._detector(y0, xl, at, rt, const_taus=ck_comp.const_taus)
+    with _env("WEBAUDIO_DETECTOR", "chunked"):
+        chunked = dc._detector(y0, xl, at, rt, const_taus=ck_comp.const_taus)
     exact = det.detector_scan(y0.contiguous(), xl.contiguous(), at, rt)
     rel = float((chunked - exact).abs().max() / exact.abs().max())
     print(f"{label}: chunked detector vs the sequential kernel on that row: "
@@ -2626,7 +2692,7 @@ def phase_t(wt, compiler, ck, det, dc, waveshaper, kernels):
                                   * 3)
     del args, cg
     torch.cuda.empty_cache()
-    return {"launches": launches, "seq_launches": seq_launches,
+    return {"launches": launches, "chunked_launches": chunked_launches,
             "s8": shaped[0], "detector_row": (y0, xl, at, rt),
             "const_taus": ck_comp.const_taus, "detector_err": kerr,
             "detector_plain_ms": plain_ms, "e2e_ms": e2e, "loop_ms": loop_ms,
@@ -2693,8 +2759,10 @@ def phase_u(wt, compiler, dither, dc, kernels):
           f"fixed-point solves a render {solves}; peak "
           f"device memory {peak / 2**30:.2f} GiB ({(peak - base) / 2**30:.2f} "
           f"GiB above the staged batch)", flush=True)
-    if launches["curve_lookup"] != 2 or launches["dither_i16"] != 1:
-        raise AssertionError("K1 or K5 did not launch on the corpus path")
+    if launches["curve_lookup"] != 2 or launches["dither_i16"] != 1 or \
+            launches["detector_scan"] != 2:
+        raise AssertionError("K1, K5 or the detector kernel (once a render) "
+                             "did not launch on the corpus path")
     host = _host(out)[..., :BATCH_FRAMES]
     if not np.isfinite(host).all() or np.abs(host).max() < 0.1:
         raise AssertionError("the corpus render is not finite or silent")
@@ -2705,17 +2773,27 @@ def phase_u(wt, compiler, dither, dc, kernels):
                      .to_array(), 1e-6)
     pick = [0, BIG_BATCH // 2 - 1, BIG_BATCH - 1, 1]
     small = {}
-    for device in ("cuda", "cpu"):
-        c, s, _, _ = mastering_context(wt, device, BATCH_FRAMES,
-                                       data=np.zeros((2, BATCH_FRAMES),
-                                                     np.float32))
-        g = wt.GraphBatch(c, batch=len(pick))
-        g.override_buffer(s, clips[pick])
-        small[device] = _host(g.render())[..., :BATCH_FRAMES]
+    # the card's default detector is the sequential kernel, the CPU's the
+    # chunked fixed point: the CPU batch with WEBAUDIO_DETECTOR=seq runs the
+    # card's algorithm (the plain version of its kernel)
+    for device, detector in (("cuda", None), ("cpu", "seq"), ("cpu", None)):
+        with _env("WEBAUDIO_DETECTOR", detector):
+            c, s, _, _ = mastering_context(wt, device, BATCH_FRAMES,
+                                           data=np.zeros((2, BATCH_FRAMES),
+                                                         np.float32))
+            g = wt.GraphBatch(c, batch=len(pick))
+            g.override_buffer(s, clips[pick])
+            small[device, detector] = _host(g.render())[..., :BATCH_FRAMES]
     _check_close(f"{label}: a {len(pick)}-instance batch on the card vs the "
-                 "port's CPU batch", small["cuda"], small["cpu"], 1e-5)
+                 "port's CPU batch with the same detector "
+                 "(WEBAUDIO_DETECTOR=seq)", small["cuda", None],
+                 small["cpu", "seq"], 1e-5)
+    _check_close(f"{label}: that batch vs the port's CPU batch with the "
+                 "CPU's default detector (the chunked fixed point; the JAX "
+                 "suite's bound between detectors)", small["cuda", None],
+                 small["cpu", None], 2e-4)
     _check_close(f"{label}: that batch vs the same lanes of the "
-                 f"{BIG_BATCH}", small["cuda"], host[pick], 1e-6)
+                 f"{BIG_BATCH}", small["cuda", None], host[pick], 1e-6)
     want = dither.dither_i16_reference(out, SEED)
     if not torch.equal(codes, want):
         raise AssertionError("render_i16 differs from the plain dither of "
@@ -2740,12 +2818,188 @@ def phase_u(wt, compiler, dither, dc, kernels):
             "busy": busy, "detector_rows": row}
 
 
-def phase_v(ck, det, dc, rs, t, u):
+BOOST_HZ = 1.98e9            # H100 SXM boost clock
+F32_LATENCY = 4              # cycles of a dependent f32 multiply or add
+# the detector kernel's chain: multiply, add, select (3 dependent
+# operations); the earlier kernel's: compare, select tau, multiply, add (4)
+CHAIN_OPS, OLD_CHAIN_OPS = 3, 4
+# (N, B) beyond 5a's and 5b's at which the detector kernel and the
+# chunked fixed point are timed for the card's default (detector_mode)
+DETECTOR_SWEEP = ((1, 128), (1024, 128), (1, 16384), (1024, 16384),
+                  (8192, 16384))
+
+
+def _chain_floor_ms(B, ops):
+    """The latency floor of one instance: B steps of `ops` dependent f32
+    operations of F32_LATENCY cycles at the boost clock."""
+    return B * ops * F32_LATENCY / BOOST_HZ * 1e3
+
+
+# One thread walks the detector's step 2^16 times on registers, timed by
+# clock64: the kernel's step (csrc/detector.cu: both candidates, a byte
+# permute selected by the compare), the same step with `?:` (ptxas then
+# predicates the second add on the compare), the earlier kernel's
+# select-tau step, and multiply + add with no select.
+CHAIN_BENCH = r"""
+#include <cuda_runtime.h>
+template <int V>
+__global__ void chain(const float* __restrict__ x, float* out, int steps,
+                      long long* cyc) {
+  float xs[16], ax[16], rx[16];
+  const float a = x[100], r = x[101];
+  const float oma = __fsub_rn(1.0f, a), omr = __fsub_rn(1.0f, r);
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    xs[j] = x[j];
+    ax[j] = __fmul_rn(oma, xs[j]);
+    rx[j] = __fmul_rn(omr, xs[j]);
+  }
+  float prev = x[102];
+  unsigned long long g0, g1;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(g0));
+  const long long t0 = clock64();
+  for (int i = 0; i < steps; i += 16) {
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      if (V == 0) {
+        asm("{\n\t.reg .pred p;\n\t.reg .f32 ta, tr, ya, yr;\n\t"
+            ".reg .b32 s;\n\t"
+            "setp.gt.f32 p, %1, %0;\n\t"
+            "mul.rn.f32 ta, %2, %0;\n\t"
+            "mul.rn.f32 tr, %3, %0;\n\t"
+            "add.rn.f32 ya, ta, %4;\n\t"
+            "add.rn.f32 yr, tr, %5;\n\t"
+            "selp.b32 s, 0x3210, 0x7654, p;\n\t"
+            "prmt.b32 %0, ya, yr, s;\n\t}"
+            : "+f"(prev) : "f"(xs[j]), "f"(a), "f"(r), "f"(ax[j]),
+              "f"(rx[j]));
+      } else if (V == 1) {
+        const float ya = __fadd_rn(__fmul_rn(a, prev), ax[j]);
+        const float yr = __fadd_rn(__fmul_rn(r, prev), rx[j]);
+        prev = xs[j] > prev ? ya : yr;
+      } else if (V == 2) {
+        const float tau = xs[j] > prev ? a : r;
+        prev = __fadd_rn(__fmul_rn(tau, prev),
+                         __fmul_rn(__fsub_rn(1.0f, tau), xs[j]));
+      } else {
+        prev = __fadd_rn(__fmul_rn(a, prev), ax[j]);
+      }
+    }
+  }
+  const long long t1 = clock64();
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(g1));
+  out[V] = prev;
+  cyc[V] = t1 - t0;
+  cyc[4 + V] = static_cast<long long>(g1 - g0);   // ns
+}
+extern "C" int chain_bench(const float* x, float* out, int steps,
+                           long long* cyc) {
+  chain<0><<<1, 1>>>(x, out, steps, cyc);
+  chain<1><<<1, 1>>>(x, out, steps, cyc);
+  chain<2><<<1, 1>>>(x, out, steps, cyc);
+  chain<3><<<1, 1>>>(x, out, steps, cyc);
+  return static_cast<int>(cudaDeviceSynchronize());
+}
+"""
+CHAIN_FORMS = ("the kernel's step (byte-permute select)",
+               "the same step written with ?: (predicated add)",
+               "the earlier kernel's step (select tau, multiply, add)",
+               "multiply + add, no select")
+
+
+def chain_cycles(cuda_lib):
+    """Cycles a step of each of CHAIN_FORMS, one thread on the card."""
+    cuda_lib.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    src = cuda_lib.BUILD_DIR / "chain_bench.cu"
+    src.write_text(CHAIN_BENCH)
+    so = cuda_lib.BUILD_DIR / "chain_bench.so"
+    subprocess.run([cuda_lib._nvcc(), *cuda_lib.NVCC_FLAGS, "-o", str(so),
+                    str(src)], check=True, capture_output=True, timeout=600)
+    fn = ctypes.CDLL(str(so)).chain_bench
+    p = ctypes.c_void_p
+    fn.argtypes = [p, p, ctypes.c_int, p]
+    x = torch.rand(128, device="cuda") * 20
+    x[100], x[101], x[102] = 0.9993, 0.99992, 3.0
+    out = torch.zeros(4, device="cuda")
+    cyc = torch.zeros(8, dtype=torch.int64, device="cuda")
+    steps = 1 << 20
+    for _ in range(2):                  # the first run warms up
+        if fn(x.data_ptr(), out.data_ptr(), steps, cyc.data_ptr()):
+            raise RuntimeError("the chain benchmark failed")
+    c = cyc.cpu().double()
+    cycles = (c[:4] / steps).tolist()
+    # the SM clock while the steps ran: clock64 cycles over %globaltimer ns
+    ghz = float(c[:4].sum() / c[4:].sum())
+    print("v. the detector's step, one thread, cycles a step: " + "; ".join(
+        f"{what} {cy:.2f}" for what, cy in zip(CHAIN_FORMS, cycles))
+        + f"; SM clock meanwhile {ghz:.3f} GHz", flush=True)
+    res = dict(zip(("kernel", "conditional", "earlier", "no_select"),
+                   cycles))
+    res["sm_ghz"] = ghz
+    return res
+
+
+def _bind_detector(lib):
+    """An earlier detector.cu's `detector_seq_launch`, called as
+    ops/detector.py::_launch calls this checkout's."""
+    fn = lib.detector_seq_launch
+    p = ctypes.c_void_p
+    fn.argtypes = [p, p, p, p, p, ctypes.c_longlong, ctypes.c_longlong,
+                   ctypes.c_int, p]
+    fn.restype = ctypes.c_int
+
+    def launch(y0, x, at, rt, out):
+        N, B = x.shape
+        rc = fn(y0.data_ptr(), x.data_ptr(), at.data_ptr(), rt.data_ptr(),
+                out.data_ptr(), N, B, int(at.shape[1] != 1),
+                torch.cuda.current_stream(x.device).cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"the earlier detector kernel: CUDA error {rc}")
+        return out
+
+    return launch
+
+
+def detector_ab(det, old, key, y0, xl, at, rt):
+    """The earlier detector kernel (`old`, from --old) against this one at
+    (N, B), in turns: plain (the host loop), old, new, new, old, plain,
+    each turn the median of 5 CUDA-event timings (the plain version's one
+    host-clock run); each kernel checked bit-equal to the plain version.
+    Returns {version: [ms of each turn]}."""
+    at, rt = (t.contiguous() for t in det._taus(xl, at, rt))
+    cpu = [t.cpu() for t in (y0, xl, at, rt)]
+    want = det.detector_reference(*cpu)
+    out = torch.empty_like(xl)
+    runs = {"new": lambda: det._launch(y0, xl, at, rt, out),
+            "old": lambda: old(y0, xl, at, rt, out)}
+    for name, run in runs.items():
+        out.fill_(float("nan"))
+        run()
+        _equal(f"v. detector {key} {tuple(xl.shape)}: the {name} kernel vs "
+               "the plain version", out.cpu(), want)
+    times = {"plain": [], "old": [], "new": []}
+    for name in ("plain", "old", "new", "new", "old", "plain"):
+        if name == "plain":
+            t0 = time.perf_counter()
+            det.detector_reference(*cpu)
+            times[name].append((time.perf_counter() - t0) * 1e3)
+        else:
+            times[name].append(_median_events_ms(runs[name]))
+    print(f"v. detector {key} {tuple(xl.shape)} in turns (plain, old, new, "
+          f"new, old, plain): " + ", ".join(
+              f"{k} {['%.3f' % v for v in vs]} ms" for k, vs in times.items()),
+          flush=True)
+    return times
+
+
+def phase_v(ck, det, dc, rs, cuda_lib, t, u, old_detector=None):
     """Times: K1 at S8 (5a's captured launch) and MDN's 44,100-point curve
     on S8's samples, warm and cold L2, against the plain version, the bound
     and grid_sample; the detector kernel against the chunked path at 5a's
-    and 5b's detector inputs; the resamplers' device time at 5a's and 5b's
-    shapes.  Returns the timings."""
+    and 5b's detector inputs and at DETECTOR_SWEEP's shapes (cut and tiled
+    from 5b's), and against an earlier detector kernel (--old) in turns;
+    the resamplers' device time at 5a's and 5b's shapes.  Returns the
+    timings."""
     curve, x = t["s8"]
     curve = (curve[0] if curve.dim() == 2 else curve).contiguous()
     x = x.contiguous()
@@ -2764,27 +3018,48 @@ def phase_v(ck, det, dc, rs, t, u):
                                                            c, x)
         res[key] = r
 
-    # the detector kernel against the chunked path the node runs by default
-    for key, (y0, xl, at, rt) in (("5a", t["detector_row"]),
-                                  ("5b", u["detector_rows"])):
+    # the detector kernel against the chunked fixed point (forced), the
+    # card's default before this kernel was; the measured floor is B steps
+    # at the kernel's step alone
+    cycles = chain_cycles(cuda_lib)
+    res["chain_cycles"] = cycles
+    y5b = u["detector_rows"]
+    sweep = [(f"{N} x {B}", (y5b[0][:1].repeat(N), y5b[1][:1, :B].repeat(
+        N, 1).contiguous(), y5b[2], y5b[3])) for N, B in DETECTOR_SWEEP]
+    for key, (y0, xl, at, rt) in [("5a", t["detector_row"]),
+                                  ("5b", y5b)] + sweep:
         y0, xl = y0.contiguous(), xl.contiguous()
         N, B = xl.shape
         k_ms = _median_events_ms(lambda: det.detector_scan(y0, xl, at, rt))
-        c_ms = _median_events_ms(lambda: dc._detector(
-            y0, xl, at, rt, const_taus=t["const_taus"]))
+        with _env("WEBAUDIO_DETECTOR", "chunked"):
+            c_ms = _median_events_ms(lambda: dc._detector(
+                y0, xl, at, rt, const_taus=t["const_taus"]))
         nbytes = _nbytes(y0, xl) + xl.numel() * 4 + 8
         b_ms, b_by = _bound(nbytes, 6 * N * B)
-        # one chain of B dependent steps (compare, select, multiply, add:
-        # ~4 dependent f32 operations of ~4 cycles) at the 1,980 MHz boost
-        # clock: the latency floor of one instance, whatever the bytes
-        lat_ms = B * 4 * 4 / 1.98e9 * 1e3
-        print(f"v. detector {key} ({N}, {B}): kernel {k_ms:.3f} ms, the "
-              f"chunked fixed point (the default path) {c_ms:.3f} ms; bound "
-              f"{b_ms * 1000:.2f} us ({b_by}), latency floor of one chain "
-              f"~{lat_ms:.3f} ms", flush=True)
+        lat_ms = _chain_floor_ms(B, CHAIN_OPS)
+        old_lat_ms = _chain_floor_ms(B, OLD_CHAIN_OPS)
+        step_ms = B * cycles["kernel"] / (cycles["sm_ghz"] * 1e9) * 1e3
+        plan = det.launch_plan(N, B, at.dim() == 2 and at.shape[-1] > 1)
+        print(f"v. detector {key} ({N}, {B}) [{plan}]: kernel {k_ms:.3f} ms "
+              f"({k_ms * 1e6 * cycles['sm_ghz'] / B:.2f} cycles a step at "
+              f"the measured SM clock), the chunked fixed point {c_ms:.3f} ms "
+              f"({'kernel' if k_ms <= c_ms else 'chunked'} ahead); bound "
+              f"{b_ms * 1000:.2f} us ({b_by}); latency floor of one chain "
+              f"~{lat_ms:.3f} ms at {CHAIN_OPS} dependent operations of "
+              f"{F32_LATENCY} cycles (~{old_lat_ms:.3f} ms at the earlier "
+              f"{OLD_CHAIN_OPS}), {step_ms:.3f} ms at the step's measured "
+              f"{cycles['kernel']:.2f} cycles and SM clock", flush=True)
         res[f"detector {key}"] = {"ms": k_ms, "chunked_ms": c_ms,
                                   "bound_ms": b_ms, "bound_by": b_by,
-                                  "latency_bound_ms": lat_ms}
+                                  "latency_bound_ms": lat_ms,
+                                  "latency_bound_ms_4_ops": old_lat_ms,
+                                  "step_bound_ms": step_ms, "plan": plan}
+        if old_detector is not None and key in ("5a", "5b"):
+            res[f"detector {key}"]["ab"] = detector_ab(
+                det, old_detector, key, y0, xl, at, rt)
+        del xl
+    del sweep
+    torch.cuda.empty_cache()
 
     # the resamplers (f64 convolutions) at 5a's and 5b's shapes
     for key, shape in (("5a", (1, 2, FRAMES)),
@@ -4201,9 +4476,9 @@ def _bind_curve(ck, lib):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--old", metavar="SOURCE", action="append", default=[],
-                    help="an earlier grain_read.cu or curve_lookup.cu (told "
-                    "apart by their C entry points) to time against this "
-                    "one; may be given once for each")
+                    help="an earlier grain_read.cu, curve_lookup.cu or "
+                    "detector.cu (told apart by their C entry points) to "
+                    "time against this one; may be given once for each")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; nothing was run",
@@ -4240,14 +4515,17 @@ def main() -> int:
     for (_, source), (lib, lines) in zip(olds, reported):
         kind = ("grain" if hasattr(lib, "grain_bank_f32") else "curve"
                 if hasattr(lib, "curve_lookup_f32")
-                or hasattr(lib, "curve_lookup_launch") else None)
+                or hasattr(lib, "curve_lookup_launch") else "detector"
+                if hasattr(lib, "detector_seq_launch") else None)
         if kind is None or kind in old:
-            raise SystemExit(f"chip_smoke: --old {source} is neither "
-                             "grain_read.cu nor curve_lookup.cu, or repeats "
-                             "one")
-        old[kind] = gr._bind(lib) if kind == "grain" else _bind_curve(ck, lib)
-        new = cuda_lib.CSRC_DIR / ("grain_read.cu" if kind == "grain"
-                                   else "curve_lookup.cu")
+            raise SystemExit(f"chip_smoke: --old {source} is none of "
+                             "grain_read.cu, curve_lookup.cu and detector.cu, "
+                             "or repeats one")
+        old[kind] = {"grain": gr._bind, "curve": lambda lb: _bind_curve(ck, lb),
+                     "detector": _bind_detector}[kind](lib)
+        new = cuda_lib.CSRC_DIR / {"grain": "grain_read.cu",
+                                   "curve": "curve_lookup.cu",
+                                   "detector": "detector.cu"}[kind]
         _, new_lines = _ptxas_build(cuda_lib, f"new-{kind}", new)
         for name, src, lns in (("old", source, lines), ("new", new, new_lines)):
             print(f"build ({name}: {src}, -Xptxas -v):", flush=True)
@@ -4304,7 +4582,7 @@ def main() -> int:
     master = (ck.curve_lookup, dither.dither_i16, det.detector_scan)
     t5a = phase_t(wt, compiler, ck, det, dc, waveshaper, master)
     u5b = phase_u(wt, compiler, dither, dc, master)
-    v = phase_v(ck, det, dc, rs, t5a, u5b)
+    v = phase_v(ck, det, dc, rs, cuda_lib, t5a, u5b, old.get("detector"))
     k1.update({k: v[k] for k in ("S8", "S8 n 44100")})
     del t5a["s8"], t5a["detector_row"], u5b["detector_rows"]
     torch.cuda.empty_cache()
@@ -4374,6 +4652,8 @@ def main() -> int:
          "launches_session_path": zc["k5_launches"],
          "max_abs_err": q_err[0],
          "ms": times["dither_i16"][0], "plain_ms": times["dither_i16"][1],
+         "cold_ms": times["dither_i16"][2],
+         "share_of_bound": k5_bound[0] / times["dither_i16"][2],
          "bound_ms": k5_bound[0], "bound_by": k5_bound[1],
          "library_ms": None},
         {"name": "ulaw_u8", "route": "cuda",
@@ -4381,6 +4661,8 @@ def main() -> int:
          "replaces": "webaudio_tpu/ops/dither.py:113",
          "launches": launches["ulaw_u8"], "max_abs_err": q_err[1],
          "ms": times["ulaw_u8"][0], "plain_ms": times["ulaw_u8"][1],
+         "cold_ms": times["ulaw_u8"][2],
+         "share_of_bound": k6_bound[0] / times["ulaw_u8"][2],
          "bound_ms": k6_bound[0], "bound_by": k6_bound[1],
          "library_ms": None},
         {"name": "grain_bank", "route": "cuda",
@@ -4415,17 +4697,24 @@ def main() -> int:
         {"name": "detector_scan", "route": "cuda",
          "source": "webaudio_tpu_torch/csrc/detector.cu",
          "replaces": "webaudio_tpu/nodes/dynamics_compressor.py:28",
-         "launches": t5a["seq_launches"]["detector_scan"],
-         "launches_default_path": t5a["launches"]["detector_scan"],
-         "launches_corpus_path": u5b["launches"]["detector_scan"],
+         "launches": t5a["launches"]["detector_scan"],
+         "launches_default_5a": t5a["launches"]["detector_scan"],
+         "launches_default_5b": u5b["launches"]["detector_scan"],
+         "launches_chunked_5a": t5a["chunked_launches"]["detector_scan"],
          "max_abs_err": max(det_err, t5a["detector_err"]),
          "ms": v["detector 5a"]["ms"],
          "plain_ms": t5a["detector_plain_ms"], "plain_on": "host cpu",
          "bound_ms": v["detector 5a"]["bound_ms"],
          "bound_by": v["detector 5a"]["bound_by"],
          "latency_bound_ms": v["detector 5a"]["latency_bound_ms"],
+         "latency_bound_ms_4_ops": v["detector 5a"]["latency_bound_ms_4_ops"],
+         "step_bound_ms": v["detector 5a"]["step_bound_ms"],
+         "chain_cycles": v["chain_cycles"],
          "chunked_ms": v["detector 5a"]["chunked_ms"],
-         "at_5b": v["detector 5b"], "library_ms": None},
+         "at_5b": v["detector 5b"],
+         "sweep": {k[len("detector "):]: v[k] for k in v
+                   if k.startswith("detector ") and k[9:] not in ("5a", "5b")},
+         "library_ms": None},
     ]
     for row in rows:
         row.setdefault("share_of_bound", row["bound_ms"] / row["ms"])

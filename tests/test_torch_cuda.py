@@ -676,28 +676,74 @@ def _detector_inputs(N, B, per_sample, seed=3):
     return y0, x, at, rt
 
 
-@pytest.mark.parametrize("N,B", [(1, 1), (1, 4099), (3, 4099), (1024, 1000),
-                                 (130, 17)])
+def _detector_equal(cuda, y0, x, at, rt, offset=0):
+    """detector_scan on the card against detector_reference, bit for bit,
+    one launch counted.  offset > 0 puts every input `offset` floats into
+    its storage, so its rows start off a 16-byte boundary."""
+    from webaudio_tpu_torch.ops import detector as tdet
+
+    want = tdet.detector_reference(*(torch.from_numpy(a)
+                                     for a in (y0, x, at, rt)))
+
+    def dev(a):
+        if not offset:
+            return torch.from_numpy(a).to(cuda)
+        store = torch.zeros(a.size + offset, device=cuda)
+        view = store[offset:].view(a.shape)
+        view.copy_(torch.from_numpy(a))
+        assert view.is_contiguous() and view.data_ptr() % 16
+        return view
+
+    before = tdet.detector_scan.launches
+    got = tdet.detector_scan(*(dev(a) for a in (y0, x, at, rt)))
+    torch.cuda.synchronize()
+    assert tdet.detector_scan.launches == before + 1
+    assert torch.equal(got.cpu(), want)
+
+
+# N about the CTA sizes: 8 instances a CTA at 1,024 (1,025 leaves one in
+# the last CTA), 1 up to the 132 SMs; B 4,097 crosses a tile and is not a
+# multiple of 4 (the 4-byte cp.async path), B 1 and 3 are one short tile
+@pytest.mark.parametrize("N", [1, 7, 8, 9, 132, 1024, 1025])
+@pytest.mark.parametrize("B", [1, 3, 4097])
 @pytest.mark.parametrize("per_sample", (False, True))
 @pytest.mark.parametrize("edge", ("none", "attack 0", "release 0"))
 def test_detector_kernel_equals_plain_version(cuda, N, B, per_sample, edge):
     """csrc/detector.cu against detector_reference, bit for bit: one or a
     tau an instance or a sample, attack 0 (y resets to x), release 0."""
-    from webaudio_tpu_torch.ops import detector as tdet
-
     y0, x, at, rt = _detector_inputs(N, B, per_sample)
     if edge == "attack 0":
         at[:] = 0.0
     elif edge == "release 0":
         rt[:] = 0.0
-    want = tdet.detector_reference(*(torch.from_numpy(a)
-                                     for a in (y0, x, at, rt)))
-    before = tdet.detector_scan.launches
-    got = tdet.detector_scan(*(torch.from_numpy(a).to(cuda)
-                               for a in (y0, x, at, rt)))
-    torch.cuda.synchronize()
-    assert tdet.detector_scan.launches == before + 1
-    assert torch.equal(got.cpu(), want)
+    _detector_equal(cuda, y0, x, at, rt)
+
+
+@pytest.mark.parametrize("N", [1, 1024])
+@pytest.mark.parametrize("tiles,delta", [(1, -1), (1, 0), (1, 1), (4, 1),
+                                         (9, -1)])
+@pytest.mark.parametrize("per_sample", (False, True))
+def test_detector_kernel_at_tile_boundaries(cuda, N, tiles, delta,
+                                            per_sample):
+    """B a tile's length (from the kernel's launch plan) times 1, 4 or 9,
+    plus or minus one: the last tile short by one, exact, or one sample
+    long; 9 tiles wrap the 4-slot ring twice."""
+    from webaudio_tpu_torch.ops import detector as tdet
+
+    tile = tdet.launch_plan(N, 1 << 20, per_sample)["tile"]
+    B = tiles * tile + delta
+    assert tdet.launch_plan(N, B, per_sample)["tile"] == tile
+    _detector_equal(cuda, *_detector_inputs(N, B, per_sample, seed=B))
+
+
+@pytest.mark.parametrize("N,B", [(1, 4096), (1, 4097), (1024, 4096),
+                                 (9, 12288)])
+@pytest.mark.parametrize("per_sample", (False, True))
+def test_detector_kernel_unaligned_rows(cuda, N, B, per_sample):
+    """Inputs one float into their storage (a column slice made contiguous
+    at an odd offset): no row starts on a 16-byte boundary, so the kernel
+    stages through 4-byte copies, and must agree all the same."""
+    _detector_equal(cuda, *_detector_inputs(N, B, per_sample), offset=1)
 
 
 @pytest.mark.parametrize("bad", ["non-contiguous", "f64", "x on cpu"])
@@ -770,13 +816,15 @@ def _mastering(device, seconds=1.0):
     return ctx, comp, an
 
 
-@pytest.mark.parametrize("detector", ("auto", "seq"))
+@pytest.mark.parametrize("detector", ("auto", "seq", "chunked"))
 def test_mastering_chain_on_the_card_matches_cpu(default_tf32, monkeypatch,
                                                  detector):
     """The chain on the card under PyTorch's default TF32 flags within
-    1e-5 x peak of the CPU render, K1 launched once (one block), the
-    detector kernel only where WEBAUDIO_DETECTOR=seq asks for it; the
-    compressor's reduction and the analyser's ring as on the CPU."""
+    1e-5 x peak of the CPU render with the same WEBAUDIO_DETECTOR (by
+    default the CPU runs the chunked fixed point and the card the detector
+    kernel), K1 launched once (one block), the detector kernel once by
+    default and for =seq, never for =chunked; the compressor's reduction
+    and the analyser's ring as on the CPU."""
     from webaudio_tpu_torch.ops import detector as tdet
 
     monkeypatch.setenv("WEBAUDIO_DETECTOR", detector)
@@ -784,7 +832,7 @@ def test_mastering_chain_on_the_card_matches_cpu(default_tf32, monkeypatch,
     ctx, comp, an = _mastering(default_tf32)
     got = ctx.start_rendering_sync().to_array()
     assert ck.curve_lookup.launches == k1 + 1
-    assert tdet.detector_scan.launches == det + (detector == "seq")
+    assert tdet.detector_scan.launches == det + (detector != "chunked")
     cctx, ccomp, can = _mastering("cpu")
     want = cctx.start_rendering_sync().to_array()
     peak = float(np.abs(want).max())

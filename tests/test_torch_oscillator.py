@@ -390,3 +390,33 @@ def test_plans_match_jax():
         assert tcg.order == jcg.order
         assert tcg.dense_params == jcg.dense_params
         assert tcg.out_counts == jcg.out_counts
+
+
+def test_package_root_exports():
+    """PeriodicWave at the root, EventType and OscillatorBankNode lazily,
+    as webaudio_tpu/__init__.py has them."""
+    from webaudio_tpu_torch import EventType, OscillatorBankNode, PeriodicWave
+    from webaudio_tpu_torch.events import EventType as E
+    from webaudio_tpu_torch.nodes.oscillator_bank import OscillatorBankNode as O
+    from webaudio_tpu_torch.periodic_wave import PeriodicWave as P
+
+    assert (EventType, OscillatorBankNode, PeriodicWave) == (E, O, P)
+
+
+def test_custom_periodic_wave():
+    """tests/test_oscillator.py::test_custom_periodic_wave on the port: a
+    pure second harmonic through the 8,192-entry table."""
+    from webaudio_tpu_torch import PeriodicWave
+
+    fs, n = 48000.0, 4800
+    ctx = wt.OfflineAudioContext(1, n, fs, device="cpu")
+    wave = ctx.create_periodic_wave(real=[0, 0, 0], imag=[0, 0, 1])
+    assert isinstance(wave, PeriodicWave)
+    osc = ctx.create_oscillator(periodic_wave=wave, frequency=100.0)
+    osc.connect(ctx.destination)
+    osc.start()
+    out = ctx.start_rendering_sync().get_channel_data(0)
+    phase = (100.0 / fs) * np.arange(n, dtype=np.float64) % 1.0
+    expected = np.sin(2 * np.pi * 2 * phase)
+    np.testing.assert_allclose(out, expected, atol=5e-3)
+    assert osc.type.value == "custom"

@@ -68,14 +68,14 @@ def _render(mod, graph_fn, *args, **kw):
 
 def _check(monkeypatch, graph_fn, threshold, *args, rel=1e-5, **kw):
     """Fused port vs fused JAX (rel x peak), fused port vs unfused port
-    (2e-5 x peak, or rel where looser); returns the port's fused plan and
-    render."""
+    (2e-5 x peak, the JAX suite's bound, whatever rel is); returns the
+    port's fused plan and render."""
     monkeypatch.setenv("WEBAUDIO_FUSE_THRESHOLD", str(threshold))
     cg = _plans(graph_fn, *args, **kw)
     got = _render(wt, graph_fn, *args, **kw)
     _close(got, _render(wa, graph_fn, *args, **kw), rel)
     monkeypatch.setenv("WEBAUDIO_FUSE_THRESHOLD", "0")
-    _close(got, _render(wt, graph_fn, *args, **kw), max(rel, 2e-5))
+    _close(got, _render(wt, graph_fn, *args, **kw), 2e-5)
     return cg, got
 
 
@@ -122,15 +122,16 @@ def synth(mod, n_osc=48, seconds=0.25, dense_freq=False, typ="sawtooth",
 ], ids=["closed-form", "dense-freq", "dense-freq-triangle", "plain-bank",
         "sine"])
 def test_fused_matches_jax_and_unfused(monkeypatch, kw, rel):
-    """The dense-frequency sawtooth is held at 2e-4 x peak, to the JAX render
-    and to its own unfused one: in the cumsum path every voice's f32
-    frequency f * 2^(d/1200) comes from the device's exp2 (XLA's
-    exp(d ln 2) polynomial in the JAX package, torch's here, numpy's on the
-    host for an unfused constant voice), an ulp apart for one voice in 48;
-    its phase drifts ~1e-6 cycles over the render and the sawtooth's
-    polyBLEP step (slope 2/incr at 80-2,080 Hz) turns that into 1.1e-4 x
-    peak at a few edges.  The same graph as a triangle, which has no step,
-    agrees at 1e-5."""
+    """Every bank holds to its own unfused render at 2e-5 x peak.  The
+    dense-frequency sawtooth is held at 2e-4 x peak to the JAX render: in
+    the cumsum path an automated voice's f32 frequency f * 2^(d/1200)
+    comes from the framework's exp2 (XLA's exp(d ln 2) polynomial in the
+    JAX package, torch's here), and a constant voice's from numpy on the
+    host, as an unfused oscillator takes it (voice 40's is an ulp off
+    torch's); an ulp moves the phase ~1e-6 cycles over the render, and the
+    sawtooth's polyBLEP step (slope 2/incr at 80-2,080 Hz) turns that into
+    1.1e-4 x peak at a few edges.  The same graph as a triangle, which has
+    no step, agrees at 1e-5."""
     cg, _ = _check(monkeypatch, synth, 8, rel=rel, **kw)
     (fused,) = _fused(cg)
     assert fused.V == 48 and fused.all_const_freq == ("dense_freq" not in kw)

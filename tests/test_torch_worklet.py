@@ -282,6 +282,75 @@ def test_script_processor_per_instance_of_a_batch():
             out[i, 2 * bufsize:], 2.0 * (i + 1) * x[: n - 2 * bufsize])
 
 
+
+class TScale(wt.AudioWorkletProcessor):
+    """Scales its input by `processor_options["scale"]`."""
+
+    def __init__(self, options=None, port=None):
+        super().__init__(options, port)
+        self.scale = float(self.options.get("scale", 1.0))
+
+    def process(self, scope, state, inputs, params):
+        return state, [inputs[0] * self.scale]
+
+
+def _lanes_equal_own_renders(make, scales):
+    """A MixedGraphBatch of make(s) for each s splits into one bucket an
+    instance, and each lane equals its context's own render (1e-6 x
+    peak)."""
+    mb = wt.MixedGraphBatch([make(s) for s in scales])
+    outs = mb.render()
+    assert mb.num_buckets == len(scales)
+    for s, out in zip(scales, outs):
+        own = make(s).start_rendering_sync().to_array()
+        peak = float(np.abs(own).max())
+        assert peak > 0.1 and np.median(own) == pytest.approx(s, abs=1e-6)
+        assert float(np.abs(out - own).max()) <= 1e-6 * peak
+
+
+def test_worklet_processor_options_do_not_bleed_across_lanes():
+    """tests/test_mixed_batch.py:240 on the port: two contexts that differ
+    only in a worklet's processor_options bucket apart (the processor
+    instance is fingerprinted by identity), each lane with its own
+    options."""
+
+    def make(scale):
+        ctx = _context(wt, 1, 2048)
+        src = ctx.create_constant_source(offset=1.0)
+        src.start()
+        w = wt.AudioWorkletNode(ctx, TScale,
+                                processor_options={"scale": scale})
+        src.connect(w)
+        w.connect(ctx.destination)
+        return ctx
+
+    _lanes_equal_own_renders(make, (0.25, 0.75))
+
+
+def test_script_processor_handlers_do_not_bleed_across_lanes():
+    """Two contexts whose script processors' handlers differ (scaling by
+    0.25 and 0.75) bucket apart on the port (the handler is fingerprinted
+    by identity; the JAX package shares the first lane's), each lane with
+    its own handler."""
+    bufsize, n = 256, 4096
+
+    def make(scale):
+        ctx = _context(wt, 1, n)
+        src = ctx.create_constant_source(offset=1.0)
+        src.start()
+        sp = ctx.create_script_processor(bufsize, 1, 1)
+
+        def handler(ev):
+            ev.output_buffer[:] = ev.input_buffer * scale
+
+        sp.set_onaudioprocess(handler)
+        src.connect(sp)
+        sp.connect(ctx.destination)
+        return ctx
+
+    _lanes_equal_own_renders(make, (0.25, 0.75))
+
+
 def test_worklet_lazy_construction_and_failure_isolation():
     """:360: the processor is built at first plan, not node creation; a
     constructor that throws silences only its node and fires

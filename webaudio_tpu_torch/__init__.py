@@ -33,6 +33,7 @@ from .constants import (  # noqa: F401
 )
 from .buffer import AudioBuffer  # noqa: F401
 from .param import AudioParam, AudioParamDescriptor, AutomationRate  # noqa: F401
+from .periodic_wave import PeriodicWave  # noqa: F401
 from .ops.cuda_lib import KernelError  # noqa: F401
 from .ops.mixing import ChannelCountMode, ChannelInterpretation  # noqa: F401
 from .context.base import BaseAudioContext, AudioContextState  # noqa: F401
@@ -49,11 +50,15 @@ _LAZY = {
     "render_time_sharded": ("webaudio_tpu_torch.parallel.segments",
                             "render_time_sharded"),
     "RenderSession": ("webaudio_tpu_torch.checkpoint", "RenderSession"),
+    "EventType": ("webaudio_tpu_torch.events", "EventType"),
+    "OscillatorBankNode": ("webaudio_tpu_torch.nodes.oscillator_bank",
+                           "OscillatorBankNode"),
 }
 
 
 def __getattr__(name):
-    # lazy imports for the session, segment and user-code modules
+    # lazy imports for the session, segment, user-code, event and
+    # voice-bank modules
     if name in _LAZY:
         import importlib
 

@@ -734,13 +734,18 @@ class _FusedVoicesKernel(Kernel):
             self.det_const, self.det_dense, self.det_lim = classify("detune")
             self.all_const_freq = (len(self.freq_dense) == 0
                                    and len(self.det_dense) == 0)
-        if self.all_const_freq and not self.is_const_src:
+        if not self.is_const_src:
             # bit-identical to the oscillator's host math
-            # (nodes/oscillator.py make_kernel: f32 f * exp2(d / 1200))
+            # (nodes/oscillator.py make_kernel: f32 f * exp2(d / 1200)); on
+            # the dense path the voices whose frequency and detune are both
+            # constant take it too, so fused and unfused voices agree
             f = self.freq_const.astype(np.float32)
             d = self.det_const.astype(np.float32)
             self.computed_const = (
                 f * np.exp2(d / np.float32(1200.0))).astype(np.float32)
+            dense = set(self.freq_dense.tolist()) | set(self.det_dense.tolist())
+            self.const_voices = np.asarray(
+                [i not in dense for i in range(self.V)])
 
     def _pick_window(self):
         """Choose the read mode and its geometry from WEBAUDIO_GRAIN_READ.
@@ -814,8 +819,7 @@ class _FusedVoicesKernel(Kernel):
             res["ratios"] = self.ratios
             res["freq_const"] = self.freq_const
             res["det_const"] = self.det_const
-            if self.all_const_freq:
-                res["computed_const"] = self.computed_const
+            res["computed_const"] = self.computed_const
             if self.is_custom:
                 res["tables"] = self.tables
         if self.has_gain:
@@ -957,6 +961,12 @@ class _FusedVoicesKernel(Kernel):
                 det = self._full(r["det_const"], self.det_dense,
                                  params.get("detune"), self.det_lim)
                 computed = osc_ops.computed_frequency(freq, det)   # (N, V, B)
+                if self.const_voices.any():
+                    keep = torch.as_tensor(self.const_voices,
+                                           device=computed.device)
+                    computed = torch.where(keep[:, None],
+                                           r["computed_const"][..., None],
+                                           computed)
                 incr64 = computed.to(torch.float64) * (1.0 / fs)
                 incr = incr64.to(torch.float32)
                 at_start = t == starts

@@ -8,21 +8,26 @@ one-quantum lookahead delay).  Ported from
 
 Everything but the level detector is elementwise tensor math over (N, B).
 The detector `y[n] = a y[n-1] + (1-a) x[n]`, with `a` chosen by
-`x[n] > y[n-1]`, is sequential; it runs as the JAX package runs it:
+`x[n] > y[n-1]`, is sequential.  `detector_mode` picks how it runs:
 
-- `auto`/`chunked` with constant attack/release taus (k-rate, no
-  automation) that pass `chunked_taus_ok`, on blocks of >= 128 frames:
-  the branch-pattern fixed point with a closed-form solve per 128-sample
-  chunk (`_detector_fixed_point_chunked`);
-- otherwise the fixed point with a first-order recursive-doubling scan
+- on the card, by default (`auto`): the sequential recurrence, one launch
+  of the hand-written CUDA kernel (`ops/detector.py`, `csrc/detector.cu`)
+  a block, with no host sync;
+- on the CPU, by default, as the JAX package runs it: with constant
+  attack/release taus (k-rate, no automation) that pass `chunked_taus_ok`,
+  on blocks of >= 128 frames, the branch-pattern fixed point with a
+  closed-form solve per 128-sample chunk (`_detector_fixed_point_chunked`);
+  otherwise the fixed point with a first-order recursive-doubling scan
   (`_detector_fixed_point`);
-- WEBAUDIO_DETECTOR=seq: the sequential recurrence, a hand-written CUDA
-  kernel on the card (`ops/detector.py`); =fp64: the fixed point in f64.
+- WEBAUDIO_DETECTOR=seq: the sequential recurrence on any device (the
+  plain version on the CPU); =chunked: the CPU's default on any device;
+  =fp64: the fixed point in f64; =fixed_point: the generic fixed point.
 
-Convergence is judged per instance; the instances whose branch pattern has
-not settled after `max_iters` take the sequential kernel, the rest keep
-their fixed point.  Each fixed-point iteration asks the host whether any
-instance's pattern changed: one device sync per iteration.
+In the fixed points convergence is judged per instance; the instances whose
+branch pattern has not settled after `max_iters` take the sequential
+kernel, the rest keep their fixed point.  Each fixed-point iteration asks
+the host whether any instance's pattern changed: one device sync per
+iteration.
 """
 
 from __future__ import annotations
@@ -190,12 +195,26 @@ def chunked_taus_ok(a: float, r: float) -> bool:
             and a ** _CH >= 1e-20 and r ** _CH >= 1e-20)
 
 
-def detector_mode(const_taus, frames: int) -> str:
-    """Which detector `_detector` runs: "seq", "fp64", "chunked" or
-    "fixed_point" (WEBAUDIO_DETECTOR, then the chunked guard)."""
+def detector_mode(const_taus, frames: int, device="cpu") -> str:
+    """Which detector `_detector` runs on a block of `frames` samples on
+    `device`: "seq", "fp64", "chunked" or "fixed_point" (WEBAUDIO_DETECTOR,
+    then the device, then the chunked guard).
+
+    On a CUDA device `auto` is "seq" at every (N, B): the kernel walks each
+    instance's B samples once, in one launch, and the chunked fixed point
+    sweeps the block several times an iteration with a host sync after
+    each.  On an H100 (`chip_smoke.py` phase v) the kernel took ~4.8 ms at
+    5a's (1, 480,000) and ~1.1 ms at 5b's (1,024, 96,000) against the
+    chunked path's 11.5-15.3 and 143-147 ms, and led at every shape of
+    the phase's sweep (B from 128 to 480,000, N from 1 to 8,192): by
+    2.3-3.2x at 5a's shape, 7x or more at the others.  No crossover, so N
+    and B do not enter the rule.  The CPU keeps the JAX package's
+    choice."""
     mode = os.environ.get("WEBAUDIO_DETECTOR", "auto")
     if mode in ("seq", "fp64"):
         return mode
+    if mode == "auto" and torch.device(device).type == "cuda":
+        return "seq"
     if const_taus is not None and mode in ("auto", "chunked") and \
             chunked_taus_ok(*const_taus) and frames >= _CH:
         return "chunked"
@@ -206,7 +225,7 @@ def _detector(y0, x, at, rt, const_taus=None):
     """y0 (N,), x (N, B); at, rt () or (N, B).  const_taus: (a, r) floats
     when the kernel knows the taus are constants (k-rate, no automation),
     which enables the chunked solve; None keeps the generic paths."""
-    mode = detector_mode(const_taus, x.shape[-1])
+    mode = detector_mode(const_taus, x.shape[-1], x.device)
     if mode == "seq":
         return detector_scan(y0.contiguous(), x.contiguous(), at, rt)
     if mode == "fp64":

@@ -39,6 +39,10 @@ class AudioProcessingEvent:
 class _ScriptProcessorKernel(Kernel):
     def __init__(self, node, rc):
         self.node = node
+        # the handler as planned: a callable attribute, so MixedGraphBatch
+        # buckets nodes with different handlers apart (the JAX package
+        # fingerprints the node by type only and shares the first lane's)
+        self.handler = node._onaudioprocess
         self.bufsize = node.buffer_size
         self.cin = max(1, node._n_in)
         self.cout = max(1, node._n_out)
@@ -59,7 +63,7 @@ class _ScriptProcessorKernel(Kernel):
     def _host_process(self, chunk: torch.Tensor, frame: int) -> torch.Tensor:
         """Each instance's completed (C_in, n) buffer through the handler:
         (N, C_out, n) on the device."""
-        handler = self.node._onaudioprocess
+        handler = self.handler
         host = chunk.cpu().numpy()
         outs = np.zeros((host.shape[0], self.cout, self.bufsize), np.float32)
         if handler is not None:

@@ -7,11 +7,12 @@ version.
 over (N, B): one recurrence per instance, y[-1] = y0[n].  It replaces the
 per-sample `lax.scan` of
 `webaudio_tpu/nodes/dynamics_compressor.py::_detector_sequential`, which
-had no Pallas kernel on the TPU.  The node runs it for
-WEBAUDIO_DETECTOR=seq and as the exact fallback for the instances whose
-fixed-point branch pattern did not settle (nodes/dynamics_compressor.py).
-On the card a loop over samples would launch a handful of kernels per
-sample; `csrc/detector.cu` walks one instance's samples in one thread.
+had no Pallas kernel on the TPU.  On the card it is the compressor's
+default detector (nodes/dynamics_compressor.py::detector_mode), and on
+every device the exact fallback for the instances whose fixed-point branch
+pattern did not settle.  `csrc/detector.cu` runs one chain thread an
+instance, up to 32 instances a CTA, with tiles of x staged through shared
+memory by TMA bulk copies (`launch_plan` says how the card's launch is cut).
 
 `detector_scan` launches the kernel for CUDA tensors and raises
 `KernelError` for anything it cannot take; it runs `detector_reference`
@@ -75,6 +76,24 @@ def _launcher():
                    ctypes.c_int, p]
     fn.restype = ctypes.c_int
     return fn
+
+
+@functools.cache
+def _planner():
+    fn = load_library(_SOURCE).detector_seq_plan
+    fn.argtypes = [ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
+                   ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def launch_plan(n: int, b: int, per_sample: bool) -> dict:
+    """The kernel's launch on the current CUDA device for (n, b): `rows`
+    instances a CTA (one chain thread each), `tile` samples a staged tile,
+    `ctas` and `smem` bytes of shared memory a CTA.  Needs the card."""
+    out = (ctypes.c_int * 4)()
+    check(_planner()(n, b, int(per_sample), out), "detector_scan plan")
+    return dict(zip(("rows", "tile", "ctas", "smem"), out))
 
 
 def _launch(y0, x, at, rt, out):

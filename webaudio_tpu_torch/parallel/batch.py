@@ -286,6 +286,10 @@ def _fp_tokens(v, out: list, depth: int = 0, staged_ids: frozenset = frozenset()
     elif callable(v):
         # same callable object => same bucket; different callables split
         out.append(f"fn{getattr(v, '__qualname__', '')}{id(v)}")
+    elif callable(getattr(v, "process", None)):
+        # worklet processor instances carry user state and options the
+        # kernel runs verbatim: split by identity, as callables are
+        out.append(f"proc{type(v).__name__}{id(v)}")
     else:
         # engine objects (node back-refs etc.): type identity only; their
         # kernel-relevant content is copied onto the kernel
