@@ -341,6 +341,44 @@ main path with every kernel's launch count from 0:
      same mutation through suspend_sync; profile_render's Chrome trace
      holds CUDA kernel events; collect_diagnostics reports the block.
 
+Then the real-time AudioContext and media I/O (phases zg-zi):
+
+  zg. decoding on the host into a 48 kHz context on the card: the native
+     libraries (webaudio_tpu_torch/native/*.cpp) built with g++ into
+     webaudio_tpu_torch/build/ (path and build seconds printed; whether
+     the FFmpeg codec host built is information only); 10 s of stereo
+     16-bit codes at 44.1 kHz written as a FLAC (tests/flac_ref.py's
+     encoder), an f32 WAV and a 16-bit WAV (the port's write_wav): the
+     FLAC and the f32 WAV decode to the source samples exactly, the
+     16-bit WAV within one LSB; resampled to 48 kHz they equal
+     AudioBuffer.resample of the source (the 16-bit file: of its decode)
+     bit for bit;
+  zh. AudioContext(sample_rate=48000, device="cuda") with a callback
+     sink, 2 channels, unpaced: the decoded FLAC looping through a lowpass
+     (2,000 Hz, Q 2), a WaveShaper 4x (tanh, 2,048 points) and a
+     DynamicsCompressor into the destination.  10 s of callbacks at
+     "playback" (1,024 frames) and at render_size_hint=16384, each within
+     1e-5 x peak of the same graph's OfflineAudioContext render on the
+     card; K1 and the detector kernel launched once a chunk; no
+     processorerror event; the stream not silent; chunk ms (median, p99)
+     and the realtime factor; on the card, 20 chunks under torch.profiler
+     (busy share, device operations a chunk) and the dense rows' host ms.
+     Then paced, for 2 s of wall time each, at "interactive",
+     "balanced" and "playback": the render-capacity events' loads and
+     underrun ratios, the share of chunks over their budget and
+     playback_stats (measurements, not gates).  Automation scheduled on
+     the filter from the sink callback re-plans nothing; a gain connected
+     from it re-plans once, every other node's state carried.  A
+     `file:` sink's WAV, decoded by the port, holds the callback stream
+     bit for bit;
+  zi. the media nodes on the card: a MediaElementAudioSourceNode over a
+     10 s WAV file into the slice graph of phase b in an
+     OfflineAudioContext, within 1e-5 x peak of the graph fed by the
+     decoded buffer; a PushStreamTrack through a MediaStreamAudioSourceNode
+     and a gain of 1 gives the pushed blocks exactly; a
+     MediaStreamAudioDestinationNode's MediaRecorder capture (f32 WAV)
+     equals the render bit for bit; the uploads and host copies a block.
+
 Prints the measurements, a {"kernels": [...]} line (each kernel's launches
 on its path, error against its plain version, device time, the plain
 version's, the least time the card could take (`bound_ms`: the larger of
@@ -349,13 +387,15 @@ its share of that bound (for the curve and grain kernels, of their
 cold-L2 time: the bound reads every input from HBM) and one PyTorch call's
 time where one computes the same function; the curve kernel's row also
 carries S1-S8, the floor and its launches on the offline, voice,
-mastering and corpus paths; the curve kernel's row also its launches on the session and segment
-paths; the dither kernel's its launches on the three corpus paths and the
+mastering and corpus paths; the curve kernel's row also its launches on
+the session and segment paths and on the online path (zh: 1,024- and
+16,384-frame chunks); the dither kernel's its launches on the three corpus paths and the
 session's bounce; the grain kernels' their launches in the 128-frame
 session; the detector kernel's row its launches on the
 default 5a and 5b paths and the forced-chunked 5a path, its plain
 version's host time, the latency floors of one sequential chain, the
-step's cycles, the chunked path's time, 5b's and the sweep's times)
+step's cycles, the chunked path's time, 5b's and the sweep's times,
+and its launches on the online path)
 and the card's name and power limit, then as
 its last line {"ok": true, "device": {...}}.  Exits non-zero, printing no result, if CUDA is unavailable or any
 phase fails.  Imports nothing of JAX.
@@ -4429,6 +4469,504 @@ def phase_zf(wt, kernels):
     return {"launches": launches, "trace_kernels": len(kern)}
 
 
+# --- the real-time context and media I/O, zg-zi --------------------------
+
+CLIP_FS = 44100.0            # zg's source rate: decoded into 48 kHz contexts
+PACED_SECONDS = 2.0          # each paced run of zh
+LATENCY_HINTS = ("interactive", "balanced", "playback")
+PUSH_BLOCKS = 100            # zi's pushed blocks (the track keeps 128)
+PUSH_FRAMES = 1024
+
+
+def decode_source(seconds=SECONDS):
+    """zg's source: `seconds` of stereo 16-bit codes at 44.1 kHz (two
+    slow-swept tones and seeded noise), and its f32 samples codes / 32768:
+    what a 16-bit FLAC of it decodes to exactly."""
+    n = int(CLIP_FS * seconds)
+    t = np.arange(n)
+    rng = np.random.default_rng(SEED + 40)
+    x = np.stack([0.55 * np.sin(t * 0.031) + 0.2 * np.sin(t * 0.0021),
+                  0.5 * np.cos(t * 0.017) + 0.15 * np.sin(t * 0.00093)])
+    x = x + 0.02 * rng.standard_normal((2, n))
+    codes = np.clip(np.round(x * 32767), -32768, 32767).astype(np.int64)
+    return codes, (codes / 32768.0).astype(np.float32)
+
+
+def flac_bytes(codes):
+    """A FLAC stream of the codes from tests/flac_ref.py's encoder: blocks
+    of 4,096 frames, order-2 fixed predictors, one Rice partition."""
+    sys.path.insert(0, os.path.join(os.path.dirname(
+        os.path.abspath(__file__)), "tests"))
+    from flac_ref import encode_flac
+
+    sub = [dict(kind="fixed", order=2, ks=[10])] * 2
+    total = codes.shape[1]
+    plans = [(min(4096, total - p), "independent", sub)
+             for p in range(0, total, 4096)]
+    return encode_flac(codes, int(CLIP_FS), 16, plans)
+
+
+def phase_zg(wt, device="cuda", seconds=SECONDS):
+    """Decoding on the host into a context on the card: the native
+    libraries built from the checkout, a FLAC, an f32 and a 16-bit WAV of
+    zg's source.  Returns the files and the decoded buffers."""
+    from webaudio_tpu_torch import native
+    from webaudio_tpu_torch.media.decoding import decode_audio_data
+    from webaudio_tpu_torch.media.wav import write_wav
+
+    label = "zg. decoding"
+    lib = native.get_lib()
+    codec = native.get_codec_lib()
+    for name in ("wahost", "wacodec"):
+        path, took = native.builds.get(name, (None, "not attempted"))
+        said = (f"built in {took:.2f} s" if isinstance(took, float) and took
+                else "found built" if path else
+                f"did not build: {str(took).strip()[-300:]}")
+        print(f"{label}: lib{name} {path}: {said}", flush=True)
+    if lib is None:
+        raise AssertionError(f"{label}: the host library did not build")
+    print(f"{label}: the FFmpeg codec host "
+          f"{'built' if codec is not None else 'is unavailable'} "
+          "(information only)", flush=True)
+    codes, src = decode_source(seconds)
+    t0 = time.perf_counter()
+    files = {"flac": flac_bytes(codes), "wav f32": write_wav(None, src, CLIP_FS),
+             "wav i16": write_wav(None, src, CLIP_FS, bits=16)}
+    print(f"{label}: {seconds:g} s stereo at {CLIP_FS:g} Hz, files "
+          f"{ {k: len(v) for k, v in files.items()} } bytes, written in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    ctx = wt.OfflineAudioContext(2, 128, FS, device=device)
+    want = wt.AudioBuffer.from_array(src, CLIP_FS)
+    want.resample(FS)
+    lsb = 1.0 / 32768.0
+    out = {"files": files, "source": src}
+    for name, blob in files.items():
+        t0 = time.perf_counter()
+        raw = decode_audio_data(blob)
+        t1 = time.perf_counter()
+        buf = ctx.decode_audio_data_sync(blob)
+        t2 = time.perf_counter()
+        got = raw.to_array()
+        if raw.sample_rate != CLIP_FS or got.shape != src.shape or \
+                buf.sample_rate != FS:
+            raise AssertionError(f"{label}: {name} decoded to {got.shape} at "
+                                 f"{raw.sample_rate}, resampled at "
+                                 f"{buf.sample_rate}")
+        err = float(np.abs(got - src).max())
+        own = wt.AudioBuffer.from_array(got, CLIP_FS)
+        own.resample(FS)
+        r_err = float(np.abs(buf.to_array() - want.to_array()).max())
+        exact = name != "wav i16"
+        # the 16-bit file: each sample within one LSB, and the resampled
+        # buffer AudioBuffer.resample of what was decoded, bit for bit
+        ok = (err == 0.0 and r_err == 0.0) if exact else \
+            (err <= lsb and np.array_equal(buf.to_array(), own.to_array()))
+        print(f"{label}: {name}: {got.shape[1]} frames, max |decoded - "
+              f"source| {err:.3e}, resampled to {buf.length} frames at "
+              f"{FS:g} Hz, max |- AudioBuffer.resample(source)| {r_err:.3e} "
+              f"({'bit-equal' if exact else 'decoded within one LSB, equal to the resample of the decode'} required) -> "
+              f"{'ok' if ok else 'FAIL'}; decode {1000 * (t1 - t0):.1f} ms, "
+              f"decode + resample {1000 * (t2 - t1):.1f} ms", flush=True)
+        if not ok:
+            raise AssertionError(f"{label}: {name} decodes wrong")
+        out[name] = buf
+    return out
+
+
+def online_graph(ctx, buf, start=None):
+    """zh's graph: `buf` looping -> lowpass 2,000 Hz, Q 2 -> WaveShaper
+    4x (tanh, 2,048 points) -> DynamicsCompressor (threshold -18 dB,
+    ratio 4) -> destination, the source starting at `start` (the
+    context's current time by default).  Returns its nodes."""
+    src = ctx.create_buffer_source(loop=True)
+    src.buffer = buf
+    filt = ctx.create_biquad_filter(type="lowpass", frequency=2000.0, q=2.0)
+    shaper = ctx.create_wave_shaper(oversample="4x",
+                                    curve=_curve(CURVE_POINTS))
+    comp = ctx.create_dynamics_compressor(threshold=-18.0, ratio=4.0)
+    src.connect(filt)
+    filt.connect(shaper)
+    shaper.connect(comp)
+    comp.connect(ctx.destination)
+    src.start(ctx.current_time if start is None else start)
+    return {"src": src, "filt": filt, "shaper": shaper, "comp": comp}
+
+
+def online_run(wt, buf, device, frames, kernels=(), latency="playback",
+               hint=None, paced=False, sink=None, on_callback=None,
+               capacity=None, prepare=None, timeout=600.0, wall_s=None):
+    """online_graph's graph in an AudioContext on `device`: suspended as
+    it starts, the graph built with its source at the current time,
+    resumed with every kernel's count from 0 until the callbacks after the
+    resume hold `frames` frames, then suspended and closed.
+    `on_callback(k, ctx, nodes)` runs on the render thread after callback
+    k; `capacity` an update interval for render-capacity events;
+    `prepare(ctx)` runs once the context is suspended; with `wall_s` the
+    run ends after that many wall seconds instead.  Returns
+    the callbacks' stream, each chunk's host ms (the walk and its one
+    host copy), the launches, the chunks rendered, the processorerror
+    events, capacity events, playback stats, wall s and the context."""
+    from webaudio_tpu_torch.events import EventType
+    from webaudio_tpu_torch.io_backends import CallbackBackend
+
+    chunks, errors, events, state = [], [], [], {}
+
+    def on_chunk(chunk, ts):
+        chunks.append(np.array(chunk))
+        if on_callback is not None and "nodes" in state:
+            on_callback(len(chunks), state["ctx"], state["nodes"])
+
+    ctx = wt.AudioContext(latency_hint=latency, sample_rate=FS,
+                          sink_id=sink or CallbackBackend(on_chunk),
+                          render_size_hint=hint, device=device)
+    try:
+        ctx.set_realtime_pacing(paced)
+        ctx.suspend_sync()
+        ctx._event_loop.add_handler(EventType.PROCESSOR_ERROR, errors.append)
+        if prepare is not None:
+            prepare(ctx)
+        del chunks[:]
+        state["nodes"] = online_graph(ctx, buf)
+        state["ctx"] = ctx
+        ms, inner = [], ctx._render_one_chunk
+
+        def timed():
+            t = time.perf_counter()
+            out = inner()
+            ms.append(1000.0 * (time.perf_counter() - t))
+            return out
+
+        ctx._render_one_chunk = timed
+        f0 = ctx._frame
+        if capacity:
+            ctx.render_capacity.set_onupdate(events.append)
+        for k in kernels:
+            k.launches = 0
+        t0 = time.perf_counter()
+        ctx.resume_sync()
+        if capacity:
+            ctx.render_capacity.start(update_interval=capacity)
+        deadline = time.time() + (wall_s or timeout)
+
+        def rendered():
+            return (sum(c.shape[1] for c in chunks) if sink is None
+                    else ctx._frame - f0)
+
+        while rendered() < frames and time.time() < deadline:
+            time.sleep(0.002)
+        ctx.suspend_sync()
+        wall = time.perf_counter() - t0
+        ctx.render_capacity.stop()
+        launches = {k.__name__: k.launches for k in kernels}
+        n_chunks = (ctx._frame - f0) // ctx._buffer_frames
+        stats = ctx.playback_stats.to_json()
+    finally:
+        ctx.close_sync()
+    if rendered() < frames and wall_s is None:
+        raise AssertionError(f"online run: {rendered()} of {frames} frames "
+                             f"in {timeout} s")
+    stream = np.concatenate(chunks, axis=1)[:, :frames] if chunks else None
+    return {"stream": stream, "chunk_ms": ms, "launches": launches,
+            "chunks": n_chunks, "errors": errors, "events": events,
+            "stats": stats, "wall": wall, "ctx": ctx, "f0": f0,
+            "nodes": state["nodes"]}
+
+
+def _online_checks(label, run, kernels):
+    """No processorerror, sound, and each kernel once a chunk."""
+    if run["errors"]:
+        raise AssertionError(f"{label}: {len(run['errors'])} processorerror "
+                             f"events, the first {run['errors'][0]!r}")
+    if run["stream"] is not None and float(np.abs(run["stream"]).max()) < 0.05:
+        raise AssertionError(f"{label}: the stream is silent")
+    for k in kernels:
+        if run["launches"][k.__name__] != run["chunks"]:
+            raise AssertionError(
+                f"{label}: {k.__name__} launched {run['launches'][k.__name__]}"
+                f" times in {run['chunks']} chunks")
+
+
+def phase_zh(wt, zg, kernels, device="cuda", seconds=SECONDS,
+             paced_seconds=PACED_SECONDS):
+    """The AudioContext at full width on the card: 10 s of callbacks at
+    1,024 and 16,384 frames against the offline render, paced runs at the
+    three latency hints, automation and a topology change while running,
+    and a file sink.  Returns the measurements."""
+    import tempfile
+
+    frames = int(seconds * FS)
+    buf = zg["flac"]
+    on_card = device == "cuda"
+    counted = kernels if on_card else ()
+    off = wt.OfflineAudioContext(2, frames, FS, device=device)
+    online_graph(off, buf, start=0.0)
+    want = off.start_rendering_sync().to_array()
+    res = {}
+    for name, latency, hint in (("1024", "playback", None),
+                                ("16384", "playback", 16384)):
+        label = (f"zh. AudioContext, {device}, {name} chunks, "
+                 f"{seconds:g} s unpaced")
+        run = online_run(wt, buf, device, frames, counted, latency, hint)
+        _online_checks(label, run, counted)
+        B = run["ctx"]._buffer_frames
+        err = _check_close(f"{label}: callbacks vs OfflineAudioContext on "
+                           f"the same device", run["stream"], want, 1e-5)
+        ms = run["chunk_ms"]
+        p50 = statistics.median(ms)
+        p99 = float(np.percentile(ms, 99))
+        print(f"{label}: {run['chunks']} chunks of {B} frames, plan block "
+              f"{run['ctx']._cg.block_frames}, launched {run['launches']}, "
+              f"no processorerror; chunk ms median {p50:.3f}, p99 "
+              f"{p99:.3f}, max {max(ms):.3f} (budget "
+              f"{1000 * B / FS:.3f}); realtime factor "
+              f"{run['chunks'] * B / FS / run['wall']:.2f}x over "
+              f"{run['wall']:.3f} s (the first chunk's plan and staging "
+              f"included), {1000 * B / FS / p50:.2f}x at the median chunk",
+              flush=True)
+        res[name] = {"launches": run["launches"], "chunks": run["chunks"],
+                     "chunk_ms_p50": p50, "chunk_ms_p99": p99,
+                     "realtime": run["chunks"] * B / FS / run["wall"],
+                     "err": err, "stream": run["stream"]}
+
+    if on_card:
+        # where a chunk's time goes: its dense rows on the host, and the
+        # walk and copy under the profiler, on the calling thread
+        label = "zh. 1,024-frame chunks under torch.profiler"
+        ctx = wt.AudioContext(latency_hint="playback", sample_rate=FS,
+                              sink_id="none", device=device)
+        try:
+            ctx.suspend_sync()
+            online_graph(ctx, buf)
+            for _ in range(3):             # plan, stage resources, warm
+                ctx._render_one_chunk()
+            cg = ctx._cg
+            t0 = time.perf_counter()
+            for _ in range(20):
+                for key in cg.dense_params:
+                    cg.param_objects[key].advance_dense(FS, 1024, ctx._frame)
+            rows_ms = (time.perf_counter() - t0) * 1000.0 / 20
+            share, ops = _busy_launches(label, "1,024-frame chunks",
+                                        [ctx._render_one_chunk] * 20)
+        finally:
+            ctx.close_sync()
+        print(f"{label}: {len(cg.dense_params)} dense rows, built on the "
+              f"host in {rows_ms:.3f} ms a chunk", flush=True)
+        res["profile"] = {"busy_share": share, "ops_a_chunk": ops,
+                          "rows_ms": rows_ms}
+
+    for hint in LATENCY_HINTS:
+        label = f"zh. paced, {paced_seconds:g} s of wall time at {hint!r}"
+        run = online_run(wt, buf, device, frames, counted, hint,
+                         paced=True, capacity=0.25, wall_s=paced_seconds)
+        _online_checks(label, run, counted)
+        ev = run["events"]
+        avg = float(np.mean([e.average_load for e in ev])) if ev else None
+        peak = max((e.peak_load for e in ev), default=None)
+        under = [e.underrun_ratio for e in ev]
+        # each chunk is one callback at these hints: the share of chunks
+        # over the callback's budget
+        budget = 1000.0 * run["ctx"]._buffer_frames / FS
+        over = float(np.mean(np.asarray(run["chunk_ms"]) > budget))
+        print(f"{label}: {run['chunks']} chunks of "
+              f"{run['ctx']._buffer_frames} frames in {run['wall']:.3f} s; "
+              f"{len(ev)} render-capacity events (0.25 s intervals): "
+              f"average load {avg}, peak load {peak}, underrun ratios "
+              f"{under}; chunks over the {budget:.3f} ms budget {over:.4f}; "
+              f"chunk ms median {statistics.median(run['chunk_ms']):.3f}, "
+              f"p99 {float(np.percentile(run['chunk_ms'], 99)):.3f}; "
+              f"playback_stats (the last interval) {json.dumps(run['stats'])}",
+              flush=True)
+        res[hint] = {"average_load": avg, "peak_load": peak,
+                     "underrun_ratios": under, "over_budget": over,
+                     "events": len(ev),
+                     "chunk_ms_p50": statistics.median(run["chunk_ms"])}
+
+    # automation, then a new gain, scheduled from the sink callback
+    label = "zh. automation and a topology change while running"
+    plans, replans = [], []
+
+    def on_callback(k, ctx, nodes):
+        plans.append(ctx._cg)
+        if k == 10:
+            f = nodes["filt"].frequency
+            f.set_value_at_time(2000.0, ctx.current_time)
+            f.exponential_ramp_to_value_at_time(500.0, ctx.current_time + 0.4)
+        if k == 30:
+            gain = ctx.create_gain(gain=0.5)
+            nodes["comp"].disconnect()
+            nodes["comp"].connect(gain)
+            gain.connect(ctx.destination)
+
+    def recording(ctx):
+        """Record, at each re-plan, the nodes whose states carried."""
+        inner = ctx._recompile_locked
+
+        def replan():
+            before = ctx._states
+            inner()
+            replans.append([k for k in before or {}
+                            if ctx._states.get(k) is before[k]])
+        ctx._recompile_locked = replan
+
+    run = online_run(wt, buf, device, 48 * 1024, counted,
+                     on_callback=on_callback, prepare=recording)
+    _online_checks(label, run, counted)
+    keys = {f"n{run['nodes'][k].node_id}" for k in
+            ("src", "filt", "shaper", "comp")}
+    after = replans[-1]
+    same = all(p is plans[0] for p in plans[:30])
+    if not same or plans[30] is plans[29] or \
+            any(p is not plans[30] for p in plans[30:]) or \
+            not keys <= set(after):
+        raise AssertionError(f"{label}: plans {[id(p) for p in plans]}, "
+                             f"carried {after}")
+    print(f"{label}: callbacks 1-30 (the ramp from callback 10) on one plan, "
+          f"one re-plan for the gain; states carried for {sorted(keys)}",
+          flush=True)
+
+    label = "zh. file sink"
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "zh.wav")
+        n = min(BATCH_FRAMES, frames)
+        run = online_run(wt, buf, device, n, counted, sink=f"file:{path}")
+        data = run["ctx"].decode_audio_data_sync(path).to_array()
+    f0 = run["f0"]
+    stream = res["1024"]["stream"][:, :n]
+    if data[:, :f0].any() or not np.array_equal(data[:, f0:f0 + n], stream):
+        raise AssertionError(f"{label}: the WAV differs from the callback "
+                             "stream")
+    print(f"{label}: the WAV (decoded by the port) holds {f0} frames of "
+          f"silence from before the graph, then the 1,024-frame run's "
+          f"callback stream bit for bit ({n} frames)", flush=True)
+    for r in ("1024", "16384"):
+        del res[r]["stream"]
+    return res
+
+
+def phase_zi(wt, zg, kernels, device="cuda", seconds=SECONDS):
+    """The media nodes on the card: an element over a WAV file into the
+    slice graph, a pushed track through a unit gain, a recorder on a
+    stream destination.  Returns the transfers a block."""
+    import tempfile
+
+    from webaudio_tpu_torch.media.decoding import decode_audio_data
+    from webaudio_tpu_torch.media.element import MediaElement
+    from webaudio_tpu_torch.media.recorder import MediaRecorder
+    from webaudio_tpu_torch.media.streams import MediaStream, PushStreamTrack
+    from webaudio_tpu_torch.media.wav import read_wav, write_wav
+    from webaudio_tpu_torch.nodes import media_nodes as mn
+
+    frames = int(seconds * FS)
+
+    def slice_graph(ctx, src):
+        filt = ctx.create_biquad_filter(type="lowpass", frequency=2000.0,
+                                        q=2.0)
+        shaper = ctx.create_wave_shaper(curve=_curve(CURVE_POINTS))
+        src.connect(filt)
+        filt.connect(shaper)
+        shaper.connect(ctx.destination)
+        return shaper
+
+    label = "zi. MediaElementAudioSourceNode over a 10 s WAV, slice graph"
+    with tempfile.TemporaryDirectory() as tmp:
+        # zg's source and its first quantum again: the element does not
+        # reach the media's end within the render (at the last frame it
+        # stops one output frame before a buffer source, whose lerp reads
+        # the silence after the end)
+        path = os.path.join(tmp, "clip.wav")
+        src = zg["source"]
+        write_wav(path, np.concatenate([src, src[:, :128]], axis=1), CLIP_FS)
+        el = MediaElement(path)
+        el.play()
+        ctx = wt.OfflineAudioContext(2, frames, FS, device=device)
+        node = mn.MediaElementAudioSourceNode(ctx, el)
+        slice_graph(ctx, node)
+        for k in kernels:
+            k.launches = 0
+        got = ctx.start_rendering_sync().to_array()
+        launches = {k.__name__: k.launches for k in kernels}
+        streaming = el.streaming
+        el.close()
+        media = decode_audio_data(path)
+    blocks = -(-frames // ctx._cg.block_frames)
+    ref = wt.OfflineAudioContext(2, frames, FS, device=device)
+    bsrc = ref.create_buffer_source()
+    bsrc.buffer = media
+    bsrc.start()
+    slice_graph(ref, bsrc)
+    err = _check_close(f"{label}: vs the graph fed by the decoded buffer",
+                       got, ref.start_rendering_sync().to_array(), 1e-5)
+    print(f"{label}: {'streamed from disk by the codec host' if streaming else 'decoded whole (no codec host)'}; "
+          f"{blocks} blocks of {ctx._cg.block_frames}, {node.uploads} "
+          f"uploads ({node.uploads / blocks:g} a block); launched "
+          f"{launches}", flush=True)
+
+    label = "zi. PushStreamTrack -> MediaStreamAudioSourceNode -> gain 1"
+    rng = np.random.default_rng(SEED + 41)
+    pushed = (0.5 * rng.standard_normal((2, PUSH_BLOCKS * PUSH_FRAMES))) \
+        .astype(np.float32)
+    track = PushStreamTrack()
+    for b in range(PUSH_BLOCKS):
+        track.push(wt.AudioBuffer.from_array(
+            pushed[:, b * PUSH_FRAMES:(b + 1) * PUSH_FRAMES], FS))
+    track.close()
+    n = pushed.shape[1] + 4 * PUSH_FRAMES
+    pctx = wt.OfflineAudioContext(2, n, FS, device=device)
+    psrc = mn.MediaStreamAudioSourceNode(pctx, MediaStream([track]))
+    g = pctx.create_gain(gain=1.0)
+    psrc.connect(g)
+    g.connect(pctx.destination)
+    out = pctx.start_rendering_sync().to_array()
+    if not np.array_equal(out[:, :pushed.shape[1]], pushed) or \
+            out[:, pushed.shape[1]:].any():
+        raise AssertionError(f"{label}: the output is not the pushed blocks")
+    pblocks = -(-n // pctx._cg.block_frames)
+    print(f"{label}: {PUSH_BLOCKS} blocks of {PUSH_FRAMES} frames out "
+          f"exactly, then silence; {psrc.uploads} uploads in {pblocks} "
+          f"render blocks", flush=True)
+
+    label = ("zi. slice graph -> MediaStreamAudioDestinationNode -> "
+             "MediaRecorder")
+
+    def recorded(record=True):
+        rctx = wt.OfflineAudioContext(2, frames, FS, device=device)
+        src = rctx.create_buffer_source(loop=True)
+        src.buffer = zg["flac"]
+        src.start()
+        shaper = slice_graph(rctx, src)
+        dest = mn.MediaStreamAudioDestinationNode(rctx)
+        shaper.connect(dest)
+        if not record:
+            return rctx.start_rendering_sync()
+        rec = MediaRecorder(dest.stream)
+        blobs = []
+        rec.set_ondataavailable(lambda ev: blobs.append(ev.blob))
+        rec.start()
+        try:
+            render = rctx.start_rendering_sync().to_array()
+            deadline = time.time() + 60
+            while dest._track._queue and time.time() < deadline:
+                time.sleep(0.01)
+        finally:
+            rec.stop()
+        return render, (read_wav(blobs[0]) if blobs else (None, None)), \
+            dest, rctx
+
+    recorded(record=False)          # warm: the recorder waits 1 s a chunk
+    render, (cap, rate), dest, rctx = recorded()
+    if cap is None:
+        raise AssertionError(f"{label}: the recorder delivered no blob")
+    rblocks = -(-frames // rctx._cg.block_frames)
+    if rate != FS or not np.array_equal(cap[:, :frames], render):
+        raise AssertionError(f"{label}: the capture differs from the render")
+    print(f"{label}: the capture (f32 WAV) equals the render bit for bit; "
+          f"{dest.host_copies} host copies in {rblocks} blocks "
+          f"({dest.host_copies / rblocks:g} a block)", flush=True)
+    return {"element_err": err, "uploads_a_block": node.uploads / blocks,
+            "host_copies_a_block": dest.host_copies / rblocks,
+            "element_streaming": streaming}
+
+
 def _ptxas_build(cuda_lib, name, source):
     """nvcc `source` with the port's flags and `-Xptxas -v` into the
     git-ignored build directory; returns the loaded library and ptxas's
@@ -4608,6 +5146,12 @@ def main() -> int:
     phase_ze(wt, every)
     phase_zf(wt, every)
 
+    # the real-time context and media I/O, zg-zi: the online path counts
+    # K1's and the detector's launches from 0 in each run
+    zg = phase_zg(wt)
+    zh = phase_zh(wt, zg, (ck.curve_lookup, det.detector_scan))
+    phase_zi(wt, zg, every)
+
     n_q = QUANT_SHAPE[0] * QUANT_SHAPE[1]
     k5_bound = _bound(n_q * 6, 25 * n_q)
     k6_bound = _bound(n_q * 5, 50 * n_q)
@@ -4635,6 +5179,10 @@ def main() -> int:
          "launches_corpus_path": u5b["launches"]["curve_lookup"],
          "launches_session_path": zc["slice"]["launches"]["curve_lookup"],
          "launches_segments_path": zd["launches"]["curve_lookup"],
+         "launches_online_path": zh["1024"]["launches"]["curve_lookup"],
+         "launches_online_16384":
+             zh["16384"]["launches"]["curve_lookup"],
+         "online_chunks": zh["1024"]["chunks"],
          "max_abs_err": max(max_err, s7_err, zc["k1_err"]),
          **{k: v for k, v in k1["S1"].items() if k != "plan"},
          "library_ms": k1_lib_ms, "library_max_abs_err": k1_lib_err,
@@ -4701,6 +5249,10 @@ def main() -> int:
          "launches_default_5a": t5a["launches"]["detector_scan"],
          "launches_default_5b": u5b["launches"]["detector_scan"],
          "launches_chunked_5a": t5a["chunked_launches"]["detector_scan"],
+         "launches_online_path":
+             zh["1024"]["launches"]["detector_scan"],
+         "launches_online_16384": zh["16384"]["launches"]["detector_scan"],
+         "online_chunks": zh["1024"]["chunks"],
          "max_abs_err": max(det_err, t5a["detector_err"]),
          "ms": v["detector 5a"]["ms"],
          "plain_ms": t5a["detector_plain_ms"], "plain_on": "host cpu",

@@ -1,7 +1,8 @@
 """The port on an NVIDIA GPU: kernels against their plain versions and a
 render on the card against the same render on the CPU.
 
-Every test here needs CUDA and skips without it.  The file imports no JAX,
+Every test here needs CUDA and skips without it (the online context and
+the media nodes included).  The file imports no JAX,
 so on a GPU machine without JAX it runs on its own:
 
     python -m pytest tests/test_torch_cuda.py --noconftest -q
@@ -1221,3 +1222,163 @@ def test_start_rendering_future_with_suspend_and_resume_on_the_card(cuda):
     sync.suspend_sync(1.0, lambda c: setattr(filt_of(c).frequency, "value",
                                              500.0))
     np.testing.assert_array_equal(got, sync.start_rendering_sync().to_array())
+
+
+# --- the real-time context and media I/O on the card ------------------------
+
+def _clip(seconds=1.0, fs=44100.0):
+    t = np.arange(int(seconds * fs))
+    return np.stack([0.6 * np.sin(t * 0.031) + 0.2 * np.sin(t * 0.0021),
+                     0.5 * np.cos(t * 0.017)]).astype(np.float32)
+
+
+def _online_stream(device, hint, frames):
+    """chip_smoke.py's phase-zh graph (a 1 s clip looping through a
+    lowpass, a WaveShaper 4x and a compressor), unpaced in an
+    AudioContext on `device`: the callbacks after the resume, the K1 and
+    detector launches and the chunks rendered."""
+    import time
+
+    from webaudio_tpu_torch.ops import detector as det
+
+    chunks = []
+    ctx = wt.AudioContext(latency_hint="playback", sample_rate=48000.0,
+                          sink_id=lambda c, t: chunks.append(np.array(c)),
+                          render_size_hint=hint, device=device)
+    try:
+        ctx.set_realtime_pacing(False)
+        ctx.suspend_sync()
+        del chunks[:]
+        src = ctx.create_buffer_source(loop=True)
+        src.buffer = wt.AudioBuffer.from_array(_clip(), 44100.0)
+        filt = ctx.create_biquad_filter(type="lowpass", frequency=2000.0,
+                                        q=2.0)
+        shaper = ctx.create_wave_shaper(
+            oversample="4x",
+            curve=np.tanh(np.linspace(-2, 2, 2048)).astype(np.float32))
+        comp = ctx.create_dynamics_compressor(threshold=-18.0, ratio=4.0)
+        src.connect(filt)
+        filt.connect(shaper)
+        shaper.connect(comp)
+        comp.connect(ctx.destination)
+        src.start(ctx.current_time)
+        f0 = ctx._frame
+        kernels = (ck.curve_lookup, det.detector_scan)
+        before = [k.launches for k in kernels]
+        ctx.resume_sync()
+        deadline = time.time() + 300
+        while sum(c.shape[1] for c in chunks) < frames and \
+                time.time() < deadline:
+            time.sleep(0.005)
+        ctx.suspend_sync()
+        launches = [k.launches - b for k, b in zip(kernels, before)]
+        n_chunks = (ctx._frame - f0) // ctx._buffer_frames
+    finally:
+        ctx.close_sync()
+    return np.concatenate(chunks, axis=1)[:, :frames], launches, n_chunks
+
+
+@pytest.mark.parametrize("hint", [None, 16384])
+def test_online_stream_on_the_card_matches_cpu(cuda, monkeypatch, hint):
+    """The AudioContext's callbacks at 1,024 and 16,384 frames on the card
+    against the CPU's (both with the sequential detector), 1e-5 x peak;
+    K1 and the detector kernel once a chunk on the card."""
+    frames = 48000
+    got, launches, n_chunks = _online_stream(cuda, hint, frames)
+    assert launches == [n_chunks, n_chunks]
+    monkeypatch.setenv("WEBAUDIO_DETECTOR", "seq")
+    want, _, _ = _online_stream("cpu", hint, frames)
+    _close(got, want, 1e-5)
+
+
+def _element_render(device, path, frames):
+    from webaudio_tpu_torch.media.element import MediaElement
+    from webaudio_tpu_torch.nodes.media_nodes import (
+        MediaElementAudioSourceNode)
+
+    el = MediaElement(path)
+    el.play()
+    ctx = wt.OfflineAudioContext(2, frames, 48000.0, device=device)
+    node = MediaElementAudioSourceNode(ctx, el)
+    filt = ctx.create_biquad_filter(type="lowpass", frequency=2000.0, q=2.0)
+    node.connect(filt)
+    filt.connect(ctx.destination)
+    try:
+        return ctx.start_rendering_sync().to_array(), node
+    finally:
+        el.close()
+
+
+def test_media_element_source_on_the_card_matches_cpu(cuda, tmp_path):
+    """An element over a WAV file into a lowpass: one upload a block on
+    the card, within 1e-5 x peak of the CPU render."""
+    from webaudio_tpu_torch.media.wav import write_wav
+
+    path = str(tmp_path / "clip.wav")
+    write_wav(path, _clip(), 44100.0)
+    got, node = _element_render(cuda, path, 40000)
+    assert node.uploads == 3
+    _close(got, _element_render("cpu", path, 40000)[0], 1e-5)
+
+
+def _recorded(device):
+    import time
+
+    from webaudio_tpu_torch.media.recorder import MediaRecorder
+    from webaudio_tpu_torch.media.wav import read_wav
+    from webaudio_tpu_torch.nodes.media_nodes import (
+        MediaStreamAudioDestinationNode)
+
+    ctx = _slice(device, 40000)
+    (shaper,) = [n for n in ctx._nodes.values()
+                 if type(n).__name__ == "WaveShaperNode"]
+    dest = MediaStreamAudioDestinationNode(ctx)
+    shaper.connect(dest)
+    rec = MediaRecorder(dest.stream)
+    blobs = []
+    rec.set_ondataavailable(lambda ev: blobs.append(ev.blob))
+    rec.start()
+    try:
+        out = ctx.start_rendering_sync().to_array()
+        deadline = time.time() + 30
+        while dest._track._queue and time.time() < deadline:
+            time.sleep(0.01)
+    finally:
+        rec.stop()
+    return out, read_wav(blobs[0])[0], dest
+
+
+def test_recorder_capture_on_the_card(cuda):
+    """A MediaStreamAudioDestinationNode's recorder capture (f32 WAV)
+    equals the card's render bit for bit, one host copy a block; the
+    render is within 1e-5 x peak of the CPU's."""
+    # warm the card's render: the recorder waits 1 s for a chunk
+    _slice(cuda, 40000).start_rendering_sync()
+    out, cap, dest = _recorded(cuda)
+    np.testing.assert_array_equal(cap[:, :out.shape[1]], out)
+    assert dest.host_copies == -(-40000 // dest.context._cg.block_frames)
+    _close(out, _recorded("cpu")[0], 1e-5)
+
+
+def test_decoding_into_a_context_on_the_card(cuda):
+    """decode_audio_data_sync into a context on the card gives the CPU
+    context's samples (decoding is host work), and a source of them
+    renders on the card within 1e-5 x peak of the CPU."""
+    from webaudio_tpu_torch.media.wav import write_wav
+
+    blob = write_wav(None, _clip(), 44100.0, bits=16)
+    bufs = [wt.OfflineAudioContext(2, 48000, 48000.0, device=d)
+            .decode_audio_data_sync(blob) for d in (cuda, "cpu")]
+    np.testing.assert_array_equal(bufs[0].to_array(), bufs[1].to_array())
+    outs = []
+    for d, buf in zip((cuda, "cpu"), bufs):
+        ctx = wt.OfflineAudioContext(2, 48000, 48000.0, device=d)
+        src = ctx.create_buffer_source()
+        src.buffer = buf
+        filt = ctx.create_biquad_filter(type="lowpass", frequency=2000.0,
+                                        q=2.0)
+        src.connect(filt)
+        filt.connect(ctx.destination)
+        src.start()
+        outs.append(ctx.start_rendering_sync().to_array())
+    _close(outs[0], outs[1], 1e-5)

@@ -187,3 +187,10 @@ def test_port_never_imports_jax_or_the_jax_package():
             top = mod.split(".")[0]
             assert top not in ("jax", "jaxlib", "webaudio_tpu"), \
                 f"{path.relative_to(PORT.parent)} imports {mod}"
+
+
+def test_chip_smoke_never_imports_jax_or_the_jax_package():
+    path = PORT.parent / "chip_smoke.py"
+    for mod in _imported_modules(path):
+        assert mod.split(".")[0] not in ("jax", "jaxlib", "webaudio_tpu"), \
+            f"chip_smoke.py imports {mod}"

@@ -328,9 +328,12 @@ def test_processor_error_is_isolated_like_jax(monkeypatch):
 
 
 def test_unported_parts_raise_not_supported():
-    ctx = _context(wt, 1, 1024)
-    with pytest.raises(wt.NotSupportedError):
-        ctx.decode_audio_data_sync("clip.wav")
+    # decoding is ported: a stream that is no audio format raises
+    # NotSupportedError, as in the JAX package
+    for mod in (wt, wa):
+        ctx = _context(mod, 1, 1024)
+        with pytest.raises(mod.NotSupportedError):
+            ctx.decode_audio_data_sync(b"not an audio stream" * 4)
 
     # a script processor, refused until the user-code nodes were ported,
     # renders as JAX's
@@ -426,8 +429,12 @@ def test_every_jax_context_name_works_or_is_refused():
     the port: a factory or method that is ported builds or runs, one that
     is not raises NotSupportedError (never AttributeError); the `listener`
     attribute is the AudioListener."""
-    refused = {"decode_audio_data", "decode_audio_data_sync"}
-    calls = {"create_buffer": (1, 16, FS), "create_oscillator_bank": ([220.0],),
+    from webaudio_tpu_torch.media.wav import write_wav
+
+    refused = set()
+    clip = write_wav(None, np.zeros((1, 64), np.float32), FS)
+    calls = {"decode_audio_data_sync": (clip,), "decode_audio_data": (clip,),
+             "create_buffer": (1, 16, FS), "create_oscillator_bank": ([220.0],),
              "create_audio_param": (wt.AudioParamDescriptor(
                  "p", wt.AutomationRate.A, 0.0, -1.0, 1.0),),
              "create_audio_worklet": (wt.AudioWorkletProcessor,),
@@ -453,6 +460,8 @@ def test_every_jax_context_name_works_or_is_refused():
                 attr()
         elif name == "start_rendering":
             assert attr().result(timeout=60).length == 1024
+        elif name == "decode_audio_data":
+            assert attr(*calls[name]).result(timeout=60).length == 64
         elif callable(attr):
             attr(*calls.get(name, ()))
     ctx = _context(wt, 1, 1024)

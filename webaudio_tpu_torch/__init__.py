@@ -23,7 +23,10 @@ length, sample_rate, device="cuda")`, the `create_*` factories, `connect`,
 with dithered int16 and u-law bounces on the device; `RenderSession`
 renders in resumable steps with checkpoints, `render_time_sharded` in
 time segments, and `AudioWorkletNode` / `ScriptProcessorNode` run user
-code.  This package never imports `jax` or `webaudio_tpu`.
+code.  `AudioContext(device="cuda")` renders in real time into a sink
+(callback, WAV file, null), and `decode_audio_data` / the media nodes,
+streams, recorder and element bring audio in and out through the host.
+This package never imports `jax` or `webaudio_tpu`.
 """
 
 from .constants import (  # noqa: F401
@@ -43,6 +46,25 @@ from .parallel.batch import GraphBatch, MixedGraphBatch  # noqa: F401
 __version__ = "0.1.0"
 
 _LAZY = {
+    "AudioContext": ("webaudio_tpu_torch.context.online", "AudioContext"),
+    "AudioContextOptions": ("webaudio_tpu_torch.context.online",
+                            "AudioContextOptions"),
+    "MediaStream": ("webaudio_tpu_torch.media.streams", "MediaStream"),
+    "MediaStreamTrack": ("webaudio_tpu_torch.media.streams",
+                         "MediaStreamTrack"),
+    "MediaRecorder": ("webaudio_tpu_torch.media.recorder", "MediaRecorder"),
+    "MediaElement": ("webaudio_tpu_torch.media.element", "MediaElement"),
+    "MediaDecoder": ("webaudio_tpu_torch.media.decoding", "MediaDecoder"),
+    "enumerate_devices_sync": ("webaudio_tpu_torch.media.devices",
+                               "enumerate_devices_sync"),
+    "get_user_media_sync": ("webaudio_tpu_torch.media.devices",
+                            "get_user_media_sync"),
+    "MediaTrackConstraints": ("webaudio_tpu_torch.media.devices",
+                              "MediaTrackConstraints"),
+    "MediaDeviceInfo": ("webaudio_tpu_torch.media.devices",
+                        "MediaDeviceInfo"),
+    "AudioRenderCapacityEvent": ("webaudio_tpu_torch.stats",
+                                 "AudioRenderCapacityEvent"),
     "AudioWorkletNode": ("webaudio_tpu_torch.worklet", "AudioWorkletNode"),
     "AudioWorkletProcessor": ("webaudio_tpu_torch.worklet",
                               "AudioWorkletProcessor"),
@@ -57,8 +79,8 @@ _LAZY = {
 
 
 def __getattr__(name):
-    # lazy imports for the session, segment, user-code, event and
-    # voice-bank modules
+    # lazy imports for the online context, media I/O, session, segment,
+    # user-code, event and voice-bank modules
     if name in _LAZY:
         import importlib
 

@@ -6,8 +6,8 @@ The control side *is* the graph IR here; the compiler snapshots `_nodes` /
 `_edges` when it plans a render.  Ported from
 `webaudio_tpu/context/base.py`.  The context carries the torch device that
 every render of its graph runs on (the card unless the caller names
-another).  Decoding (`decode_audio_data`, `decode_audio_data_sync`) waits
-for the port of media I/O and raises `NotSupportedError`.
+another).  Decoding runs on the host (media/decoding.py): the decoded
+AudioBuffer holds numpy until a source stages it on that device.
 """
 
 from __future__ import annotations
@@ -18,7 +18,7 @@ from typing import Callable, Optional
 import torch
 
 from ..buffer import AudioBuffer
-from ..constants import NotSupportedError, assert_valid_sample_rate
+from ..constants import assert_valid_sample_rate
 from ..graph.ir import Edge
 
 
@@ -167,6 +167,25 @@ class BaseAudioContext:
                       sample_rate: float) -> AudioBuffer:
         return AudioBuffer(number_of_channels, length, sample_rate)
 
+    def decode_audio_data_sync(self, input) -> AudioBuffer:
+        """Decode an encoded stream/file to an AudioBuffer resampled to
+        the context rate (reference: src/context/base.rs:68-103,
+        src/decoding.rs:15-54).  The samples stay host numpy."""
+        from ..media.decoding import decode_audio_data
+
+        buf = decode_audio_data(input)
+        buf.resample(self._sample_rate)
+        return buf
+
+    def decode_audio_data(self, input):
+        """Promise-style variant (reference: base.rs:68-103 async):
+        returns a `concurrent.futures.Future[AudioBuffer]` decoded on the
+        shared pool — `.result()` to block, `asyncio.wrap_future` to
+        await."""
+        from ..futures import submit
+
+        return submit(self.decode_audio_data_sync, input)
+
     def create_periodic_wave(self, real=None, imag=None,
                              disable_normalization: bool = False):
         from ..periodic_wave import PeriodicWave
@@ -279,18 +298,3 @@ class BaseAudioContext:
 
         return AudioWorkletNode(self, processor_cls, **kw)
 
-
-def _not_ported(name: str):
-    def factory(self, *args, **kwargs):
-        raise NotSupportedError(
-            f"{name} is not ported to webaudio_tpu_torch yet")
-
-    factory.__name__ = name
-    return factory
-
-
-# the JAX package's methods that are not ported yet: decoding waits for
-# media I/O
-for _name in ("decode_audio_data", "decode_audio_data_sync"):
-    setattr(BaseAudioContext, _name, _not_ported(_name))
-del _name

@@ -8,7 +8,9 @@ state on the render's device.  The control half stays on the host, in
 numpy, as in the JAX package: Blackman-windowed rFFTs with 0.8
 smoothing over time and dB conversion (analysis.rs:255-400), computed from
 the ring the offline render publishes after each suspend segment, so a
-`suspend_sync` callback reads the live ring.
+`suspend_sync` callback reads the live ring; in a running AudioContext
+each read copies the live ring from the render states
+(`probe_node_state`).
 """
 
 from __future__ import annotations
@@ -148,6 +150,7 @@ class AnalyserNode(AudioNode):
 
     # --- data access (reference: analysis.rs:255-400) ----------------------
     def get_float_time_domain_data(self, dst: np.ndarray):
+        self._refresh_ring()
         n = min(len(dst), self._fft_size)
         dst[:n] = self._ring[MAX_FFT_SIZE - self._fft_size:
                              MAX_FFT_SIZE - self._fft_size + n]
@@ -166,7 +169,15 @@ class AnalyserNode(AudioNode):
         out = s * self._last_fft_output[: n // 2] + (1.0 - s) * norm
         self._last_fft_output[: n // 2] = np.where(np.isfinite(out), out, 0.0)
 
+    def _refresh_ring(self):
+        probe = getattr(self.context, "probe_node_state", None)
+        if probe is not None:
+            st = probe(self)
+            if st is not None:
+                self._ring = st["ring"]
+
     def _maybe_fft(self):
+        self._refresh_ring()
         t = self.context.current_time
         if t != self._last_fft_time:
             self._compute_fft()

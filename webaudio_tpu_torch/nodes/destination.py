@@ -2,13 +2,12 @@
 
 reference: src/node/destination.rs.  A pass-through whose mixed input is the
 render output; channel constraints differ online/offline
-(destination.rs:55-97).  Ported from `webaudio_tpu/nodes/destination.py`;
-only the offline context exists in the port.
+(destination.rs:55-97).  Ported from `webaudio_tpu/nodes/destination.py`.
 """
 
 from __future__ import annotations
 
-from ..constants import InvalidStateError
+from ..constants import IndexSizeError, InvalidStateError, MAX_CHANNELS
 from ..graph.compiler import Kernel
 from ..ops.mixing import ChannelCountMode, ChannelInterpretation
 from .audio_node import AudioNode, ChannelConfig
@@ -26,13 +25,14 @@ class AudioDestinationNode(AudioNode):
     _number_of_inputs = 1
     _number_of_outputs = 1
 
-    def __init__(self, context, channel_count: int):
-        self._max_channel_count = channel_count
+    def __init__(self, context, channel_count: int, offline: bool = True):
+        self._offline = offline
+        self._max_channel_count = channel_count if offline else MAX_CHANNELS
         # offline: count mode explicit at the buffer's channel count
         # (reference: destination.rs:55-97)
         cfg = ChannelConfig(
             count=channel_count,
-            mode=ChannelCountMode.EXPLICIT,
+            mode=ChannelCountMode.EXPLICIT if offline else ChannelCountMode.MAX,
             interpretation=ChannelInterpretation.SPEAKERS)
         super().__init__(context, channel_config=cfg)
 
@@ -41,12 +41,15 @@ class AudioDestinationNode(AudioNode):
         return self._max_channel_count
 
     def _validate_channel_count(self, count: int):
-        if count != self._max_channel_count:
+        if self._offline and count != self._max_channel_count:
             raise InvalidStateError(
                 "cannot change channel count of an offline destination")
+        if count > self._max_channel_count:
+            raise IndexSizeError(
+                f"channel count {count} exceeds max {self._max_channel_count}")
 
     def _validate_channel_count_mode(self, mode: ChannelCountMode):
-        if mode != ChannelCountMode.EXPLICIT:
+        if self._offline and mode != ChannelCountMode.EXPLICIT:
             raise InvalidStateError(
                 "offline destination requires explicit channel count mode")
 
