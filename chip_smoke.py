@@ -379,6 +379,28 @@ Then the real-time AudioContext and media I/O (phases zg-zi):
      MediaStreamAudioDestinationNode's MediaRecorder capture (f32 WAV)
      equals the render bit for bit; the uploads and host copies a block.
 
+Then sharding over a device mesh (parallel/mesh.py), with every kernel's
+launch count from 0 on each path:
+
+  zj. phase j's 1,024 x 2 s sweep batch, each instance with its own buffer
+     (lane_buffers), over Mesh(["cuda"] * 4, ("graphs",)) (and over every
+     card where more than one is visible): render() bit-equal to the
+     unsharded render, or else within 1e-6 x peak (which held is
+     printed); render_i16 and render_u8 launch K5 and K6 once a shard,
+     each with its shard's offset, and equal one whole-tensor bounce of
+     the sharded render() (and the unsharded bounce where the lanes are
+     bit-equal); render_stream(3, "i16") yields the unsharded arrays; K5
+     and K6 at the last shard's offset and at an offset past 2**32
+     against their plain versions; render and render_i16 sharded against
+     unsharded, medians of 5 with CUDA events in turns; phase i's corpus
+     plus one context of a fourth topology as a MixedGraphBatch over the
+     mesh (three buckets of 32 sharded, the bucket of one unsharded),
+     every output against the unsharded mixed batch (1e-6 x peak, bit
+     equality printed); render_time_sharded of the slice through
+     mesh=Mesh(["cuda"] * 8, ("time",)) bit-equal to phase zd's devices=
+     render; graft_entry's forward bit-equal to start_rendering_sync and
+     dryrun_multichip(4) on the card.
+
 Prints the measurements, a {"kernels": [...]} line (each kernel's launches
 on its path, error against its plain version, device time, the plain
 version's, the least time the card could take (`bound_ms`: the larger of
@@ -390,7 +412,8 @@ carries S1-S8, the floor and its launches on the offline, voice,
 mastering and corpus paths; the curve kernel's row also its launches on
 the session and segment paths and on the online path (zh: 1,024- and
 16,384-frame chunks); the dither kernel's its launches on the three corpus paths and the
-session's bounce; the grain kernels' their launches in the 128-frame
+session's bounce, the dither and u-law kernels' rows their launches on
+the sharded path (zj) and their offset; the grain kernels' their launches in the 128-frame
 session; the detector kernel's row its launches on the
 default 5a and 5b paths and the forced-chunked 5a path, its plain
 version's host time, the latency floors of one sequential chain, the
@@ -4294,7 +4317,7 @@ def phase_zd(wt, compiler, ck, kernels):
             raise AssertionError(f"zd. {name} did not refuse")
     torch.cuda.empty_cache()
     return {"launches": launches, "err": err, "wall_s": wall,
-            "seq_wall_s": seq_wall, "halo": halo}
+            "seq_wall_s": seq_wall, "halo": halo, "out": got}
 
 
 def phase_ze(wt, kernels):
@@ -4967,6 +4990,246 @@ def phase_zi(wt, zg, kernels, device="cuda", seconds=SECONDS):
             "element_streaming": streaming}
 
 
+# --- sharding, zj -----------------------------------------------------------
+
+SHARDS = 4                   # phase zj's shards of the batch on one card
+LANE_REL = 1e-6              # PERF.md §2's batch-lane gate (x peak)
+
+
+def _same_or_close(name, got, want, rel):
+    """Bit-equal, or else within rel x peak; prints which held and returns
+    (bit-equal, max |err| / peak)."""
+    same = got.shape == want.shape and np.array_equal(got, want)
+    peak = float(np.abs(want).max())
+    err = float(np.abs(got - want).max()) if got.shape == want.shape \
+        else float("inf")
+    print(f"{name}: {'bit-equal' if same else 'not bit-equal'}, max_abs_err "
+          f"{err:.3e} peak {peak:.6f} (limit {rel:g} x peak where not "
+          "bit-equal)", flush=True)
+    if not same and not err <= rel * peak:
+        raise AssertionError(f"{name}: {err} > {rel} x {peak}")
+    return same, err / peak
+
+
+def _sharded_batch(wt, mesh, rows, bufs):
+    ctx, src, filt = batched_context(wt, DEVICE)
+    gb = wt.GraphBatch(ctx, batch=BIG_BATCH, mesh=mesh)
+    gb.override_param(filt, "frequency", rows)
+    gb.override_buffer(src, bufs)
+    return gb
+
+
+def _offset_check(dither, x, offset):
+    """K5 and K6 against their plain versions on x with a nonzero offset:
+    int16 bit-equal, uint8 as in phase f; returns their largest errors."""
+    q = dither.dither_i16(x, 7, offset=offset)
+    u = dither.ulaw_u8(x, 7, offset=offset)
+    torch.cuda.synchronize()
+    err = int((q.int() - dither.dither_i16_reference(x, 7, offset).int())
+              .abs().max())
+    print(f"zj. dither_i16 at {tuple(x.shape)}, offset {offset}: max |kernel "
+          f"- plain| {err} codes", flush=True)
+    if err:
+        raise AssertionError(f"dither_i16 differs from plain at offset "
+                             f"{offset}")
+    return float(err), float(_ulaw_off(
+        f"zj. {tuple(x.shape)}, offset {offset}", u,
+        dither.ulaw_u8_reference(x, 7, offset)))
+
+
+def _turns_ms(plain, sharded):
+    """Medians of 5 (CUDA events, one warm-up each) in turns: plain,
+    sharded, sharded, plain; returns ([plain ms], [sharded ms])."""
+    p = [_median_events_ms(plain)]
+    s = [_median_events_ms(sharded), _median_events_ms(sharded)]
+    p.append(_median_events_ms(plain))
+    return p, s
+
+
+def phase_zj(wt, dither, zd, kernels):
+    """Sharding on the card: phase j's 1,024-instance batch over SHARDS
+    shards of one card, phase i's corpus (plus a bucket of one) over the
+    mesh, the time segments of phase zd through a mesh, the graft entry's
+    dry run; timings sharded against unsharded."""
+    from webaudio_tpu_torch import graft_entry
+    from webaudio_tpu_torch.parallel import segments
+    from webaudio_tpu_torch.parallel.mesh import Mesh, default_mesh
+
+    out = {}
+    meshes = [(f"{SHARDS} shards on one card", Mesh([DEVICE] * SHARDS,
+                                                    ("graphs",)))]
+    if torch.cuda.device_count() > 1:
+        meshes.append(("every card", default_mesh()))
+    else:
+        print("zj. one card visible: the mesh over every card is that card "
+              "alone, not run apart", flush=True)
+    rows, bufs = sweep_rows(BIG_BATCH), lane_buffers(BIG_BATCH)
+    plain = _sharded_batch(wt, None, rows, bufs)
+    want = plain.render()
+    want_host = _host(want)
+    for label, mesh in meshes:
+        label = f"zj. {BIG_BATCH} x 2 s over {label}"
+        gb = _sharded_batch(wt, mesh, rows, bufs)
+        print(f"{label}: shards {[(sh.lo, sh.hi, str(sh.device)) for sh in gb._shards]}, "
+              f"{gb.nb} blocks of {gb.cg.block_frames}", flush=True)
+        for k in kernels:
+            k.launches = 0
+        x = gb.render()
+        q = gb.render_i16()
+        i16_launches = dither.dither_i16.launches
+        u = gb.render_u8()
+        launches = {k.__name__: k.launches for k in kernels}
+        streamed = list(gb.render_stream(3, fetch="i16"))
+        torch.cuda.synchronize()
+        n = mesh.devices.size
+        print(f"{label}: launches over render, render_i16, render_u8 "
+              f"{launches} (render_i16 alone: K5 {i16_launches})", flush=True)
+        if i16_launches != n or launches["ulaw_u8"] != n:
+            raise AssertionError(f"{label}: K5 and K6 did not launch once a "
+                                 "shard")
+        same, rel = _same_or_close(f"{label}: render() vs the unsharded "
+                                   "render", _host(x), want_host, LANE_REL)
+        for name, got, whole in (
+                ("render_i16", q, dither.dither_i16(x, 0)),
+                ("render_u8", u, dither.ulaw_u8(x, 0))):
+            if not torch.equal(got, whole):
+                raise AssertionError(f"{label}: {name} differs from one "
+                                     "whole-tensor bounce of render()")
+        if not torch.equal(q, dither.dither_i16_reference(x, 0)):
+            raise AssertionError(f"{label}: render_i16 differs from the "
+                                 "plain dither of render()")
+        _ulaw_off(f"{label}: render_u8 vs the plain u-law of render()", u,
+                  dither.ulaw_u8_reference(x, 0))
+        print(f"{label}: render_i16 and render_u8 equal one whole-tensor "
+              "bounce (offset 0) of render(), and render_i16 its plain "
+              "dither", flush=True)
+        if same:
+            if not (torch.equal(q, plain.render_i16())
+                    and torch.equal(u, plain.render_u8())):
+                raise AssertionError(f"{label}: codes differ from the "
+                                     "unsharded bounce")
+            print(f"{label}: codes equal the unsharded bounce", flush=True)
+        # the unsharded codes where the lanes are bit-equal, else the
+        # sharded batch's own
+        direct = _host(plain.render_i16() if same else q)
+        for k, host in enumerate(streamed):
+            if not np.array_equal(host, direct):
+                raise AssertionError(f"{label}: render_stream batch {k} "
+                                     "differs from render_i16")
+        print(f"{label}: render_stream(3, 'i16') yields the "
+              f"{'unsharded' if same else 'sharded'} render_i16 arrays",
+              flush=True)
+        out.setdefault("batch", []).append(
+            {"mesh": [str(d) for d in mesh.devices], "bit_equal": same,
+             "rel_err": rel, "launches": launches})
+        if n == SHARDS:
+            sharded = gb
+            out["launches"] = launches
+        del x, q, u
+    del want
+    torch.cuda.empty_cache()
+
+    # K5 and K6 with nonzero offsets: the last shard's own bounce, and the
+    # high word of the Philox counter
+    shard = sharded._shards[-1]
+    x = sharded._walk()[-1]
+    errs = [_offset_check(dither, x, shard.lo * x[0].numel()),
+            _offset_check(dither, x, 2**34 + 28)]
+    out["offset_err"] = [max(e[i] for e in errs) for i in (0, 1)]
+    del x
+
+    times = {}
+    for name, fn in (("render", lambda gb: gb.render()),
+                     ("render_i16", lambda gb: gb.render_i16())):
+        p, s = _turns_ms(lambda: fn(plain), lambda: fn(sharded))
+        times[name] = {"unsharded_ms": p, "sharded_ms": s,
+                       "ratio": statistics.median(s) / statistics.median(p)}
+        print(f"zj. {name} of {BIG_BATCH}: unsharded {p} ms, {SHARDS} shards "
+              f"on one card {s} ms (medians of 5, in turns) -> sharded / "
+              f"unsharded {times[name]['ratio']:.3f}", flush=True)
+    out["times"] = times
+    del plain, sharded
+    torch.cuda.empty_cache()
+
+    # phase i's corpus plus one context of a fourth topology: three
+    # buckets of 32 shard over the mesh, the bucket of one falls back
+    def corpus():
+        ctxs = mixed_corpus(wt)
+        odd = wt.OfflineAudioContext(2, BATCH_FRAMES, FS, device=DEVICE)
+        osc = odd.create_oscillator(frequency=330.0)
+        env = odd.create_gain(gain=0.0)
+        env.gain.linear_ramp_to_value_at_time(0.5, BATCH_SECONDS)
+        osc.connect(env)
+        env.connect(odd.destination)
+        osc.start()
+        return ctxs + [odd]
+
+    mesh = meshes[0][1]
+    mb = wt.MixedGraphBatch(corpus(), mesh=mesh)
+    for k in kernels:
+        k.launches = 0
+    got = mb.render()
+    torch.cuda.synchronize()
+    mixed_launches = {k.__name__: k.launches for k in kernels}
+    buckets = [(len(idxs), gb.mesh is not None) for idxs, gb in mb._buckets]
+    print(f"zj. MixedGraphBatch of {len(got)} contexts over {SHARDS} shards: "
+          f"buckets (size, sharded) {buckets}: sharded "
+          f"{[b for b, s in buckets if s]}, fallen back "
+          f"{[b for b, s in buckets if not s]}; launches {mixed_launches}",
+          flush=True)
+    if sorted(buckets) != [(1, False)] + [(MIXED_PER_TOPOLOGY, True)] * 3:
+        raise AssertionError("zj. the corpus did not bucket as expected")
+    if mixed_launches["curve_lookup"] < 1:
+        raise AssertionError("zj. the shaper bucket launched no K1")
+    want = wt.MixedGraphBatch(corpus()).render()
+    worst, same_all = 0.0, True
+    for i, (g, w) in enumerate(zip(got, want)):
+        peak = float(np.abs(w).max())
+        err = float(np.abs(g - w).max())
+        same_all &= bool(np.array_equal(g, w))
+        worst = max(worst, err / peak)
+        if g.shape != w.shape or not err <= LANE_REL * peak:
+            raise AssertionError(f"zj. mixed context {i}: {err} > "
+                                 f"{LANE_REL} x {peak}")
+    print(f"zj. every sharded mixed output vs the unsharded mixed batch: "
+          f"{'bit-equal' if same_all else 'not all bit-equal'}, worst "
+          f"{worst:.3e} x peak (limit {LANE_REL:g})", flush=True)
+    out["mixed"] = {"buckets": buckets, "bit_equal": same_all,
+                    "rel_err": worst, "launches": mixed_launches}
+    del mb, got, want
+
+    # the time axis through a mesh, against phase zd's devices= render
+    for k in kernels:
+        k.launches = 0
+    timed = segments.render_time_sharded(
+        slice_context(wt, DEVICE, _bench_data(), FS),
+        mesh=Mesh([DEVICE] * SEGMENTS, ("time",)))
+    time_launches = {k.__name__: k.launches for k in kernels}
+    if not np.array_equal(timed, zd["out"]):
+        raise AssertionError("zj. render_time_sharded(mesh=) differs from "
+                             "phase zd's devices= render")
+    print(f"zj. render_time_sharded(mesh=Mesh([{DEVICE!r}] x {SEGMENTS}, "
+          f"('time',))) is bit-equal to phase zd's devices= render; "
+          f"launches {time_launches}", flush=True)
+    out["time_launches"] = time_launches
+
+    # the graft entry: its forward on the card and the four-leg dry run
+    forward, args = graft_entry.entry(DEVICE)
+    fwd = _host(forward(*args))
+    ref = graft_entry.flagship_context(device=DEVICE).start_rendering_sync() \
+        .to_array()
+    if not np.array_equal(fwd[:, :ref.shape[1]], ref):
+        raise AssertionError("zj. graft_entry forward differs from "
+                             "start_rendering_sync")
+    errs = graft_entry.dryrun_multichip(SHARDS, device=DEVICE)
+    print(f"zj. graft_entry: forward {fwd.shape} bit-equal to "
+          f"start_rendering_sync; dryrun_multichip({SHARDS}) max |err| a "
+          f"leg {errs} (limits 2e-5, cycles 2e-6)", flush=True)
+    out["graft"] = errs
+    torch.cuda.empty_cache()
+    return out
+
+
 def _ptxas_build(cuda_lib, name, source):
     """nvcc `source` with the port's flags and `-Xptxas -v` into the
     git-ignored build directory; returns the loaded library and ptxas's
@@ -5152,6 +5415,10 @@ def main() -> int:
     zh = phase_zh(wt, zg, (ck.curve_lookup, det.detector_scan))
     phase_zi(wt, zg, every)
 
+    # sharding, zj: each main path counts every kernel's launches from 0
+    zj = phase_zj(wt, dither, zd, every)
+    del zd["out"]
+
     n_q = QUANT_SHAPE[0] * QUANT_SHAPE[1]
     k5_bound = _bound(n_q * 6, 25 * n_q)
     k6_bound = _bound(n_q * 5, 50 * n_q)
@@ -5182,6 +5449,8 @@ def main() -> int:
          "launches_online_path": zh["1024"]["launches"]["curve_lookup"],
          "launches_online_16384":
              zh["16384"]["launches"]["curve_lookup"],
+         "launches_sharded_corpus": zj["mixed"]["launches"]["curve_lookup"],
+         "launches_sharded_segments": zj["time_launches"]["curve_lookup"],
          "online_chunks": zh["1024"]["chunks"],
          "max_abs_err": max(max_err, s7_err, zc["k1_err"]),
          **{k: v for k, v in k1["S1"].items() if k != "plan"},
@@ -5198,7 +5467,10 @@ def main() -> int:
          "launches_reverb_corpus_path": y["launches"]["dither_i16"],
          "launches_binaural_corpus_path": zb["launches"]["dither_i16"],
          "launches_session_path": zc["k5_launches"],
-         "max_abs_err": q_err[0],
+         "launches_sharded_path": zj["launches"]["dither_i16"],
+         "offset": "x[0]'s flat index in the stream; a sharded batch "
+                   "bounces each shard with its own",
+         "max_abs_err": max(q_err[0], zj["offset_err"][0]),
          "ms": times["dither_i16"][0], "plain_ms": times["dither_i16"][1],
          "cold_ms": times["dither_i16"][2],
          "share_of_bound": k5_bound[0] / times["dither_i16"][2],
@@ -5207,7 +5479,11 @@ def main() -> int:
         {"name": "ulaw_u8", "route": "cuda",
          "source": "webaudio_tpu_torch/csrc/quantize.cu",
          "replaces": "webaudio_tpu/ops/dither.py:113",
-         "launches": launches["ulaw_u8"], "max_abs_err": q_err[1],
+         "launches": launches["ulaw_u8"],
+         "launches_sharded_path": zj["launches"]["ulaw_u8"],
+         "offset": "x[0]'s flat index in the stream; a sharded batch "
+                   "bounces each shard with its own",
+         "max_abs_err": max(q_err[1], zj["offset_err"][1]),
          "ms": times["ulaw_u8"][0], "plain_ms": times["ulaw_u8"][1],
          "cold_ms": times["ulaw_u8"][2],
          "share_of_bound": k6_bound[0] / times["ulaw_u8"][2],

@@ -153,7 +153,7 @@ def test_override_buffer_restages_the_aligned_read_per_instance():
     assert tgb.cg.kernels[int(nk[1:])].read_mode == "aligned"
     batched = {lk for (k, lk) in tgb._batched_resources if k == nk}
     assert batched == {"data_rows", "edge_vals", "data_tiled"}
-    res = tgb._stage()[2][nk]
+    res = tgb._stage()[0][2][nk]       # the one shard's resources
     assert res["data_tiled"].shape[0] == 2 and res["data_rows"].shape[0] == 2
 
 
@@ -334,13 +334,6 @@ def test_bounces_are_the_codecs_of_the_render():
     assert u.dtype == torch.uint8
     torch.testing.assert_close(u, td.ulaw_u8_reference(x, 3), rtol=0, atol=0)
     assert np.abs(td.ulaw_decode_u8(u.numpy()) - x.numpy()).max() < 0.06
-
-
-def test_mesh_is_not_supported():
-    with pytest.raises(wt.NotSupportedError):
-        wt.GraphBatch(gain_graph(wt, 1024)[0], batch=2, mesh=object())
-    with pytest.raises(wt.NotSupportedError):
-        wt.MixedGraphBatch([gain_graph(wt, 1024)[0]], mesh=object())
 
 
 def test_override_errors():

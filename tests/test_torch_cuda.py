@@ -246,7 +246,7 @@ def test_curve_table_kernel_equals_plain_version(cuda, n):
             ck.curve_lookup_reference(table[r], x[r])))
 
 
-def _sweep_batch(device, batch, frames=20000):
+def _sweep_batch(device, batch, frames=20000, mesh=None):
     ctx = wt.OfflineAudioContext(2, frames, 48000.0, device=device)
     data = np.sin(np.arange(2 * 48000) * 0.03, dtype=np.float32)[None].repeat(2, 0)
     src = ctx.create_buffer_source(loop=True)
@@ -257,7 +257,7 @@ def _sweep_batch(device, batch, frames=20000):
     filt.frequency.exponential_ramp_to_value_at_time(8000.0, frames / 48000.0)
     src.connect(filt)
     filt.connect(ctx.destination)
-    gb = wt.GraphBatch(ctx, batch=batch)
+    gb = wt.GraphBatch(ctx, batch=batch, mesh=mesh)
     rows = np.linspace(0.5, 2.0, batch, dtype=np.float32)[:, None] * \
         np.geomspace(200.0, 8000.0, frames, dtype=np.float32)[None]
     gb.override_param(filt, "frequency", rows)
@@ -278,6 +278,43 @@ def test_graph_batch_on_the_card_matches_cpu(cuda):
     assert torch.equal(direct, td.dither_i16_reference(out, 5))
     for host in got.render_stream(2, fetch="i16"):
         np.testing.assert_array_equal(host, got.render_i16().cpu().numpy())
+
+
+@pytest.mark.parametrize("shards", (2, 4))
+def test_sharded_batch_on_the_card_equals_unsharded(cuda, shards):
+    """Shards in turn on one card: the a-rate sweep's lanes do not depend
+    on the batch size, so bit for bit; K5 and K6 launch once a shard, each
+    with its shard's offset, and give the unsharded codes."""
+    from webaudio_tpu_torch.parallel.mesh import Mesh
+
+    want = _sweep_batch(cuda, 8)
+    got = _sweep_batch(cuda, 8, mesh=Mesh([cuda] * shards, ("graphs",)))
+    assert torch.equal(got.render(), want.render())
+    before = (td.dither_i16.launches, td.ulaw_u8.launches)
+    q, u = got.render_i16(seed=3), got.render_u8(seed=3)
+    assert (td.dither_i16.launches, td.ulaw_u8.launches) == \
+        (before[0] + shards, before[1] + shards)
+    assert torch.equal(q, want.render_i16(seed=3))
+    assert torch.equal(u, want.render_u8(seed=3))
+    for host in got.render_stream(2, fetch="u8"):
+        np.testing.assert_array_equal(host, want.render_u8().cpu().numpy())
+
+
+@pytest.mark.parametrize("offset", (4, 4 * 98307, 2**32 + 4, 2**34 + 28))
+@pytest.mark.parametrize("misaligned", (False, True))
+def test_quantize_kernels_with_an_offset_equal_plain_versions(
+        cuda, offset, misaligned):
+    x = torch.from_numpy(_inputs(4 * (98304 + 3) + 1, seed=3)).to(cuda)
+    x = (x[1:] if misaligned else x[:-1]).reshape(4, -1)
+    q = td.dither_i16(x, 9, offset=offset)
+    u = td.ulaw_u8(x, 9, offset=offset)
+    torch.cuda.synchronize()
+    assert torch.equal(q, td.dither_i16_reference(x, 9, offset))
+    assert not torch.equal(q, td.dither_i16(x, 9))
+    # as test_quantize_kernels_equal_plain_versions: one code, rarely
+    diff = (u.int() - td.ulaw_u8_reference(x, 9, offset).int()).abs()
+    assert int(diff.max()) <= 1
+    assert int(torch.count_nonzero(diff)) <= 1e-6 * diff.numel()
 
 
 def _monotone_playheads(rng, R, B, g, w, L):

@@ -20,9 +20,9 @@ length, sample_rate, device="cuda")`, the `create_*` factories, `connect`,
 `start`, AudioParam automation, `suspend_sync` and `start_rendering_sync`
 (or `start_rendering`, `suspend` and `resume` as futures);
 `GraphBatch` and `MixedGraphBatch` render many graphs in one block walk,
-with dithered int16 and u-law bounces on the device; `RenderSession`
-renders in resumable steps with checkpoints, `render_time_sharded` in
-time segments, and `AudioWorkletNode` / `ScriptProcessorNode` run user
+with dithered int16 and u-law bounces on the device, or split over the
+devices of a `parallel.mesh.Mesh`; `RenderSession` renders in resumable
+steps with checkpoints, `render_time_sharded` in time segments, and `AudioWorkletNode` / `ScriptProcessorNode` run user
 code.  `AudioContext(device="cuda")` renders in real time into a sink
 (callback, WAV file, null), and `decode_audio_data` / the media nodes,
 streams, recorder and element bring audio in and out through the host.

@@ -77,13 +77,11 @@ def to_torch_tree(tree, device):
     return tree_map(lambda x: torch.from_numpy(np.array(x)).to(device), tree)
 
 
-def stage_resources(tree: dict, device, batched=frozenset()) -> dict:
+def stage_resources(tree: dict, device) -> dict:
     """Stage a `collect_resources` tree ({node_key: {leaf_key: array}}) for
-    the block walk: leaves named in `batched` as (node_key, leaf_key)
-    already carry their leading instance axis; every other leaf is shared
-    and gets a leading axis of 1."""
-    return {nk: {lk: upload(v if (nk, lk) in batched else np.asarray(v)[None],
-                            device)
+    the block walk: every leaf is shared by the instances and gets a
+    leading axis of 1."""
+    return {nk: {lk: upload(np.asarray(v)[None], device)
                  for lk, v in leaves.items()}
             for nk, leaves in tree.items()}
 

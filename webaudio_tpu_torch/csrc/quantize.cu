@@ -15,7 +15,10 @@
 //
 // Random numbers: key (seed, 0), counter (g, g >> 32, 0, 0) for the group
 // g = i / 4 of flat element i; element i takes output word i % 4, and
-// u = (r >> 8) * 2^-24, exact in f32.  The stream depends on the element
+// u = (r >> 8) * 2^-24, exact in f32.  A launch over a slice of a larger
+// tensor passes the flat index of its first element as `offset` (a
+// multiple of 4), so a batch bounced shard by shard draws the same u as
+// one bounce of the whole batch.  The stream depends on the element
 // index and the seed only, not on the launch geometry, so the plain PyTorch
 // versions (webaudio_tpu_torch/ops/dither.py::dither_i16_reference,
 // ulaw_u8_reference) give the same codes.  Every float step is written with
@@ -115,15 +118,16 @@ struct UlawU8 {
 template <class Op>
 __global__ void quantize(const float* __restrict__ x,
                          typename Op::Out* __restrict__ y, long long m,
-                         uint32_t seed, bool vec) {
+                         long long g0, uint32_t seed, bool vec) {
   using Out = typename Op::Out;
   const long long groups = (m + 3) / 4;
   const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
   for (long long g = static_cast<long long>(blockIdx.x) * blockDim.x +
                      threadIdx.x;
        g < groups; g += stride) {
-    const U4 r = philox4x32_10(static_cast<uint32_t>(g),
-                               static_cast<uint32_t>(g >> 32), 0u, 0u, seed,
+    const long long c = g + g0;
+    const U4 r = philox4x32_10(static_cast<uint32_t>(c),
+                               static_cast<uint32_t>(c >> 32), 0u, 0u, seed,
                                0u);
     const long long i0 = 4 * g;
     if (vec && i0 + 4 <= m) {
@@ -142,8 +146,8 @@ __global__ void quantize(const float* __restrict__ x,
 }
 
 template <class Op>
-int launch(const float* x, typename Op::Out* y, long long m, uint32_t seed,
-           void* stream) {
+int launch(const float* x, typename Op::Out* y, long long m,
+           long long offset, uint32_t seed, void* stream) {
   if (m <= 0) return static_cast<int>(cudaGetLastError());
   const long long groups = (m + 3) / 4;
   long long blocks = (groups + kThreads - 1) / kThreads;
@@ -153,20 +157,23 @@ int launch(const float* x, typename Op::Out* y, long long m, uint32_t seed,
   const bool vec = (reinterpret_cast<uintptr_t>(x) % 16 == 0) &&
                    (reinterpret_cast<uintptr_t>(y) % (4 * sizeof(*y)) == 0);
   quantize<Op><<<static_cast<unsigned>(blocks), kThreads, 0,
-                 static_cast<cudaStream_t>(stream)>>>(x, y, m, seed, vec);
+                 static_cast<cudaStream_t>(stream)>>>(x, y, m, offset / 4,
+                                                      seed, vec);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // x: m contiguous f32 on the device; y: m contiguous int16 (K5) or uint8
-// (K6).  Launch on `stream` and return cudaGetLastError() (0 on success).
+// (K6); offset: the flat index of x[0] in the stream, a multiple of 4 (the
+// wrapper checks).  Launch on `stream` and return cudaGetLastError() (0 on
+// success).
 extern "C" int dither_i16(const float* x, int16_t* y, long long m,
-                          uint32_t seed, void* stream) {
-  return launch<DitherI16>(x, y, m, seed, stream);
+                          long long offset, uint32_t seed, void* stream) {
+  return launch<DitherI16>(x, y, m, offset, seed, stream);
 }
 
-extern "C" int ulaw_u8(const float* x, uint8_t* y, long long m, uint32_t seed,
-                       void* stream) {
-  return launch<UlawU8>(x, y, m, seed, stream);
+extern "C" int ulaw_u8(const float* x, uint8_t* y, long long m,
+                       long long offset, uint32_t seed, void* stream) {
+  return launch<UlawU8>(x, y, m, offset, seed, stream);
 }

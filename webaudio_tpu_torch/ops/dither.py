@@ -17,7 +17,10 @@ element i takes word i % 4 of its counter's output r, and
 u = (r >> 8) * 2**-24, which is exact in f32.  The stream depends on the
 seed and the element index only, never on the launch geometry, so the
 kernel (`csrc/quantize.cu`) and the plain versions below, which compute
-the same Philox with int64 tensor ops, give the same codes.
+the same Philox with int64 tensor ops, give the same codes.  Every entry
+takes `offset`, the flat index of x's first element in a larger tensor (a
+multiple of 4): a batch bounced shard by shard, each shard with its own
+offset, gets the codes of one bounce of the whole batch.
 
 What JAX leaves undefined is defined here: a NaN sample is quantized as
 0.0 (with its own u), and +-inf clip to the end codes.
@@ -68,10 +71,19 @@ def philox4x32(counter, key):
     return c0, c1, c2, c3
 
 
-def uniforms(numel: int, seed: int, device) -> torch.Tensor:
-    """The kernels' u for flat elements 0..numel-1: (numel,) f32 in [0, 1)."""
+def _check_offset(name, offset):
+    if offset < 0 or offset % 4:
+        raise ValueError(f"{name}: offset {offset} is not a non-negative "
+                         "multiple of 4")
+
+
+def uniforms(numel: int, seed: int, device, offset: int = 0) -> torch.Tensor:
+    """The kernels' u for flat elements offset..offset+numel-1: (numel,)
+    f32 in [0, 1)."""
+    _check_offset("uniforms", offset)
     groups = -(-numel // 4)
-    g = torch.arange(groups, dtype=torch.int64, device=device)
+    g = torch.arange(offset // 4, offset // 4 + groups, dtype=torch.int64,
+                     device=device)
     zero = torch.zeros_like(g)
     words = philox4x32((g & _MASK, g >> 32, zero, zero), (seed & _MASK, 0))
     r = torch.stack(words, dim=1).reshape(-1)[:numel]
@@ -82,16 +94,18 @@ def _finite_or_zero(x: torch.Tensor) -> torch.Tensor:
     return torch.where(torch.isnan(x), torch.zeros_like(x), x)
 
 
-def dither_i16_reference(x: torch.Tensor, seed: int) -> torch.Tensor:
+def dither_i16_reference(x: torch.Tensor, seed: int,
+                         offset: int = 0) -> torch.Tensor:
     """Plain version of K5: f32 x of any shape -> int16 codes."""
-    u = uniforms(x.numel(), seed, x.device).reshape(x.shape)
+    u = uniforms(x.numel(), seed, x.device, offset).reshape(x.shape)
     q = torch.floor(_finite_or_zero(x) * 32767.0 + u)
     return torch.clamp(q, -32768.0, 32767.0).to(torch.int16)
 
 
-def ulaw_u8_reference(x: torch.Tensor, seed: int) -> torch.Tensor:
+def ulaw_u8_reference(x: torch.Tensor, seed: int,
+                      offset: int = 0) -> torch.Tensor:
     """Plain version of K6: f32 x of any shape -> uint8 u-law codes."""
-    u = uniforms(x.numel(), seed, x.device).reshape(x.shape)
+    u = uniforms(x.numel(), seed, x.device, offset).reshape(x.shape)
     x = torch.clamp(_finite_or_zero(x), -1.0, 1.0)
     y = torch.sign(x) * torch.log1p(_MU * torch.abs(x)) * _INV_LOG
     q = torch.floor((y * 0.5 + 0.5) * 255.0 + u)
@@ -105,16 +119,17 @@ def _launchers():
     for name in ("dither_i16", "ulaw_u8"):
         fn = getattr(lib, name)
         fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-                       ctypes.c_uint32, ctypes.c_void_p]
+                       ctypes.c_longlong, ctypes.c_uint32, ctypes.c_void_p]
         fn.restype = ctypes.c_int
         fns[name] = fn
     return fns
 
 
-def _quantize(wrapper, reference, out_dtype, x, seed, out):
+def _quantize(wrapper, reference, out_dtype, x, seed, out, offset):
     name = wrapper.__name__
+    _check_offset(name, offset)
     if x.device.type == "cpu" and (out is None or out.device.type == "cpu"):
-        codes = reference(x, seed)
+        codes = reference(x, seed, offset)
         return codes if out is None else out.copy_(codes)
     if out is None:
         out = torch.empty(x.shape, dtype=out_dtype, device=x.device)
@@ -131,7 +146,7 @@ def _quantize(wrapper, reference, out_dtype, x, seed, out):
                           f"x {tuple(x.shape)}")
     if not (x.is_contiguous() and out.is_contiguous()):
         raise KernelError(f"{name}: x and out must be contiguous")
-    rc = _launchers()[name](x.data_ptr(), out.data_ptr(), x.numel(),
+    rc = _launchers()[name](x.data_ptr(), out.data_ptr(), x.numel(), offset,
                             seed & _MASK,
                             torch.cuda.current_stream(x.device).cuda_stream)
     check(rc, f"{name} launch")
@@ -139,19 +154,23 @@ def _quantize(wrapper, reference, out_dtype, x, seed, out):
     return out
 
 
-def dither_i16(x: torch.Tensor, seed: int = 0, out=None) -> torch.Tensor:
+def dither_i16(x: torch.Tensor, seed: int = 0, out=None,
+               offset: int = 0) -> torch.Tensor:
     """Dithered int16 codes of f32 x.  CUDA tensors go through the
     hand-written kernel (each launch adds one to `dither_i16.launches`);
     CPU tensors take `dither_i16_reference`.  `out`, if given, receives
-    the codes and must lie on x's device."""
+    the codes and must lie on x's device; `offset` is x[0]'s flat index in
+    the stream (a multiple of 4)."""
     return _quantize(dither_i16, dither_i16_reference, torch.int16, x, seed,
-                     out)
+                     out, offset)
 
 
-def ulaw_u8(x: torch.Tensor, seed: int = 0, out=None) -> torch.Tensor:
+def ulaw_u8(x: torch.Tensor, seed: int = 0, out=None,
+            offset: int = 0) -> torch.Tensor:
     """Dithered 8-bit u-law codes of f32 x; launches as `dither_i16`
     does (counted in `ulaw_u8.launches`)."""
-    return _quantize(ulaw_u8, ulaw_u8_reference, torch.uint8, x, seed, out)
+    return _quantize(ulaw_u8, ulaw_u8_reference, torch.uint8, x, seed, out,
+                     offset)
 
 
 dither_i16.launches = 0

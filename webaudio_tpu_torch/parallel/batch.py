@@ -5,33 +5,45 @@ graph per thread; the engine's scale axis is batches of independent
 graphs.  The JAX package `vmap`s its scan over stacked params, states and
 resources; here the same batch is the block walk's leading instance axis
 (`graph/compiler.py`), so every launch of the loop carries all N
-instances.  One card, no mesh: `mesh=` raises `NotSupportedError`.
+instances.
+
+With `mesh=` (a `parallel/mesh.py::Mesh` over a "graphs" axis of n
+devices) the batch splits into n shards of batch / n instances, in
+instance order, each walked on its device with its own plan, rows, states
+and resources.  The JAX package shards one jitted computation over the
+mesh; here one host thread walks the shards one after another, and the
+results are gathered on the context's device.  The bounces run on each
+shard's device before the gather, each shard's Philox stream starting at
+its first element, so the codes equal one bounce of the unsharded batch.
 """
 
 from __future__ import annotations
 
 import hashlib
 import math
+from dataclasses import dataclass
 
 import numpy as np
 import torch
 
 from .. import convert
-from ..constants import NotSupportedError
 from ..graph import compiler as _compiler
 from ..ops.dither import dither_i16, ulaw_u8
+from .mesh import Mesh, default_mesh, indexed, on_device  # noqa: F401
 
 
-def _refuse_mesh(mesh):
-    if mesh is not None:
-        raise NotSupportedError(
-            "sharding a batch over a device mesh is not ported to "
-            "webaudio_tpu_torch yet; render on one device")
+@dataclass
+class _Shard:
+    """Instances [lo, hi) of a batch, walked on `device` with plan `cg`."""
+    lo: int
+    hi: int
+    device: torch.device
+    cg: object
 
 
 class GraphBatch:
     """Render `batch` instances of one graph topology in one block walk on
-    the context's device.
+    the context's device, or split over a mesh's "graphs" axis.
 
     Instances share the topology and any baked constants (audio buffers,
     schedules); per-instance variation comes from `override_param` (dense
@@ -40,12 +52,16 @@ class GraphBatch:
     is staged on the device once and re-staged only where an override
     changed it, so a staged batch re-renders without rebuilding or
     re-copying anything.
+
+    mesh: a `Mesh` over ("graphs",) whose size divides `batch` (else
+    ValueError); shard s renders instances [s k, (s + 1) k), k = batch / n,
+    on the mesh's s-th device.
     """
 
     def __init__(self, context, batch: int, mesh=None, _cg=None):
-        _refuse_mesh(mesh)
         self.context = context
         self.batch = batch
+        self.mesh = mesh
         self.device = context.device
         total = context.length
         self.total_frames = total
@@ -56,6 +72,7 @@ class GraphBatch:
         B = self.cg.block_frames
         self.nb = -(-total // B)
         self.frame0s = [b * B for b in range(self.nb)]
+        self._shards = self._split(mesh)
 
         # base param rows (shared across instances unless overridden),
         # host (batch, nb, P, B); override_param writes into it
@@ -71,6 +88,33 @@ class GraphBatch:
         self._batched_resources: set = set()   # (node_key, leaf_key)
         self._staged_xs = None
         self._staged_res = None
+        self._staged_states = None
+
+    def _split(self, mesh) -> list:
+        """The shards: one over the whole batch on the context's device
+        without a mesh; else one a mesh entry, with one plan a distinct
+        device (the context's own plan on the context's device)."""
+        if mesh is None:
+            return [_Shard(0, self.batch, self.device, self.cg)]
+        if not isinstance(mesh, Mesh):
+            raise TypeError(f"mesh must be a parallel.mesh.Mesh, got "
+                            f"{type(mesh).__name__}")
+        mesh.require("graphs")
+        n = mesh.devices.size
+        if self.batch % n:
+            raise ValueError(f"a batch of {self.batch} does not split over "
+                             f"a mesh of {n} devices")
+        k = self.batch // n
+        ctx = self.context
+        plans = {indexed(self.device): self.cg}
+        shards = []
+        for s, dev in enumerate(mesh.devices):
+            if dev not in plans:
+                plans[dev] = _compiler.compile_graph(
+                    dict(ctx._nodes), list(ctx._edges), ctx.sample_rate,
+                    self.total_frames, ctx._destination.node_id, dev)
+            shards.append(_Shard(s * k, (s + 1) * k, dev, plans[dev]))
+        return shards
 
     @classmethod
     def from_contexts(cls, contexts, mesh=None) -> "MixedGraphBatch":
@@ -164,56 +208,102 @@ class GraphBatch:
         self._staged_xs = None
 
     def _stage(self):
-        """Upload params and resources where an override changed them (from
-        snapshots no later override touches) and return (states, xs,
-        resources) for the block walk."""
+        """Upload each shard's rows, states and resources where an override
+        changed them (from snapshots no later override touches; shared
+        resources once a device) and return (states, xs, resources) for
+        each shard's block walk, in shard order."""
+        shards = self._shards
         if self._staged_xs is None:
-            self._staged_xs = convert.upload(self._xs, self.device)
+            self._staged_xs = [convert.upload(self._xs[sh.lo:sh.hi], sh.device)
+                               for sh in shards]
+        if self._staged_states is None:
+            self._staged_states = [convert.tree_map(
+                lambda x, sh=sh: x[sh.lo:sh.hi].to(sh.device), self._states)
+                for sh in shards]
         if self._staged_res is None:
-            self._staged_res = convert.stage_resources(
-                self._resources, self.device, self._batched_resources)
-        return self._states, self._staged_xs, self._staged_res
+            batched = self._batched_resources
+            common = {nk: {lk: v for lk, v in leaves.items()
+                           if (nk, lk) not in batched}
+                      for nk, leaves in self._resources.items()}
+            shared = {}
+            for sh in shards:
+                if sh.device not in shared:
+                    shared[sh.device] = convert.stage_resources(common,
+                                                                sh.device)
+            self._staged_res = [
+                {nk: {lk: (convert.upload(v[sh.lo:sh.hi], sh.device)
+                           if (nk, lk) in batched
+                           else shared[sh.device][nk][lk])
+                      for lk, v in leaves.items()}
+                 for nk, leaves in self._resources.items()}
+                for sh in shards]
+        return list(zip(self._staged_states, self._staged_xs,
+                        self._staged_res))
+
+    def _walk(self) -> list:
+        """Each shard's (k, channels, padded_frames) f32 on its device."""
+        outs = []
+        for sh, (states, xs, res) in zip(self._shards, self._stage()):
+            with on_device(sh.device):
+                _, out = _compiler.scan_render(sh.cg, states, self.frame0s,
+                                               xs, res)
+            outs.append(out)
+        return outs
+
+    def _bounce(self, quantize, seed) -> list:
+        """Each shard's codes on its device: the shard's Philox stream
+        starts at its first element's flat index in the whole batch."""
+        outs = self._walk()
+        per = outs[0][0].numel()
+        codes = []
+        for sh, out in zip(self._shards, outs):
+            with on_device(sh.device):
+                codes.append(quantize(out, seed, offset=sh.lo * per))
+        return codes
+
+    def _gather(self, parts: list) -> torch.Tensor:
+        if len(parts) == 1:
+            return parts[0].to(self.device)
+        return torch.cat([p.to(self.device) for p in parts])
 
     def render(self) -> torch.Tensor:
-        """-> (batch, channels, padded_frames) f32 on the device; slice
-        [..., :total_frames] for the render's length."""
-        states, xs, res = self._stage()
-        _, out = _compiler.scan_render(self.cg, states, self.frame0s, xs, res)
-        return out
+        """-> (batch, channels, padded_frames) f32 on the context's device;
+        slice [..., :total_frames] for the render's length."""
+        return self._gather(self._walk())
 
     def render_i16(self, seed: int = 0) -> torch.Tensor:
         """Render and quantize to dithered int16 on the device (kernel K5,
-        ops/dither.py) before any host transfer: half the bytes of f32."""
-        return dither_i16(self.render(), seed)
+        ops/dither.py, once a shard) before any transfer: half the bytes of
+        f32."""
+        return self._gather(self._bounce(dither_i16, seed))
 
     def render_u8(self, seed: int = 0) -> torch.Tensor:
         """Render and compand to dithered 8-bit u-law on the device (kernel
-        K6): a preview-grade bounce, a quarter of the bytes of f32.
-        Decode host-side with `ops.dither.ulaw_decode_u8`."""
-        return ulaw_u8(self.render(), seed)
+        K6, once a shard): a preview-grade bounce, a quarter of the bytes
+        of f32.  Decode host-side with `ops.dither.ulaw_decode_u8`."""
+        return self._gather(self._bounce(ulaw_u8, seed))
 
     def render_stream(self, count: int, updates=None, fetch: str = "i16"):
         """Double-buffered serving loop: yields `count` host numpy arrays,
         dispatching batch k+1's render before fetching batch k, so the
         device computes the next batch while the previous one crosses to
         the host.  On CUDA each batch is copied on a side stream into a
-        pinned host buffer of its own, and an event per batch says when it
-        has landed.
+        pinned host buffer of its own (each shard into its rows, from its
+        own device), and an event per shard says when it has landed.
 
         updates: optional callable (gb, k) -> None run before dispatch k to
         change per-batch inputs (override_param / override_buffer); fetch:
         'f32' | 'i16' | 'u8' selects the on-device bounce depth.
         """
-        dispatch = {"f32": self.render,
-                    "i16": self.render_i16,
-                    "u8": self.render_u8}[fetch]
-        copier = (torch.cuda.Stream(self.device)
-                  if self.device.type == "cuda" else None)
+        dispatch = {"f32": self._walk,
+                    "i16": lambda: self._bounce(dither_i16, 0),
+                    "u8": lambda: self._bounce(ulaw_u8, 0)}[fetch]
+        copiers: dict = {}
         prev = None
         for k in range(count):
             if updates is not None:
                 updates(self, k)
-            cur = _fetch_async(dispatch(), copier)
+            cur = _fetch_async(dispatch(), self._shards, copiers)
             if prev is not None:
                 yield prev()
             prev = cur
@@ -221,23 +311,38 @@ class GraphBatch:
             yield prev()
 
 
-def _fetch_async(t: torch.Tensor, copier):
-    """Start copying t to the host; return a callable that waits for the
-    copy and returns the numpy array."""
-    if copier is None:
-        return t.numpy
-    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-    done = torch.cuda.Event()
-    copier.wait_stream(torch.cuda.current_stream(t.device))
-    with torch.cuda.stream(copier):
-        host.copy_(t, non_blocking=True)
-        done.record(copier)
-    # the render's allocator must not hand t's memory out again before the
-    # side stream has read it
-    t.record_stream(copier)
+def _fetch_async(parts: list, shards: list, copiers: dict):
+    """Start copying each shard's part into its rows of one host array;
+    return a callable that waits for the copies and returns the array.
+    A part on a card is copied on a side stream of that card (`copiers`,
+    one a card, made here at first use) into pinned memory."""
+    if len(parts) == 1 and parts[0].device.type == "cpu":
+        return parts[0].numpy
+    on_card = any(p.device.type == "cuda" for p in parts)
+    host = torch.empty((shards[-1].hi,) + tuple(parts[0].shape[1:]),
+                       dtype=parts[0].dtype, pin_memory=on_card)
+    done = []
+    for sh, t in zip(shards, parts):
+        rows = host[sh.lo:sh.hi]
+        if t.device.type != "cuda":
+            rows.copy_(t)
+            continue
+        if t.device not in copiers:
+            copiers[t.device] = torch.cuda.Stream(t.device)
+        copier = copiers[t.device]
+        event = torch.cuda.Event()
+        copier.wait_stream(torch.cuda.current_stream(t.device))
+        with torch.cuda.stream(copier):
+            rows.copy_(t, non_blocking=True)
+            event.record(copier)
+        # the render's allocator must not hand t's memory out again before
+        # the side stream has read it
+        t.record_stream(copier)
+        done.append(event)
 
     def result():
-        done.synchronize()
+        for event in done:
+            event.synchronize()
         return host.numpy()
 
     return result
@@ -350,14 +455,18 @@ class MixedGraphBatch:
     constants, length, device or resource shapes differ land in different
     buckets: correctness never depends on bucketing, only the number of
     block walks does.  Build same-topology contexts in the same node
-    order: node ids are part of the structure."""
+    order: node ids are part of the structure.
+
+    With `mesh=`, a bucket whose size the mesh's size divides renders
+    sharded over it; any other bucket renders unsharded on its context's
+    device (its GraphBatch's `mesh` is None), as in the JAX package."""
 
     def __init__(self, contexts, mesh=None):
-        _refuse_mesh(mesh)
         contexts = list(contexts)
         if not contexts:
             raise ValueError("need at least one context")
         self.contexts = contexts
+        self.mesh = mesh
         cgs = [_compiler.compile_graph(
             dict(c._nodes), list(c._edges), c.sample_rate, c.length,
             c._destination.node_id, c.device) for c in contexts]
@@ -368,7 +477,11 @@ class MixedGraphBatch:
         for members in buckets.values():
             idxs = [m[0] for m in members]
             _, leader_ctx, leader_cg = members[0]
-            gb = GraphBatch(leader_ctx, batch=len(members), _cg=leader_cg)
+            bucket_mesh = mesh
+            if mesh is not None and len(members) % mesh.devices.size:
+                bucket_mesh = None   # odd bucket: render unsharded
+            gb = GraphBatch(leader_ctx, batch=len(members), mesh=bucket_mesh,
+                            _cg=leader_cg)
             B = gb.cg.block_frames
             # per-instance dense automation straight from each member's
             # own compiled timelines (row order is part of the fingerprint)

@@ -11,11 +11,12 @@ discarded.  Sources are time-indexed (closed-form phase and playhead), so
 they produce the same samples whichever segment renders them.
 
 Ported from `webaudio_tpu/parallel/segments.py`, whose segments are the
-shards of a `shard_map` over a `time` mesh axis.  Here `devices` is a list
-of torch devices, one per segment, repeats allowed: segment d renders on
-`devices[d]`, and segments that share a device run one after another on
-it.  The block size, the halo and the refusals are the JAX package's, so
-both render the same output.  A JAX `mesh=` is not taken.
+shards of a `shard_map` over a `time` mesh axis.  Here the segments'
+devices are a `parallel/mesh.py::Mesh` over ("time",) or a list of torch
+devices, one per segment, repeats allowed: segment d renders on the d-th
+device, and segments that share a device run one after another on it.
+The block size, the halo and the refusals are the JAX package's, so both
+render the same output.
 """
 
 from __future__ import annotations
@@ -25,6 +26,7 @@ import torch
 
 from ..constants import NotSupportedError
 from ..graph import compiler as _compiler
+from .mesh import Mesh, default_mesh, on_device
 
 
 class NotTimeShardableError(NotSupportedError):
@@ -63,17 +65,20 @@ def segment_plan(total: int, n_dev: int, block_frames: int,
 
 
 def render_time_sharded(context, total_frames: int | None = None,
-                        devices=None):
+                        mesh: Mesh | None = None, devices=None):
     """Render `context`'s graph over [0, total_frames) split into one time
-    segment per entry of `devices` (default: every visible CUDA device).
-    Returns (channels, total_frames) numpy audio."""
+    segment per entry of `mesh` (a Mesh over ("time",)) or of `devices`
+    (a list of devices), not both; with neither, one per visible CUDA
+    device.  Returns (channels, total_frames) numpy audio."""
     total = total_frames or context.length
-    if devices is None:
-        devices = [f"cuda:{i}" for i in range(torch.cuda.device_count())]
-        if not devices:
-            raise RuntimeError("render_time_sharded: no CUDA device is "
-                               "visible; pass devices=")
-    devices = [torch.device(d) for d in devices]
+    if mesh is not None and devices is not None:
+        raise ValueError("render_time_sharded: pass mesh= or devices=, not "
+                         "both")
+    if mesh is None:
+        mesh = (default_mesh("time") if devices is None
+                else Mesh(devices, ("time",)))
+    mesh.require("time")
+    devices = list(mesh.devices)
     n_dev = len(devices)
 
     # block size: several blocks per segment (the halo quantizes to whole
@@ -112,9 +117,10 @@ def render_time_sharded(context, total_frames: int | None = None,
             seg.resource_cache = _compiler.stage_resources(
                 _compiler.collect_resources(seg), dev)
         states = _compiler.batch_states(_compiler.zero_states(seg), 1)
-        _, out = _compiler.scan_render(
-            seg, states, [int(f) for f in starts[d]],
-            torch.from_numpy(xs[None]).to(dev), seg.resource_cache)
+        with on_device(dev):
+            _, out = _compiler.scan_render(
+                seg, states, [int(f) for f in starts[d]],
+                torch.from_numpy(xs[None]).to(dev), seg.resource_cache)
         outs.append(out[0, :, halo_blocks * B:])     # (C, nb_net * B)
     flat = torch.cat([o.cpu() for o in outs], dim=-1)
     return flat[:, :total].numpy()
