@@ -1,8 +1,13 @@
 """GPU smoke check of the PyTorch port (webaudio_tpu_torch) on one card.
 
     python3 chip_smoke.py [--old SOURCE] [--old SOURCE]
+    python3 chip_smoke.py --ab-fresh PARENT
 
-Builds the port's CUDA kernels from the sources in this checkout and
+With --ab-fresh it runs only an A/B of the fresh end-to-end renders (the
+slice, configs 3 and 4, Doppler, 5a) of an earlier checkout unpacked at
+PARENT (`git archive`) against this one, in four pairs of turns, each
+turn a process of its own, and checks both render the same bits.  Otherwise it builds the
+port's CUDA kernels from the sources in this checkout and
 drives its main path on `device="cuda"`:
 
   a. the WaveShaper curve kernels against their plain PyTorch version, bit
@@ -401,6 +406,33 @@ launch count from 0 on each path:
      render; graft_entry's forward bit-equal to start_rendering_sync and
      dryrun_multichip(4) on the card.
 
+Every walk above runs captured by default: graph/compiler.py's
+scan_render captures one block of a plan as a CUDA graph (at a plan's
+first block of a walk after the one that marked it, or at block 1 of a
+walk with 4 blocks or more left; a first walk of 4 blocks or fewer marks
+nothing and reads frame0 on the host, as every eager walk does) and
+replays it a block at a time, the wrappers' counters raised by the
+graph's launches on every replay.  Then:
+
+  zk. every walking path eager (WEBAUDIO_CUDA_GRAPHS=0) and captured, each
+     from its own plan: the slice's block loop and end to end (2 blocks:
+     eager by the rule), one-quantum config 3 at 0.25 s end to end, the slice
+     session's steps and the 64-grain session in 128-frame blocks (K2
+     from the captured walk), 8 time segments, 1 s of the online context
+     in 1,024-frame chunks, config 3, config 4 and the Doppler graph end
+     to end (one block: eager by the rule) and as block loops, 5a's block
+     loop, phase j's 256-instance GraphBatch, 64 instances over a mesh of
+     4 on one card, phase i's MixedGraphBatch and the graft entry.  Every
+     captured call bit-equal to the eager call, the same launches of
+     every kernel a call; wall ms of the first call and medians in turns
+     (eager, captured, captured, eager), the graphs' capture and
+     instantiate ms and block replays, device operations a call and busy
+     share under the profiler, peak memory of the first and of a later
+     call, and each case's seconds.  In each mode's profiled calls every
+     kernel's counted launches must equal its kernels' launches in the
+     trace (by name: the counters of a replay are the graph's recorded
+     launches, the trace what the card ran).
+
 Prints the measurements, a {"kernels": [...]} line (each kernel's launches
 on its path, error against its plain version, device time, the plain
 version's, the least time the card could take (`bound_ms`: the larger of
@@ -418,7 +450,8 @@ session; the detector kernel's row its launches on the
 default 5a and 5b paths and the forced-chunked 5a path, its plain
 version's host time, the latency floors of one sequential chain, the
 step's cycles, the chunked path's time, 5b's and the sweep's times,
-and its launches on the online path)
+and its launches on the online path; every row its launches a call on
+each captured path of zk, the grain kernel's how it reads frame0)
 and the card's name and power limit, then as
 its last line {"ok": true, "device": {...}}.  Exits non-zero, printing no result, if CUDA is unavailable or any
 phase fails.  Imports nothing of JAX.
@@ -1223,10 +1256,11 @@ def _rates(name, batch, ms):
           f"wall s, {batch * 1000.0 / ms:.1f} graphs/s", flush=True)
 
 
-def _profile(calls):
+def _profile(calls, kernels=None):
     """(device-busy us, wall us, top ops by device us per call, device
     operations (kernels, copies, fills) per call) over the calls, run back
-    to back under torch.profiler."""
+    to back under torch.profiler.  With `kernels` (a dict), it is filled
+    with each device kernel's name and its count in the trace."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1245,6 +1279,10 @@ def _profile(calls):
                   and e.self_device_time_total > 0),
                  key=lambda e: -e.self_device_time_total)[:6]
     launches = sum(e.count for e in rows if e.device_type == DeviceType.CUDA)
+    if kernels is not None:
+        for e in rows:
+            if e.device_type == DeviceType.CUDA:
+                kernels[e.key] = kernels.get(e.key, 0) + e.count
     return busy_us, wall_us, [(e.key, e.self_device_time_total / len(calls))
                               for e in ops], launches / len(calls)
 
@@ -1596,7 +1634,8 @@ def _bank_edge_cases(gr, rng):
         gain = torch.from_numpy(rng.uniform(-0.2, 1.3, (
             I if gain_i else 1, K, B)).astype(np.float32)).cuda()
         for offset in (0, 1):
-            full = args + [_offset(gain, offset), frame0, L, 0.0, 1.0]
+            full = args + [_offset(gain, offset),
+                           torch.tensor(frame0, device="cuda"), L, 0.0, 1.0]
             got = gr.grain_bank(*full)
             want = gr.grain_bank_reference(*full)
             # and through the launcher into an output as offset as gain
@@ -1665,7 +1704,7 @@ def phase_k(wt, gr, fusion, KernelError):
         base.astype(np.int32), rng.random((K, nq)).astype(np.float32),
         rng.uniform(0.9, 1.0995, (K, nq)).astype(np.float32),
         rng.uniform(-0.2, 1.3, (K, B)).astype(np.float32))]
-    synth += [0, L, 0.0, 1.0]
+    synth += [torch.zeros((), dtype=torch.int64, device="cuda"), L, 0.0, 1.0]
     worst["grain_bank"] = max(worst["grain_bank"], _equal(
         "k. grain_bank on synthetic lanes crossing both buffer ends",
         gr.grain_bank(*synth), gr.grain_bank_reference(*synth)))
@@ -1823,9 +1862,19 @@ def phase_m(wt, gr, compiler, fusion, cases, old=None):
         _, K, nq = a[2].shape
         B, C = nq * 128, a[0].shape[1]
         key = "" if n == 400 else "_800"
+        # frame0 (a[9]) is the block's device scalar; an earlier source's
+        # entry takes it by value
+        entries = _entries(gr._launchers(), old, "grain_bank")
+        f0_host = int(a[9])
+
+        def launch_bank(e, out, *x):
+            if isinstance(e, _EarlierBank):
+                return e.launch(out, *x[:9], f0_host, *x[10:])
+            return gr._launch_bank(e, out, *x)
+
         out["grain_bank"].update({f"{k}{key}": v for k, v in _kernel_times(
-            f"{label}: grain_bank (K2) at K {K}, B {B}, C {C}",
-            gr._launch_bank, _entries(gr._launchers(), old, "grain_bank"),
+            f"{label}: grain_bank (K2) at K {K}, B {B}, C {C}, frame0 on "
+            f"the device", launch_bank, entries,
             gr.grain_bank_reference, a, _nbytes(*a) + C * B * 4,
             (14 + 8 * C) * K * B).items()})
 
@@ -4188,7 +4237,9 @@ def phase_zc(wt, ck, gr, dither, fusion, kernels):
             lambda: slice_context(wt, "cpu", _bench_data(), FS),
             SESSION_STEPS, SESSION_SAVE_AT, FRAMES, kernels, FS)
     k1 = res["slice"]["launches"]["curve_lookup"]
-    if k1 != SESSION_STEPS or len(shaped) < SESSION_STEPS:
+    # the wrapper runs in Python once an eager step and once a capture;
+    # the replays count their launches
+    if k1 != SESSION_STEPS or not shaped:
         raise AssertionError(f"{label}: K1 launched {k1} times in "
                              f"{SESSION_STEPS} steps")
     curve, x = shaped[0]
@@ -5267,11 +5318,500 @@ class _EarlierCurve:
             torch.cuda.current_stream(x.device).cuda_stream)
 
 
+class _EarlierBank:
+    """A grain_read.cu of 980d7ad or before: its entry point
+    `grain_bank_f32` takes frame0 by value.  `launch` takes the arguments
+    of the port's `gr._launch_bank` with frame0 a host int, for the A/B."""
+
+    def __init__(self, lib):
+        p, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
+            ctypes.c_float
+        self._launch = lib.grain_bank_f32
+        self._launch.argtypes = [p] * 10 + [i, i, i, i, i, ll, ll, i, i, ll,
+                                            f, f, f, p]
+        self._launch.restype = i
+
+    def launch(self, out, ext, edge, ok, sv, ev, base_i, base_f, rate, gain,
+               frame0, L, gl0, gl1):
+        from webaudio_tpu_torch.ops import grain_read as gr
+        from webaudio_tpu_torch.ops.cuda_lib import check
+
+        check(self._launch(
+            ext.data_ptr(), edge.data_ptr(), ok.data_ptr(), sv.data_ptr(),
+            ev.data_ptr(), base_i.data_ptr(), base_f.data_ptr(),
+            rate.data_ptr(), gain.data_ptr(), out.data_ptr(), out.shape[0],
+            int(ext.shape[0] > 1), int(ok.shape[0] > 1),
+            int(gain.shape[0] > 1), ext.shape[1], ext.shape[2], L,
+            ok.shape[1], ok.shape[2], int(frame0), float(np.float32(gl0)),
+            float(np.float32(gl1)), gr.EDGE_FRAC,
+            torch.cuda.current_stream(out.device).cuda_stream),
+            "earlier grain_bank launch")
+        return out
+
+
+def _bind_grain(gr, lib):
+    """An earlier grain_read.cu's launchers, told by its C entry points."""
+    if hasattr(lib, "grain_bank_launch"):
+        return gr._bind(lib)
+    lerp = lib.grouped_lerp_f32          # bound as `gr._bind` binds it
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lerp.argtypes = [p, p, p, p, i, i, i, i, ll, i, ll, i, i, ll, p]
+    lerp.restype = i
+    return {"grouped_lerp": lerp, "grain_bank": _EarlierBank(lib)}
+
+
 def _bind_curve(ck, lib):
     """An earlier curve_lookup.cu's launcher, told by its C entry point."""
     if hasattr(lib, "curve_lookup_launch"):
         return ck._Kernel(lib)
     return _EarlierCurve(lib, ck._half_nm1)
+
+
+ZK_REPS = 3                  # calls a turn in phase zk (1 for long paths)
+ZK_ONLINE_SECONDS = 1.0      # each online run of zk
+ZK_QUANTUM_SECONDS = 0.25    # zk's one-quantum config 3
+ZK_SHARDED = 64              # zk's sharded batch (SHARDS shards)
+
+
+# each wrapper's kernels in a trace (csrc/*.cu), by the parts of their
+# names, mangled or not
+TRACE_NAMES = {"curve_lookup": ("curve_lookup_",),
+               "detector_scan": ("detector_tiles",),
+               "grain_bank": ("grain_bank_kernel",),
+               "grouped_lerp": ("grouped_lerp_kernel",),
+               "dither_i16": ("quantize", "DitherI16"),
+               "ulaw_u8": ("quantize", "UlawU8")}
+
+
+def _traced_launches(label, kernels, traced):
+    """Each wrapper's counted launches (`kernels`' counters) against its
+    kernels' launches in a profiler trace (`traced`: name -> count): on a
+    captured walk the counters are raised by the graph's recorded
+    launches at each replay, and the trace shows what the card ran."""
+    got = {k.__name__: sum(n for name, n in traced.items()
+                           if all(p in name for p in TRACE_NAMES[k.__name__]))
+           for k in kernels}
+    counted = {k.__name__: k.launches for k in kernels}
+    if got != counted:
+        raise AssertionError(f"{label}: the trace ran {got} launches, the "
+                             f"counters say {counted}")
+    return got
+
+
+def _zk_same(a, b):
+    """Bit for bit: tensors on the card or host arrays."""
+    if isinstance(a, torch.Tensor):
+        return a.shape == b.shape and torch.equal(a, b)
+    return a.shape == b.shape and np.array_equal(a, b)
+
+
+def _zk_graphs(plans):
+    """(graphs, replays, capture + instantiate ms) of the plans' graphs."""
+    gs = [g for cg in plans for g in cg.graphs.values()]
+    return (len(gs), sum(g.replays for g in gs),
+            sum(g.capture_ms for g in gs))
+
+
+@contextlib.contextmanager
+def _plans_made(compiler, plans):
+    """Append every plan compile_graph makes in the block to `plans`."""
+    inner = compiler.compile_graph
+
+    def spy(*a, **kw):
+        plans.append(inner(*a, **kw))
+        return plans[-1]
+
+    compiler.compile_graph = spy
+    try:
+        yield plans
+    finally:
+        compiler.compile_graph = inner
+
+
+def _zk_case(label, setup, need, kernels, reps=ZK_REPS, sequence=False,
+             profile=True, per_chunk=False):
+    """One walk path eager (WEBAUDIO_CUDA_GRAPHS=0) and captured, each from
+    its own setup() -> call: call() walks the path once and returns its
+    output (the plans it compiles are watched for graphs).  Every call
+    of the captured path equals the eager path's call of the same index
+    bit for bit (`sequence`: each call continues the last, as session
+    steps do; else every call equals the eager path's first), and counts
+    the same launches of every kernel, each kernel of `need` at least
+    once.  Times, host clock around a synchronised call: the first call
+    of each (the captured one captures where the rule lets it), then
+    `reps` calls a turn in turns eager, captured, captured, eager; the
+    device operations a call and busy share under the profiler (two calls
+    each, one where `reps` is 1), the peak memory of the first and of a later call, and the
+    capture and instantiate cost.  `per_chunk`: the calls render as many
+    chunks as their pace allows, and each checks its own launches per
+    chunk.  Returns the measurements."""
+    from webaudio_tpu_torch.graph import compiler
+
+    modes = ("eager", "captured")
+    flag = {"eager": "0", "captured": None}
+    plans = {m: [] for m in modes}
+    paths, ref, outs, launches, peak = {}, {}, {m: [] for m in modes}, \
+        {m: [] for m in modes}, {m: [] for m in modes}
+    runs = {m: [] for m in modes}
+
+    def call(m):
+        for k in kernels:
+            k.launches = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with _env("WEBAUDIO_CUDA_GRAPHS", flag[m]), \
+                _plans_made(compiler, plans[m]):
+            t0 = time.perf_counter()
+            out = paths[m]()
+            torch.cuda.synchronize()
+            ms = 1000.0 * (time.perf_counter() - t0)
+        peak[m].append(torch.cuda.max_memory_allocated())
+        counts = {k.__name__: k.launches for k in kernels}
+        launches[m].append(counts)
+        i = len(launches[m]) - 1
+        if sequence:
+            out = _host(out) if isinstance(out, torch.Tensor) else out
+            outs[m].append(out)
+            if m == "captured" and i < len(outs["eager"]):
+                if not _zk_same(out, outs["eager"][i]):
+                    raise AssertionError(f"{label}: captured call {i} "
+                                         "differs from the eager call")
+        elif m == "eager" and "eager" not in ref:
+            ref["eager"] = out
+        elif not _zk_same(out, ref["eager"]):
+            raise AssertionError(f"{label}: {m} call {i} differs from the "
+                                 "eager path's first call")
+        return ms
+
+    first = {}
+    for m in modes:
+        with _env("WEBAUDIO_CUDA_GRAPHS", flag[m]), \
+                _plans_made(compiler, plans[m]):
+            paths[m] = setup()
+        first[m] = call(m)
+    for m in ("eager", "captured", "captured", "eager"):
+        runs[m] += [call(m) for _ in range(reps)]
+    if sequence:
+        n = min(len(outs["eager"]), len(outs["captured"]))
+        for i in range(n):
+            if not _zk_same(outs["captured"][i], outs["eager"][i]):
+                raise AssertionError(f"{label}: captured call {i} differs")
+    for i, (e, c) in enumerate(zip(launches["eager"], launches["captured"])):
+        if (e != c and not per_chunk) or any(c[k] < 1 for k in need):
+            raise AssertionError(f"{label}: call {i} launched {c} captured, "
+                                 f"{e} eager (each of {need} at least once)")
+    if _zk_graphs(plans["eager"])[0]:
+        raise AssertionError(f"{label}: the eager path captured a graph")
+    graphs, replays, capture_ms = _zk_graphs(plans["captured"])
+    info = {m: dict(getattr(paths[m], "info", {})) for m in modes}
+    res = {"info": info, "first_ms": first, "ms": {m: statistics.median(runs[m])
+                                     for m in modes},
+           "runs": runs, "launches": launches["captured"][-1],
+           "graphs": graphs, "replays": replays, "capture_ms": capture_ms,
+           "peak_first_mb": {m: peak[m][0] / 2**20 for m in modes},
+           "peak_mb": {m: max(peak[m][1:]) / 2**20 for m in modes}}
+    # the profiled calls: busy share, device operations, and every
+    # kernel's counted launches held against the trace's
+    for m in modes:
+        for k in kernels:
+            k.launches = 0
+        traced = {}
+        with _env("WEBAUDIO_CUDA_GRAPHS", flag[m]):
+            busy, wall, _, ops = _profile([paths[m]] * min(reps, 2), traced)
+        if busy <= 0:
+            raise AssertionError(f"{label}: the profiler saw no device time "
+                                 f"({m}): launches not traced")
+        res.setdefault("traced", {})[m] = _traced_launches(
+            f"{label} ({m})", kernels, traced)
+        if profile:
+            res.setdefault("busy", {})[m] = busy / wall
+            res.setdefault("ops", {})[m] = ops
+    e, c = res["ms"]["eager"], res["ms"]["captured"]
+    busy = res.get("busy", {})
+    print(f"{label}: captured bit-equal to eager over "
+          f"{len(launches['captured'])} calls, launches {res['launches']} "
+          f"a call in both; wall median eager {e:.3f} ms "
+          f"{[round(r, 3) for r in runs['eager']]}, captured {c:.3f} ms "
+          f"{[round(r, 3) for r in runs['captured']]} ({e / c:.2f}x); first "
+          f"call eager {first['eager']:.3f} ms, captured "
+          f"{first['captured']:.3f} ms; {graphs} graph(s), {replays} block "
+          f"replays, capture + instantiate {capture_ms:.3f} ms; device "
+          f"operations a call {res.get('ops')}, busy "
+          f"{ {m: None if v is None else round(v, 4) for m, v in busy.items()} }"
+          f"; peak MB first {res['peak_first_mb']}, later {res['peak_mb']}"
+          f"; launches in the trace of {min(reps, 2)} call(s), equal to the "
+          f"counters: {res['traced']}", flush=True)
+    return res
+
+
+def phase_zk(wt, compiler, zg, every):
+    """The captured block walk (graph/compiler.py::BlockGraph) on every
+    path that walks: each case eager and captured in turns
+    (`_zk_case`).
+    Returns the measurements by case."""
+    from webaudio_tpu_torch import graft_entry
+    from webaudio_tpu_torch.ops import curve_kernel as ck
+    from webaudio_tpu_torch.ops import detector as det
+    from webaudio_tpu_torch.ops import grain_read as gr
+    from webaudio_tpu_torch.parallel import segments
+    from webaudio_tpu_torch.parallel.mesh import Mesh
+
+    def plan(ctx, **kw):
+        return compiler.compile_graph(dict(ctx._nodes), list(ctx._edges),
+                                      ctx.sample_rate, ctx.length,
+                                      ctx._destination.node_id, ctx.device,
+                                      **kw)
+
+    def loop(make, **kw):
+        """The block walk on a compiled plan (render_compiled)."""
+        def setup():
+            ctx = make()
+            cg = plan(ctx, **kw)
+            return lambda: compiler.render_compiled(cg, ctx.length)[0]
+        return setup
+
+    def fresh(make):
+        """start_rendering_sync of a fresh context a call."""
+        def setup():
+            return lambda: make().start_rendering_sync().to_array()
+        return setup
+
+    def session(make, qpb=SESSION_QPB):
+        """Steps of SESSION_QPB quanta, walked in blocks of qpb quanta."""
+        def setup():
+            s = wt.RenderSession(make(), quanta_per_block=qpb)
+            return lambda: s.step_device(SESSION_QPB * 128)
+        return setup
+
+    def batch():
+        ctx, src, filt = batched_context(wt, DEVICE)
+        gb = wt.GraphBatch(ctx, batch=BATCH)
+        gb.override_param(filt, "frequency", sweep_rows(BATCH))
+        return gb.render
+
+    def sharded():
+        ctx, src, filt = batched_context(wt, DEVICE)
+        gb = wt.GraphBatch(ctx, batch=ZK_SHARDED,
+                           mesh=Mesh([DEVICE] * SHARDS, ("graphs",)))
+        gb.override_param(filt, "frequency", sweep_rows(ZK_SHARDED))
+        gb.override_buffer(src, lane_buffers(ZK_SHARDED))
+        return gb.render
+
+    corpus = mixed_corpus(wt)       # each mode plans its own buckets
+
+    def mixed():
+        mb = wt.GraphBatch.from_contexts(corpus)
+        return lambda: np.concatenate([o.reshape(-1) for o in mb.render()])
+
+    def segmented():
+        return lambda: segments.render_time_sharded(
+            slice_context(wt, "cuda", _bench_data(), FS),
+            devices=["cuda"] * SEGMENTS)
+
+    def graft():
+        forward, args = graft_entry.entry(DEVICE)
+        return lambda: forward(*args)
+
+    def online():
+        info = {}
+
+        def call():
+            run = online_run(wt, zg["flac"], "cuda",
+                             int(FS * ZK_ONLINE_SECONDS),
+                             kernels=(ck.curve_lookup, det.detector_scan))
+            _online_checks("zk. zh. online", run,
+                           (ck.curve_lookup, det.detector_scan))
+            # each chunk's host ms past the first (the plan's first walk)
+            info.setdefault("chunk_ms", []).append(
+                statistics.median(run["chunk_ms"][1:]))
+            return run["stream"]
+        call.info = info
+        return call
+
+    def grains():
+        return granular_context(wt, "cuda", GRAIN_SESSION_GRAINS,
+                                GRAIN_SESSION_SECONDS)
+
+    def one_quantum():
+        return reverb_context(wt, "cuda",
+                              int(REVERB_FS * ZK_QUANTUM_SECONDS))[0]
+
+    cases = [
+        ("e. slice block loop", loop(lambda: slice_context(
+            wt, "cuda", _bench_data(), FS)), ["curve_lookup"], {}),
+        ("e. slice end to end (2 blocks: eager by the rule)",
+         fresh(lambda: slice_context(wt, "cuda", _bench_data(), FS)),
+         ["curve_lookup"], {}),
+        ("x. config 3 at 0.25 s, one-quantum blocks, end to end",
+         fresh(one_quantum), [], {"reps": 1, "env": "WEBAUDIO_CYCLE_BLOCKS"}),
+        ("zc. slice session step", session(lambda: slice_context(
+            wt, "cuda", _bench_data(), FS)),
+         ["curve_lookup"], {"sequence": True}),
+        ("zc. 64-grain session, 128-frame blocks", session(grains, 1),
+         ["grain_bank"], {"sequence": True, "reps": 1}),
+        ("zd. 8 time segments of the slice", segmented, ["curve_lookup"],
+         {"reps": 1}),
+        ("zh. online 1,024-frame chunks, 1 s", online,
+         ["curve_lookup", "detector_scan"], {"reps": 1, "profile": False,
+                                             "per_chunk": True}),
+        ("w. config 3 end to end (1 block: eager by the rule)",
+         fresh(lambda: reverb_context(wt, "cuda")[0]), [], {"reps": 1}),
+        ("w. config 3 block loop", loop(lambda: reverb_context(
+            wt, "cuda")[0]), [], {}),
+        ("z. config 4 end to end (1 block: eager by the rule)",
+         fresh(lambda: hrtf_context(wt, "cuda")), [], {"reps": 1}),
+        ("z. config 4 block loop", loop(lambda: hrtf_context(
+            wt, "cuda")), [], {}),
+        ("za. Doppler end to end (1 block: eager by the rule)",
+         fresh(lambda: doppler_context(wt, "cuda")[0]), [], {"reps": 1}),
+        ("za. Doppler block loop", loop(lambda: doppler_context(
+            wt, "cuda")[0]), [], {}),
+        ("t. 5a block loop", loop(lambda: mastering_context(
+            wt, "cuda")[0]), ["curve_lookup", "detector_scan"], {}),
+        ("j. GraphBatch of 256, 6 blocks", batch, [], {}),
+        ("zj. GraphBatch of 64 over a mesh of 4 on one card", sharded, [],
+         {"reps": 1}),
+        ("i. MixedGraphBatch, 96 contexts", mixed, ["curve_lookup"],
+         {"reps": 1}),
+        ("zj. graft entry forward", graft, [], {}),
+    ]
+    res = {}
+    for label, setup, need, kw in cases:
+        kw = dict(kw)
+        env = kw.pop("env", None)
+        t0 = time.perf_counter()
+        with _env(env, "1") if env else contextlib.nullcontext():
+            res[label] = _zk_case(f"zk. {label}", setup, need, every, **kw)
+        print(f"zk. {label}: the case took {time.perf_counter() - t0:.1f} s",
+              flush=True)
+        info = res[label]["info"]
+        if info["eager"]:
+            print(f"zk. {label}: a chunk's host ms (median past the first) "
+                  f"eager {info['eager']['chunk_ms']}, captured "
+                  f"{info['captured']['chunk_ms']}", flush=True)
+        torch.cuda.empty_cache()
+    return res
+
+
+def _card_line() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
+    return smi.stdout.strip() or f"nvidia-smi failed: {smi.stderr.strip()}"
+
+
+AB_REPS = 6                  # timed renders a case in each turn of the A/B
+
+
+def _ab_makers(wt):
+    """The fresh end-to-end renders of the A/B: a new context a call."""
+    return {"e. slice (2 blocks)": lambda: slice_context(
+                wt, "cuda", _bench_data(), FS),
+            "w. config 3 (1 block)": lambda: reverb_context(wt, "cuda")[0],
+            "z. config 4 (1 block)": lambda: hrtf_context(wt, "cuda"),
+            "za. Doppler (1 block)": lambda: doppler_context(wt, "cuda")[0],
+            "t. 5a (1 block)": lambda: mastering_context(wt, "cuda")[0]}
+
+
+def fresh_worker(tree) -> int:
+    """One turn of the A/B (--ab-fresh), in its own process: the port of
+    the checkout `tree` builds its kernels, then renders each case of
+    `_ab_makers` once to warm up and AB_REPS times, host clock around a
+    start_rendering_sync and its host copy, then twice under the
+    profiler.  Prints one line "AB {json}": each case's ms, device
+    operations a call, busy share and the output's SHA-1."""
+    import hashlib
+
+    tree = os.path.abspath(tree)
+    sys.path.insert(0, tree)
+    import webaudio_tpu_torch as wt
+    from webaudio_tpu_torch.ops import cuda_lib
+
+    if not wt.__file__.startswith(tree):
+        raise SystemExit(f"chip_smoke: imported {wt.__file__}, not {tree}")
+    sources = sorted(p.name for p in cuda_lib.CSRC_DIR.glob("*.cu"))
+    with ThreadPoolExecutor(len(sources)) as pool:
+        list(pool.map(cuda_lib.load_library, sources))
+    res = {}
+    for name, make in _ab_makers(wt).items():
+        def call():
+            return make().start_rendering_sync().to_array()
+
+        y = call()
+        ms = []
+        for _ in range(AB_REPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            call()
+            ms.append(1000.0 * (time.perf_counter() - t0))
+        busy, wall, _, ops = _profile([call] * 2)
+        res[name] = {"ms": ms, "ops": ops, "busy": busy / wall,
+                     "sha1": hashlib.sha1(
+                         np.ascontiguousarray(y).tobytes()).hexdigest()}
+    print("AB " + json.dumps(res), flush=True)
+    return 0
+
+
+# the A/B's turns: four pairs in time, each side first in two of them
+AB_TURNS = ("parent", "change", "change", "parent",
+            "change", "parent", "parent", "change")
+
+
+def ab_fresh(parent) -> int:
+    """--ab-fresh PARENT: the fresh end-to-end renders (`_ab_makers`) of
+    an earlier checkout unpacked at PARENT against this one, in the turns
+    of AB_TURNS, each turn a process of its own (`fresh_worker`).  Prints
+    each case's median ms over each side's renders, each pair's ratio of
+    turn medians (change over parent, pairs in time order), its device
+    operations a call and busy share, and whether both render the same
+    bits; fails where they do not."""
+    print(f"card: {_card_line()}", flush=True)
+    here = os.path.dirname(os.path.abspath(__file__))
+    done = []
+    for who in AB_TURNS:
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--fresh-worker",
+             parent if who == "parent" else here],
+            capture_output=True, text=True, timeout=900)
+        if proc.returncode != 0:
+            print(proc.stdout[-4000:], proc.stderr[-8000:], file=sys.stderr)
+            raise SystemExit(f"chip_smoke: the {who} turn failed")
+        (line,) = [ln for ln in proc.stdout.splitlines()
+                   if ln.startswith("AB ")]
+        done.append((who, json.loads(line[3:])))
+        print(f"ab. {who} turn took {time.perf_counter() - t0:.1f} s "
+              f"(build included)", flush=True)
+    same = True
+    for case in done[0][1]:
+        row = {}
+        for side in ("parent", "change"):
+            runs = [r[case] for who, r in done if who == side]
+            row[side] = {"ms": statistics.median(
+                             [m for r in runs for m in r["ms"]]),
+                         "runs": [[round(m, 3) for m in r["ms"]]
+                                  for r in runs],
+                         "ops": [r["ops"] for r in runs],
+                         "busy": [round(r["busy"], 4) for r in runs]}
+        turn = [(who, statistics.median(r[case]["ms"])) for who, r in done]
+        pairs = [round(dict(turn[i:i + 2])["change"]
+                       / dict(turn[i:i + 2])["parent"], 3)
+                 for i in range(0, len(turn), 2)]
+        hashes = {r[case]["sha1"] for _, r in done}
+        same &= len(hashes) == 1
+        p, c = row["parent"], row["change"]
+        print(f"ab. {case}: median parent {p['ms']:.3f} ms, change "
+              f"{c['ms']:.3f} ms ({c['ms'] / p['ms']:.3f}x); pairs "
+              f"(change / parent turn medians) {pairs}; runs parent "
+              f"{p['runs']}, change {c['runs']}; device operations a call "
+              f"parent {p['ops']}, change {c['ops']}; busy parent "
+              f"{p['busy']}, change {c['busy']}; the same bits "
+              f"{len(hashes) == 1}", flush=True)
+    if not same:
+        raise SystemExit("chip_smoke: the parent and the change render "
+                         "different bits")
+    return 0
 
 
 def main() -> int:
@@ -5280,11 +5820,20 @@ def main() -> int:
                     help="an earlier grain_read.cu, curve_lookup.cu or "
                     "detector.cu (told apart by their C entry points) to "
                     "time against this one; may be given once for each")
+    ap.add_argument("--ab-fresh", metavar="PARENT",
+                    help="time the fresh end-to-end renders of an earlier "
+                    "checkout unpacked at PARENT against this one, in "
+                    "turns, and run nothing else")
+    ap.add_argument("--fresh-worker", metavar="TREE", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; nothing was run",
               file=sys.stderr)
         return 1
+    if args.fresh_worker:
+        return fresh_worker(args.fresh_worker)
+    if args.ab_fresh:
+        return ab_fresh(args.ab_fresh)
     import webaudio_tpu_torch as wt
     from webaudio_tpu_torch.graph import compiler
     from webaudio_tpu_torch.ops import cuda_lib
@@ -5314,7 +5863,8 @@ def main() -> int:
     # this checkout's source of the same kernels (also with -Xptxas -v)
     old = {}
     for (_, source), (lib, lines) in zip(olds, reported):
-        kind = ("grain" if hasattr(lib, "grain_bank_f32") else "curve"
+        kind = ("grain" if hasattr(lib, "grain_bank_f32")
+                or hasattr(lib, "grain_bank_launch") else "curve"
                 if hasattr(lib, "curve_lookup_f32")
                 or hasattr(lib, "curve_lookup_launch") else "detector"
                 if hasattr(lib, "detector_seq_launch") else None)
@@ -5322,7 +5872,8 @@ def main() -> int:
             raise SystemExit(f"chip_smoke: --old {source} is none of "
                              "grain_read.cu, curve_lookup.cu and detector.cu, "
                              "or repeats one")
-        old[kind] = {"grain": gr._bind, "curve": lambda lb: _bind_curve(ck, lb),
+        old[kind] = {"grain": lambda lb: _bind_grain(gr, lb),
+                     "curve": lambda lb: _bind_curve(ck, lb),
                      "detector": _bind_detector}[kind](lib)
         new = cuda_lib.CSRC_DIR / {"grain": "grain_read.cu",
                                    "curve": "curve_lookup.cu",
@@ -5338,6 +5889,14 @@ def main() -> int:
     det._launcher()
     print(f"build: {', '.join(sources)} built and loaded in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
+    marks = [t0]
+
+    def lap(phases):
+        """Each group of phases' wall seconds, and the script's so far."""
+        now = time.perf_counter()
+        print(f"time: {phases} {now - marks[-1]:.1f} s (total "
+              f"{now - t0:.1f} s)", flush=True)
+        marks.append(now)
 
     max_err = phase_a(ck, wt.KernelError)
     offline_launches, s1 = phase_b(wt, ck)
@@ -5345,6 +5904,7 @@ def main() -> int:
     phase_d(wt)
     k1_lib_ms, k1_lib_err = phase_e(wt, ck, compiler)
     q_err = phase_f(dither, wt.KernelError)
+    lap("a-f")
 
     # the batch path, g-i: every count from 0
     kernels = (ck.curve_lookup, dither.dither_i16, dither.ulaw_u8)
@@ -5359,6 +5919,7 @@ def main() -> int:
     k1 = curve_times(ck, s1, s4, old.get("curve"))
     del gb, s1, s4
     torch.cuda.empty_cache()
+    lap("g-j and K1's shapes")
 
     # granular synthesis, k-n
     grain_err = phase_k(wt, gr, fusion, wt.KernelError)
@@ -5367,6 +5928,7 @@ def main() -> int:
     grain_times = phase_m(wt, gr, compiler, fusion, (l400, l800),
                           old.get("grain"))
     phase_n(wt, gr)
+    lap("k-n")
 
     # oscillators and voice banks, o-r: each main path counts every
     # kernel's launches from 0
@@ -5376,6 +5938,7 @@ def main() -> int:
     phase_p(wt, compiler, every)
     voice_launches, s7, s7_err = phase_q(wt, compiler, fusion, ck, every)
     k1["S7"] = phase_r(wt, compiler, fusion, ck, s7)
+    lap("o-r")
 
     # the mastering chain, s-v: each main path counts every kernel's
     # launches from 0
@@ -5387,6 +5950,7 @@ def main() -> int:
     k1.update({k: v[k] for k in ("S8", "S8 n 44100")})
     del t5a["s8"], t5a["detector_row"], u5b["detector_rows"]
     torch.cuda.empty_cache()
+    lap("s-v")
 
     # config 3, w-y: delay, feedback cycles, the convolver, the IIR
     # filter; each main path counts every kernel's launches from 0
@@ -5394,6 +5958,7 @@ def main() -> int:
     phase_w(wt, compiler, every)
     phase_x(wt, compiler, every)
     y = phase_y(wt, compiler, dither, every)
+    lap("w-y")
 
     # spatial audio, z-zb: config 4, the Doppler graph with and without
     # the automated-rate playhead, the binaural corpus; each main path
@@ -5401,6 +5966,7 @@ def main() -> int:
     phase_z(wt, compiler, every)
     phase_za(wt, compiler, every)
     zb = phase_zb(wt, compiler, dither, every)
+    lap("z-zb")
 
     # sessions, segments, futures and user code, zc-zf: each main path counts
     # every kernel's launches from 0
@@ -5408,16 +5974,28 @@ def main() -> int:
     zd = phase_zd(wt, compiler, ck, every)
     phase_ze(wt, every)
     phase_zf(wt, every)
+    lap("zc-zf")
 
     # the real-time context and media I/O, zg-zi: the online path counts
     # K1's and the detector's launches from 0 in each run
     zg = phase_zg(wt)
     zh = phase_zh(wt, zg, (ck.curve_lookup, det.detector_scan))
     phase_zi(wt, zg, every)
+    lap("zg-zi")
 
     # sharding, zj: each main path counts every kernel's launches from 0
     zj = phase_zj(wt, dither, zd, every)
     del zd["out"]
+    lap("zj")
+
+    # the captured block walk, zk: every walking path eager and captured
+    zk = phase_zk(wt, compiler, zg, every)
+    lap("zk")
+
+    def captured(name):
+        """A kernel's launches a call on each captured path of zk."""
+        return {label: r["launches"][name] for label, r in zk.items()
+                if r["launches"][name] and r["replays"]}
 
     n_q = QUANT_SHAPE[0] * QUANT_SHAPE[1]
     k5_bound = _bound(n_q * 6, 25 * n_q)
@@ -5451,6 +6029,7 @@ def main() -> int:
              zh["16384"]["launches"]["curve_lookup"],
          "launches_sharded_corpus": zj["mixed"]["launches"]["curve_lookup"],
          "launches_sharded_segments": zj["time_launches"]["curve_lookup"],
+         "launches_captured_paths": captured("curve_lookup"),
          "online_chunks": zh["1024"]["chunks"],
          "max_abs_err": max(max_err, s7_err, zc["k1_err"]),
          **{k: v for k, v in k1["S1"].items() if k != "plan"},
@@ -5468,6 +6047,7 @@ def main() -> int:
          "launches_binaural_corpus_path": zb["launches"]["dither_i16"],
          "launches_session_path": zc["k5_launches"],
          "launches_sharded_path": zj["launches"]["dither_i16"],
+         "launches_captured_paths": captured("dither_i16"),
          "offset": "x[0]'s flat index in the stream; a sharded batch "
                    "bounces each shard with its own",
          "max_abs_err": max(q_err[0], zj["offset_err"][0]),
@@ -5481,6 +6061,7 @@ def main() -> int:
          "replaces": "webaudio_tpu/ops/dither.py:113",
          "launches": launches["ulaw_u8"],
          "launches_sharded_path": zj["launches"]["ulaw_u8"],
+         "launches_captured_paths": captured("ulaw_u8"),
          "offset": "x[0]'s flat index in the stream; a sharded batch "
                    "bounces each shard with its own",
          "max_abs_err": max(q_err[1], zj["offset_err"][1]),
@@ -5495,6 +6076,9 @@ def main() -> int:
          "launches": l400["launches"]["grain_bank"],
          "launches_800_grains": l800["launches"]["grain_bank"],
          "launches_128_frame_session": zc["grain"]["launches"]["grain_bank"],
+         "launches_captured_paths": captured("grain_bank"),
+         "frame0": "the block's first frame, a 0-d int64 tensor on the card "
+                   "read once a thread (a captured walk replays the launch)",
          "max_abs_err": max(grain_err["grain_bank"],
                             zc["grain_err"].get("grain_bank", 0.0)),
          **grain(k2, {"library_ms": None})},
@@ -5506,6 +6090,7 @@ def main() -> int:
          "launches_800_grains": l800["launches"]["grouped_lerp"],
          "launches_128_frame_session":
              zc["grain"]["launches"]["grouped_lerp"],
+         "launches_captured_paths": captured("grouped_lerp"),
          "max_abs_err": max(grain_err["grouped_lerp"],
                             zc["grain_err"].get("grouped_lerp", 0.0)),
          **grain(k3, {"library_ms": k3["library_ms"],
@@ -5528,6 +6113,7 @@ def main() -> int:
          "launches_online_path":
              zh["1024"]["launches"]["detector_scan"],
          "launches_online_16384": zh["16384"]["launches"]["detector_scan"],
+         "launches_captured_paths": captured("detector_scan"),
          "online_chunks": zh["1024"]["chunks"],
          "max_abs_err": max(det_err, t5a["detector_err"]),
          "ms": v["detector 5a"]["ms"],
@@ -5547,11 +6133,7 @@ def main() -> int:
     for row in rows:
         row.setdefault("share_of_bound", row["bound_ms"] / row["ms"])
     print(json.dumps({"kernels": rows}), flush=True)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
-    print(smi.stdout.strip() or f"nvidia-smi failed: {smi.stderr.strip()}",
-          flush=True)
+    print(_card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

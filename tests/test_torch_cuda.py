@@ -378,7 +378,7 @@ def test_grain_bank_kernel_equals_plain_version(cuda, C, instances,
         rng.random((instances, K, nq)).astype(np.float32),
         rng.uniform(0.9, 1.37, (instances, K, nq)).astype(np.float32),
         rng.uniform(-0.2, 1.3, (1, K, B)).astype(np.float32))]
-    args += [frame0, L, 0.0, 1.0]
+    args += [torch.tensor(frame0, device=cuda), L, 0.0, 1.0]
     before = gr.grain_bank.launches
     got = gr.grain_bank(*args)
     torch.cuda.synchronize()
@@ -470,7 +470,7 @@ def test_grain_bank_kernel_edge_shapes(cuda, nq, K, axes, offset):
     args.append(_offset(torch.from_numpy(rng.uniform(
         -0.2, 1.3, (I if gain_i else 1, K, B)).astype(np.float32)).to(cuda),
         offset))
-    args += [frame0, L, 0.0, 1.0]
+    args += [torch.tensor(frame0, device=cuda), L, 0.0, 1.0]
     before = gr.grain_bank.launches
     got = gr.grain_bank(*args)
     torch.cuda.synchronize()
@@ -517,7 +517,7 @@ def test_grain_bank_kernel_keeps_signed_zeros_and_nans(cuda):
     ext[0, :, L] = 2.0 * data[:, L - 1] - data[:, L - 2]
     args = [torch.from_numpy(np.ascontiguousarray(a)).to(cuda) for a in (
         ext, ext[:, :, L], ok, sv, ev, base, base_f, rate, gain)]
-    args += [0, L, 0.0, 1.0]
+    args += [torch.tensor(0, device=cuda), L, 0.0, 1.0]
     got = gr.grain_bank(*args)
     want = gr.grain_bank_reference(*args)
     torch.cuda.synchronize()
@@ -549,8 +549,9 @@ def test_grain_kernels_refuse_what_they_do_not_take(cuda, bad):
             i = torch.zeros((1, 1, 1), dtype=torch.int32, device=cuda)
             gr.grain_bank(torch.zeros((1, 3, 100), device=cuda),
                           torch.zeros((1, 3), device=cuda), i, i, i, i, f, f,
-                          torch.zeros((1, 1, 128), device=cuda), 0, 90, 0.0,
-                          1.0)
+                          torch.zeros((1, 1, 128), device=cuda),
+                          torch.zeros((), dtype=torch.int64, device=cuda), 90,
+                          0.0, 1.0)
 
 
 def _grains(device, seconds=1.0, n=48):
@@ -1419,3 +1420,166 @@ def test_decoding_into_a_context_on_the_card(cuda):
         src.start()
         outs.append(ctx.start_rendering_sync().to_array())
     _close(outs[0], outs[1], 1e-5)
+
+
+# --- the captured block walk (CUDA graphs) -----------------------------------
+
+def _counts():
+    from webaudio_tpu_torch.ops.cuda_lib import launch_counters
+
+    return {k.__name__: k.launches for k in launch_counters()}
+
+
+def _delta(before):
+    return {k: v - before[k] for k, v in _counts().items()}
+
+
+@pytest.mark.parametrize("graph", ["slice", "config 3"])
+def test_captured_walk_is_bit_equal_to_eager(cuda, monkeypatch, graph):
+    """A plan's walk replayed from its CUDA graph equals the eager walk
+    (`WEBAUDIO_CUDA_GRAPHS=0`) bit for bit, with the same kernel launches
+    counted; the slice's walks of 5 blocks capture at block 1, the
+    reverb's (one block) at the walk after the one that marked it."""
+    from webaudio_tpu_torch.graph import compiler
+
+    ctx = (_slice(cuda, 5 * 16384) if graph == "slice"
+           else _reverb(cuda, 1.0))
+    qpb = 128 if graph == "slice" else None
+    cg = compiler.compile_graph(dict(ctx._nodes), list(ctx._edges),
+                                ctx.sample_rate, ctx.length,
+                                ctx._destination.node_id, ctx.device,
+                                quanta_per_block=qpb)
+    assert cg.capture is True
+    monkeypatch.setenv("WEBAUDIO_CUDA_GRAPHS", "0")
+    before = _counts()
+    eager, _ = compiler.render_compiled(cg, ctx.length)
+    eager_launches = _delta(before)
+    assert not cg.graphs
+    monkeypatch.delenv("WEBAUDIO_CUDA_GRAPHS")
+    for walk in range(3):
+        before = _counts()
+        got, _ = compiler.render_compiled(cg, ctx.length)
+        torch.cuda.synchronize()
+        assert torch.equal(got, eager), walk
+        assert _delta(before) == eager_launches, walk
+    assert cg.graphs and sum(g.replays for g in cg.graphs.values()) >= 2
+
+
+def test_captured_session_is_bit_equal_to_eager(cuda, monkeypatch):
+    """RenderSession steps (one block each) replay one graph a step from
+    the third step on (the first is too short to mark, the second marks)
+    and equal the eager session's steps bit for bit."""
+    def steps(n):
+        s = wt.RenderSession(_slice(cuda, 8 * 16384), quanta_per_block=128)
+        return np.concatenate([s.step(16384) for _ in range(n)], axis=1), s
+
+    monkeypatch.setenv("WEBAUDIO_CUDA_GRAPHS", "0")
+    eager, _ = steps(5)
+    monkeypatch.delenv("WEBAUDIO_CUDA_GRAPHS")
+    got, s = steps(5)
+    np.testing.assert_array_equal(got, eager)
+    assert sum(g.replays for g in s._cg.graphs.values()) >= 3
+
+
+def _streaming(device, chunks, errors):
+    """An AudioContext on `device` streaming a looping clip through a
+    lowpass and a delay, unpaced, into `chunks`; processorerror events
+    into `errors`."""
+    ctx = wt.AudioContext(latency_hint="playback", sample_rate=48000.0,
+                          sink_id=lambda c, t: chunks.append(np.array(c)),
+                          device=device)
+    ctx.set_realtime_pacing(False)
+    ctx._event_loop.add_handler(wt.EventType.PROCESSOR_ERROR, errors.append)
+    src = ctx.create_buffer_source(loop=True)
+    src.buffer = wt.AudioBuffer.from_array(_clip(), 44100.0)
+    filt = ctx.create_biquad_filter(type="lowpass", frequency=2000.0, q=2.0)
+    delay = ctx.create_delay(max_delay_time=0.1)
+    delay.delay_time.value = 0.013
+    src.connect(filt)
+    filt.connect(delay)
+    delay.connect(ctx.destination)
+    src.start(ctx.current_time)
+    return ctx, delay
+
+
+def _wait_chunks(chunks, n, timeout=120.0):
+    import time
+
+    deadline = time.time() + timeout
+    while len(chunks) < n and time.time() < deadline:
+        time.sleep(0.002)
+    assert len(chunks) >= n
+
+
+def test_capture_beside_a_streaming_context(cuda):
+    """Plans captured on the main thread while an AudioContext streams on
+    the same card: every capture is thread-local, so the render thread's
+    host copies and uploads go on, and no chunk posts processorerror; the
+    captured renders still equal the eager one."""
+    from webaudio_tpu_torch.graph import compiler
+
+    chunks, errors = [], []
+    ctx, _ = _streaming(cuda, chunks, errors)
+    try:
+        _wait_chunks(chunks, 8)
+        off = _slice(cuda, 6 * 16384)
+        cg = compiler.compile_graph(dict(off._nodes), list(off._edges),
+                                    off.sample_rate, off.length,
+                                    off._destination.node_id, off.device,
+                                    quanta_per_block=128)
+        want = None
+        for walk in range(12):
+            # a fresh plan's capture each walk, the streamed chunks between
+            compiler.drop_graphs(cg)
+            got, _ = compiler.render_compiled(cg, off.length)
+            assert cg.graphs, walk
+            want = got if want is None else want
+            assert torch.equal(got, want), walk
+        n = len(chunks)
+        _wait_chunks(chunks, n + 8)
+    finally:
+        ctx.close_sync()
+    assert not errors, errors[:1]
+    assert np.isfinite(np.concatenate(chunks, axis=1)).all()
+
+
+def test_online_states_held_are_not_overwritten(cuda):
+    """The states the render thread publishes (what probe_node_state
+    reads) are its own: chunks replayed from the plan's CUDA graph after
+    them write into the graph's buffers, never into them."""
+    from webaudio_tpu_torch.graph import compiler
+    from webaudio_tpu_torch.convert import tree_map
+
+    chunks, errors = [], []
+    ctx, delay = _streaming(cuda, chunks, errors)
+    try:
+        _wait_chunks(chunks, 6)               # the plan replays its graph
+        assert ctx._cg.graphs
+        with ctx._lock:
+            held = ctx._states
+            snap = tree_map(lambda x: x.detach().cpu().clone(), held)
+        probes = [ctx.probe_node_state(delay) for _ in range(50)]
+        n = len(chunks)
+        _wait_chunks(chunks, n + 6)
+        torch.cuda.synchronize()
+        for (path, now), (_, then) in zip(compiler._leaves(held),
+                                          compiler._leaves(snap)):
+            assert torch.equal(now.cpu(), then), path
+        assert all(p is not None for p in probes)
+        # a later probe sees a later ring
+        ring = ctx.probe_node_state(delay)["ring"]
+        assert not np.array_equal(ring, probes[0]["ring"])
+    finally:
+        ctx.close_sync()
+    assert not errors, errors[:1]
+
+
+def test_offline_render_drops_its_graphs(cuda):
+    """A finished offline render keeps its plan for diagnostics but
+    releases the plan's CUDA graphs."""
+    ctx = _slice(cuda, 8 * 16384)
+    ctx.start_rendering_sync()
+    assert ctx._cg is not None and not ctx._cg.graphs
+    from webaudio_tpu_torch.diagnostics import collect_diagnostics
+
+    assert collect_diagnostics(ctx)["compiled"]["capture"]["graphs"] == []

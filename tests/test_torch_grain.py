@@ -234,7 +234,7 @@ def _port_bank(ok, sv, ev, base_i, base_f, rate, gain, data, w, frame0,
     ext[:, L] = _edge(data)
     t = [torch.from_numpy(x)[None] for x in (ext, _edge(data), ok, sv, ev,
                                              base_i, base_f, rate, gain)]
-    return tgr.grain_bank(*t, frame0, L, gl0, gl1)[0].numpy()
+    return tgr.grain_bank(*t, torch.tensor(frame0), L, gl0, gl1)[0].numpy()
 
 
 @pytest.mark.parametrize("C,rmax,nq,frame0", [(2, 1.0995, 16, 0),
@@ -335,7 +335,8 @@ def test_grain_bank_mixed_instance_axes_match_grain_bank_fused(axes):
     ext[:, :, L] = edge
     got = tgr.grain_bank(torch.from_numpy(ext), torch.from_numpy(edge),
                          *[stack(n, fld_i) for n in range(6)],
-                         stack(6, gain_i), frame0, L, 0.0, 1.0).numpy()
+                         stack(6, gain_i), torch.tensor(frame0), L, 0.0,
+                         1.0).numpy()
     assert got.shape == (I, C, nq * Q)
     for i in range(I):
         want = _jax_bank(*insts[i], g, w, frame0, 0.0, 1.0)
@@ -457,6 +458,6 @@ def test_wrappers_take_offset_views():
     out2 = tgr.grain_bank(torch.from_numpy(ext2),
                           torch.from_numpy(_edge(fields[7]))[None],
                           *[torch.from_numpy(x)[None] for x in fields[:6]],
-                          gain, 0, L, 0.0, 1.0)
+                          gain, torch.tensor(0), L, 0.0, 1.0)
     np.testing.assert_array_equal(out2[0].numpy(),
                                   _port_bank(*fields, 40, 0, 0.0, 1.0))

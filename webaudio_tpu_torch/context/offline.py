@@ -132,7 +132,9 @@ class OfflineAudioContext(BaseAudioContext):
             segments.append({"block_frames": cg.block_frames,
                              "failed": dict(cg.failed)})
             # keep the plan for diagnostics, without its staged resources
+            # or its CUDA graphs
             cg.resource_cache = None
+            _compiler.drop_graphs(cg)
             self._cg = cg
             cursor = boundary
             self._current_time = cursor / fs

@@ -262,6 +262,10 @@ class AudioContext(BaseAudioContext):
                     and _same_structure(old, v) else v
                     for k, v in init.items()}
         self._states = init
+        if self._cg is not None:
+            # the old plan's CUDA graphs go with it (their memory returns
+            # to the device's graph pool for the new plan's)
+            _compiler.drop_graphs(self._cg)
         self._cg = cg
         self._cg_version = version
         self._resources = None
@@ -295,6 +299,8 @@ class AudioContext(BaseAudioContext):
             self._resources = _compiler.stage_resources(
                 _compiler.collect_resources(cg), cg.device)
         frame0s = [self._frame + b * Bc for b in range(nb)]
+        # a capture on this thread is thread-local: the control thread may
+        # use the card meanwhile
         states, out = _compiler.scan_render(cg, states, frame0s, xs,
                                             self._resources)
         chunk = out[0].cpu().numpy()         # the chunk's one host copy

@@ -71,6 +71,24 @@ def upload(arr: np.ndarray, device) -> torch.Tensor:
     return pinned.to(device, non_blocking=True)
 
 
+def upload_into(dst, arr: np.ndarray, device) -> torch.Tensor:
+    """`upload(arr, device)`, written into `dst` where it has arr's shape
+    and dtype (in stream order, after the work queued before it), else
+    into a new tensor; returns the tensor written."""
+    arr = np.ascontiguousarray(arr)
+    if dst is None or tuple(dst.shape) != arr.shape or \
+            dst.dtype != torch.from_numpy(arr[:0]).dtype:
+        return upload(arr, device)
+    device = torch.device(device)
+    src = torch.from_numpy(arr)
+    if device.type == "cuda":
+        pinned = torch.empty(src.shape, dtype=src.dtype, pin_memory=True)
+        pinned.copy_(src)
+        src = pinned
+    dst.copy_(src, non_blocking=device.type == "cuda")
+    return dst
+
+
 def to_torch_tree(tree, device):
     """Copy a tree of dicts with numpy leaves onto `device` as torch
     tensors of the same dtypes; None leaves stay None."""

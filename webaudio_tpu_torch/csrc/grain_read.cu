@@ -320,8 +320,9 @@ __global__ void __launch_bounds__(kBankWarps * 32, kBankMinBlocks)
                       const float* __restrict__ rate,
                       const float* __restrict__ gain, float* __restrict__ out,
                       int i0, int ext_inst, int field_inst, int gain_inst,
-                      long long Lx, int L, int K, int nq, long long frame0,
-                      float gl0, float gl1, float edge_frac) {
+                      long long Lx, int L, int K, int nq,
+                      const long long* __restrict__ frame0, float gl0,
+                      float gl1, float edge_frac) {
   const int q = blockIdx.x * kBankWarps + (threadIdx.x >> 5);
   if (q >= nq) return;                       // the whole warp leaves
   const int lane = threadIdx.x & 31;
@@ -329,7 +330,9 @@ __global__ void __launch_bounds__(kBankWarps * 32, kBankMinBlocks)
   const long long B = static_cast<long long>(nq) * kQuantum;
   // this thread's samples: lane + 32 s of quantum q
   const long long b0 = static_cast<long long>(q) * kQuantum + lane;
-  const long long tq = frame0 + static_cast<long long>(q) * kQuantum;
+  // the block's first frame is device data (a captured walk replays this
+  // launch for every block): read once a thread
+  const long long tq = __ldg(frame0) + static_cast<long long>(q) * kQuantum;
   const float* grow = gain + (gain_inst ? i : 0) * K * B + b0;
   const long long ei = ext_inst ? i : 0;
   const float* ec[C];                        // each channel's buffer row
@@ -437,16 +440,17 @@ extern "C" int grouped_lerp_f32(const float* ext, const int* pi,
 // ext (Ie, C, Lx) f32 with column L the end-of-buffer constant; edge
 // (Ie, C); lane fields ok, sv, ev, base_i (If, K, nq) int32 and base_f,
 // rate (If, K, nq) f32; gain (Ig, K, nq * 128) f32; out (I, C, nq * 128)
-// f32; Ie, If and Ig are 1 or I.  C is 1 or 2; L below 2^31.
-extern "C" int grain_bank_f32(const float* ext, const float* edge,
-                              const int* ok, const int* sv, const int* ev,
-                              const int* base_i, const float* base_f,
-                              const float* rate, const float* gain,
-                              float* out, int I, int ext_inst,
-                              int field_inst, int gain_inst, int C,
-                              long long Lx, long long L, int K, int nq,
-                              long long frame0, float gl0, float gl1,
-                              float edge_frac, void* stream) {
+// f32; Ie, If and Ig are 1 or I.  C is 1 or 2; L below 2^31.  frame0
+// points to the block's first frame, one int64 on the device.
+extern "C" int grain_bank_launch(const float* ext, const float* edge,
+                                 const int* ok, const int* sv, const int* ev,
+                                 const int* base_i, const float* base_f,
+                                 const float* rate, const float* gain,
+                                 float* out, int I, int ext_inst,
+                                 int field_inst, int gain_inst, int C,
+                                 long long Lx, long long L, int K, int nq,
+                                 const long long* frame0, float gl0,
+                                 float gl1, float edge_frac, void* stream) {
   if (I <= 0 || nq <= 0 || K <= 0) return static_cast<int>(cudaGetLastError());
   if ((C != 1 && C != 2) || L < 1 || L >= INT32_MAX)
     return static_cast<int>(cudaErrorInvalidValue);

@@ -53,6 +53,8 @@ def collect_diagnostics(context) -> dict:
         } for nid, node in sorted(fused.items())],
         "nodes_removed": len(context._nodes) + len(fused) - len(n2),
     }
+    from .graph import compiler as _compiler
+
     cg = getattr(context, "_cg", None)
     if cg is not None:
         diag["compiled"] = {
@@ -60,6 +62,18 @@ def collect_diagnostics(context) -> dict:
             "order": [(nid, role) for nid, role in cg.order],
             "muted": sorted(cg.muted),
             "cycle_breakers": sorted(cg.cycle_breakers),
+            # the block walk on the card: captured as CUDA graphs, or why
+            # it stays eager (graph/compiler.py::scan_render); the graphs
+            # the plan holds (an offline render drops its own at its end)
+            "capture": {
+                "capturable": cg.capture is True,
+                "reason": None if cg.capture is True else cg.capture,
+                "enabled": _compiler.cuda_graphs_enabled(),
+                "graphs": [{"blocks_replayed": g.replays,
+                            "capture_ms": g.capture_ms,
+                            "states_closed": g.closed}
+                           for g in cg.graphs.values()],
+            },
         }
     return diag
 

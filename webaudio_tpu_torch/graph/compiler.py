@@ -9,9 +9,16 @@ Python loop runs the whole topology block by block:
     (states, frame0), (param rows) -> (states', dest block)
 
 Ported from `webaudio_tpu/graph/compiler.py`.  The acyclic block plan
-(block size, padding) is the JAX package's, unchanged.  Each block runs
-eagerly on the context's device; node states are dicts of tensors carried
-from one block to the next.
+(block size, padding) is the JAX package's, unchanged.  Node states are
+dicts of tensors carried from one block to the next, and the block's first
+frame is device data (`BlockScope.frame0`, a 0-d int64 tensor), as it is
+under JAX's trace.  So one block's work depends on nothing the host reads
+or uploads, and on the card `scan_render` captures it once per plan as a
+CUDA graph and replays it a block at a time: the counterpart of JAX's
+`jax.jit(scan_render)`.  `WEBAUDIO_CUDA_GRAPHS=0` walks every block
+eagerly with the same kernels (the counterpart of `jax.disable_jit`);
+plans with host callbacks or user code always do (`CompiledGraph.capture`
+says why).
 
 There is one block walk, and it renders N instances of the graph at once:
 the JAX package's `vmap` over `scan_render` written out as a leading
@@ -37,7 +44,12 @@ bit-equal to one that steps every node at the inner block
 
 from __future__ import annotations
 
+import contextlib
+import gc
 import os
+import threading
+import time
+import weakref
 from dataclasses import dataclass, field
 from typing import Any, Optional
 
@@ -48,7 +60,7 @@ from ..constants import (
     RENDER_QUANTUM_SIZE, DEFAULT_QUANTA_PER_BLOCK, NotSupportedError,
 )
 from ..convert import batch_states, stage_resources, unbatch_states
-from ..ops.cuda_lib import KernelError
+from ..ops.cuda_lib import KernelError, launch_counters
 from ..ops.mixing import (
     ChannelInterpretation, computed_number_of_channels, sum_inputs,
 )
@@ -76,27 +88,75 @@ class RenderContext:
 class BlockScope:
     """Per-block values available to kernels (the analog of
     AudioWorkletGlobalScope, reference: src/render/processor.rs:20-27).
-    `frame0` and the instance count `n` are host ints; `t_idx` and
-    `active_mask` are device tensors shared by all instances."""
+    `frame0` is the block's first frame as a 0-d int64 tensor on the
+    walk's device, as JAX traces it; `t_idx` and `active_mask` are device
+    tensors shared by all instances; the instance count `n` is a host int.
+    `frame0_host` is the same frame as a host int, set only in an eager
+    walk (`eager`): there kernels read the block's position on the host
+    (slices, host branches) and the device scalar is made only where a
+    kernel asks for it.  Inside a captured walk they compute on the device
+    scalar, and reading `frame0_host` raises, so a plan whose kernels need
+    it stays eager (`CompiledGraph.capture`).  A host int given as
+    `frame0` makes an eager scope."""
 
-    __slots__ = ("frame0", "frames", "n", "device", "_t_idx",
-                 "node_resources")
+    __slots__ = ("_frame0", "frames", "n", "device", "_t_idx", "_base",
+                 "_frame0_host", "node_resources")
 
-    def __init__(self, frame0: int, frames: int, n: int, device):
-        self.frame0 = int(frame0)
+    def __init__(self, frame0, frames: int, n: int, device,
+                 frame0_host: Optional[int] = None, base=None, t_idx=None):
+        if not isinstance(frame0, (torch.Tensor, type(None))):
+            frame0, frame0_host = None, int(frame0)
+        self._frame0 = frame0
         self.frames = frames
         self.n = n
         self.device = device
-        self._t_idx = None
+        self._frame0_host = frame0_host
+        # arange(frames) on the device, made once per plan
+        self._base = base
+        self._t_idx = t_idx
         # this node's staged resources (audio buffers, IR spectra, curves)
         self.node_resources = None
+
+    @property
+    def eager(self) -> bool:
+        """Whether the block's position is known on the host."""
+        return self._frame0_host is not None
+
+    @property
+    def frame0_host(self) -> int:
+        """The block's first frame on the host (eager walks only)."""
+        if self._frame0_host is None:
+            raise KernelError(
+                "a kernel read the block's host frame0 inside a captured "
+                "walk; a plan with such a kernel must stay eager "
+                "(CompiledGraph.capture)")
+        return self._frame0_host
+
+    @property
+    def frame0(self) -> torch.Tensor:
+        """The block's first frame, a 0-d int64 tensor on the device."""
+        if self._frame0 is None:
+            self._frame0 = torch.full((), self._frame0_host,
+                                      dtype=torch.int64, device=self.device)
+        return self._frame0
+
+    @property
+    def arange(self) -> torch.Tensor:
+        """arange(B), (B,) int64 on the device."""
+        if self._base is None:
+            self._base = torch.arange(self.frames, dtype=torch.int64,
+                                      device=self.device)
+        return self._base
 
     @property
     def t_idx(self) -> torch.Tensor:
         """Global sample indices of this block, (B,) int64."""
         if self._t_idx is None:
-            self._t_idx = torch.arange(self.frame0, self.frame0 + self.frames,
-                                       dtype=torch.int64, device=self.device)
+            f0 = self._frame0_host
+            self._t_idx = (self.frame0 + self.arange if f0 is None else
+                           torch.arange(f0, f0 + self.frames,
+                                        dtype=torch.int64,
+                                        device=self.device))
         return self._t_idx
 
     def active_mask(self, start_frame: int, stop_frame: int) -> torch.Tensor:
@@ -139,6 +199,10 @@ class Kernel:
     def process(self, scope: BlockScope, state, inputs, params):
         raise NotImplementedError
 
+    # why this kernel's plan cannot be captured as a CUDA graph (a host
+    # callback, user code), or None
+    capture_refusal: Optional[str] = None
+
 
 @dataclass
 class CompiledGraph:
@@ -163,6 +227,12 @@ class CompiledGraph:
     cycle_groups: list = field(default_factory=list)  # broken SCCs, in order
     two_rate_m: int = 1        # inner sub-steps per block (1 = single-rate)
     inner_frames: int = 0      # delay-bounded inner block (frames)
+    # True, or why the walk stays eager on the card ("NodeType #id: ...")
+    capture: Any = True
+    # the block's CUDA graphs by what they were captured for (_graph_key)
+    graphs: dict = field(default_factory=dict)
+    warm: set = field(default_factory=set)   # keys walked eagerly once
+    walks: int = 0                            # walks of the plan so far
 
 
 def _propagate_channel_counts(nodes, edges):
@@ -426,6 +496,15 @@ def compile_graph(nodes: dict, edges: list[Edge], sample_rate: float,
             kernels[nid] = Kernel()
             fail(nid, exc)
 
+    # a host callback or user code keeps the walk eager (decided here,
+    # never by a capture that failed)
+    capture = True
+    for nid, kern in kernels.items():
+        if kern.capture_refusal:
+            capture = (f"{type(nodes[nid]).__name__} #{nid}: "
+                       f"{kern.capture_refusal}")
+            break
+
     interp_of = {nid: nodes[nid]._channel_config.interpretation for nid in nodes}
     constants = {}
     for (nid, pname), plan in param_plan.items():
@@ -458,12 +537,27 @@ def compile_graph(nodes: dict, edges: list[Edge], sample_rate: float,
             return kern.process_reader(scope, state, prm)
         return kern.process_writer(scope, state, ins, prm), []
 
-    def block_fn(states, frame0, xs_params, resources):
+    # the blocks' arange(B) for t_idx = frame0 + base, made once per plan
+    # at its first block with frame0 on the device (eager walks make
+    # t_idx on the host's frame0)
+    bases: dict = {}
+
+    def base(frames):
+        if frames not in bases:
+            bases[frames] = torch.arange(frames, dtype=torch.int64,
+                                         device=device)
+        return bases[frames]
+
+    def block_fn(states, frame0, xs_params, resources, frame0_host=None):
         """One block of N instances: run every node in topological order.
+        frame0: the block's first frame, a 0-d int64 tensor on the device
+        (None in an eager walk: made from frame0_host where a kernel asks);
+        frame0_host: the same on the host, None inside a captured walk.
         xs_params: (N, P, B) dense param rows; returns (states', the
         destination's (N, C, B) output)."""
         n = xs_params.shape[0]
-        scope = BlockScope(frame0, block_frames, n, device)
+        scope = BlockScope(frame0, block_frames, n, device, frame0_host,
+                           None if frame0 is None else base(block_frames))
         signals: dict = {}
         new_states = dict(states)
 
@@ -553,6 +647,8 @@ def compile_graph(nodes: dict, edges: list[Edge], sample_rate: float,
                 except (NotSupportedError, KernelError):
                     raise
                 except Exception as exc:
+                    if _capture_fault(exc):
+                        raise
                     fail(nid, exc)
 
             def step(val, s):
@@ -564,8 +660,15 @@ def compile_graph(nodes: dict, edges: list[Edge], sample_rate: float,
 
             carry = {_k(nid): states.get(_k(nid)) for nid, *_ in built}
             outs: dict = {}
+            # captured, the sub-steps take views of the block's t_idx
+            t_block = scope.t_idx if frame0_host is None else None
             for s in range(m):
-                sc = BlockScope(frame0 + s * Bi, Bi, n, device)
+                if t_block is None:
+                    sc = BlockScope(None, Bi, n, device,
+                                    frame0_host + s * Bi)
+                else:
+                    sc = BlockScope(t_block[s * Bi], Bi, n, device, None,
+                                    base(Bi), t_block[s * Bi:(s + 1) * Bi])
                 local: dict = {}
                 for nid, role, srcs, prm in built:
                     if nid in failed:
@@ -587,6 +690,8 @@ def compile_graph(nodes: dict, edges: list[Edge], sample_rate: float,
                     except (NotSupportedError, KernelError):
                         raise
                     except Exception as exc:
+                        if _capture_fault(exc):
+                            raise
                         fail(nid, exc)
                 for nid, role, *_ in built:
                     if role == "writer" or nid in failed:
@@ -632,6 +737,8 @@ def compile_graph(nodes: dict, edges: list[Edge], sample_rate: float,
             except (NotSupportedError, KernelError):
                 raise
             except Exception as exc:
+                if _capture_fault(exc):
+                    raise
                 fail(nid, exc)
                 for oi, c in enumerate(out_counts[nid]):
                     signals[(nid, oi)] = silence(c)
@@ -647,7 +754,20 @@ def compile_graph(nodes: dict, edges: list[Edge], sample_rate: float,
         param_objects=param_objects, muted=ordered.muted,
         cycle_breakers=set(ordered.cycle_breakers),
         cycle_groups=ordered.cycle_groups,
-        two_rate_m=two_rate_m, inner_frames=inner_frames or 0)
+        two_rate_m=two_rate_m, inner_frames=inner_frames or 0,
+        capture=capture)
+
+
+def _capture_fault(exc: BaseException) -> bool:
+    """Whether an exception a node raised is a fault of the CUDA graph
+    capture in progress (a host sync, a pageable upload, a CUDA error),
+    which propagates, and not a processor error, which isolates the node."""
+    if not (torch.cuda.is_available()
+            and torch.cuda.is_current_stream_capturing()):
+        return False
+    accel = getattr(torch, "AcceleratorError", ())
+    msg = str(exc)
+    return isinstance(exc, accel) or "captur" in msg or "CUDA" in msg
 
 
 def collect_resources(cg: CompiledGraph) -> dict:
@@ -856,18 +976,262 @@ def _pad_len(total_frames: int, block_frames: int) -> int:
     return nb * block_frames
 
 
+def cuda_graphs_enabled() -> bool:
+    """`WEBAUDIO_CUDA_GRAPHS=0` walks every block eagerly on the card with
+    the same kernels (the counterpart of `jax.disable_jit`); by default a
+    capturable plan's walk replays CUDA graphs."""
+    return os.environ.get("WEBAUDIO_CUDA_GRAPHS", "1") != "0"
+
+
+# a walk captures at block b >= 1 of shapes it marked at an earlier block
+# when at least this many blocks are left (b included); a walk after the
+# one that marked them captures at its first block
+CAPTURE_MIN_BLOCKS_LEFT = 4
+# graphs kept per plan (input-state shapes x resources x batch shapes)
+MAX_GRAPHS_PER_PLAN = 4
+
+_pool_lock = threading.Lock()
+_pools: dict = {}            # CUDA device index -> [pool, graphs alive on it]
+
+
+def _graph_pool(device: torch.device) -> list:
+    """The memory pool the live graphs on `device` share, as [pool
+    handle, live graph count].  Each graph keeps alive what it hands out
+    (its output block and, where the states change shape, its new states)
+    and copies everything else into buffers outside the pool, so graphs
+    replayed one after another on a stream reuse each other's scratch
+    safely.  Once no graph on the device lives, the handle is forgotten:
+    the allocators free a released pool's memory at the next
+    `empty_cache` and refuse a capture into it meanwhile, so the next
+    capture takes a new pool.  Memory is bounded by the graphs alive."""
+    with _pool_lock:
+        entry = _pools.get(device.index)
+        if entry is None:
+            entry = _pools[device.index] = [torch.cuda.graph_pool_handle(), 0]
+        entry[1] += 1
+        return entry
+
+
+def _release_pool(index: int, entry: list) -> None:
+    with _pool_lock:
+        entry[1] -= 1
+        if entry[1] == 0 and _pools.get(index) is entry:
+            del _pools[index]
+
+
+_captures = [0, False]        # captures under way, gc enabled before them
+
+
+def _hold_gc(begin: bool) -> None:
+    """No garbage collection while any thread captures: a collected plan's
+    graph would be destroyed inside the capture, which CUDA refuses
+    (`torch.cuda.graph` collects before it captures instead)."""
+    with _pool_lock:
+        if begin:
+            if _captures[0] == 0:
+                _captures[1] = gc.isenabled()
+                gc.disable()
+            _captures[0] += 1
+        else:
+            _captures[0] -= 1
+            if _captures[0] == 0 and _captures[1]:
+                gc.enable()
+
+
+def _leaves(tree, path=()):
+    """(path, tensor) of each tensor leaf of a tree of dicts, keys sorted."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _leaves(tree[k], path + (k,))
+    elif tree is not None:
+        yield path, tree
+
+
+def _signature(tree) -> tuple:
+    return tuple((p, tuple(t.shape), t.dtype) for p, t in _leaves(tree))
+
+
+def _graph_key(states, xs_block, resources) -> tuple:
+    """What a captured block depends on besides the values in its static
+    buffers: the input states' shapes, the rows' shape, and the resources
+    it reads by address."""
+    res = tuple((p, t.data_ptr(), tuple(t.shape), t.stride(), t.dtype)
+                for p, t in _leaves(resources))
+    return _signature(states), tuple(xs_block.shape), xs_block.dtype, res
+
+
+def _clone_tree(tree):
+    if isinstance(tree, dict):
+        return {k: _clone_tree(v) for k, v in tree.items()}
+    return None if tree is None else tree.clone()
+
+
+def _copy_tree(dst, src):
+    """Copy src's leaves into dst's (the same signature), skipping leaves
+    that are already dst's; leaves that overlap any of dst's storage are
+    cloned first, so no copy reads what an earlier one wrote."""
+    pairs = [(d, s) for (_, d), (_, s) in zip(_leaves(dst), _leaves(src))
+             if s is not d]
+    owned = {d.untyped_storage().data_ptr() for _, d in _leaves(dst)}
+    pairs = [(d, s.clone() if s.untyped_storage().data_ptr() in owned else s)
+             for d, s in pairs]
+    for d, s in pairs:
+        d.copy_(s)
+
+
+class BlockGraph:
+    """One block of a plan captured as a CUDA graph.
+
+    It reads the states, the block's dense rows (N, P, B) and frame0 from
+    static buffers, writes the new states back into the state buffers and
+    advances frame0 by the block itself, so one replay walks one block,
+    as one `lax.scan` step does.  Where a block changes the states' shapes
+    (the zero states of a walk's start), the new states stay the graph's
+    own tensors (`closed` is False) and feed the next block's graph.
+    `launches` holds the hand-written kernels' launches in the graph;
+    each replay adds them to the wrappers' counters."""
+
+    def __init__(self, cg: CompiledGraph, states, xs_block, resources):
+        dev = xs_block.device
+        self.block_frames = cg.block_frames
+        self.states = _clone_tree(states)
+        self.xs = xs_block.clone()
+        self.frame0 = torch.zeros((), dtype=torch.int64, device=dev)
+        self.next_frame0 = None
+        self.resources = resources
+        self.replays = 0
+        # the graph's pool allocates the block's scratch anew, about what
+        # the eager walk left cached: where the card lacks that much free,
+        # the cache goes back to it first (`torch.cuda.graph` always does)
+        free, _ = torch.cuda.mem_get_info(dev)
+        if torch.cuda.memory_reserved(dev) - \
+                torch.cuda.memory_allocated(dev) > free:
+            torch.cuda.empty_cache()
+        entry = _graph_pool(dev)
+        weakref.finalize(self, _release_pool, dev.index, entry)
+        counters = launch_counters()
+        t0 = time.perf_counter()
+        stream = torch.cuda.Stream(dev)
+        stream.wait_stream(torch.cuda.current_stream(dev))
+        while True:
+            failed = len(cg.failed)
+            before = [k.launches for k in counters]
+            graph = torch.cuda.CUDAGraph()
+            _hold_gc(True)
+            try:
+                with torch.cuda.stream(stream):
+                    # thread-local: other threads' CUDA calls (an online
+                    # context's render thread, the control thread) go on
+                    # meanwhile; this capture makes no host sync itself
+                    graph.capture_begin(pool=entry[0],
+                                        capture_error_mode="thread_local")
+                    try:
+                        new, out = cg.block_fn(self.states, self.frame0,
+                                               self.xs, resources)
+                        closed = _signature(new) == _signature(self.states)
+                        if closed:
+                            _copy_tree(self.states, new)
+                        self.frame0.add_(cg.block_frames)
+                    except BaseException:
+                        with contextlib.suppress(Exception):
+                            graph.capture_end()
+                        raise
+                    graph.capture_end()
+            finally:
+                _hold_gc(False)
+            self.launches = {k: k.launches - b0
+                             for k, b0 in zip(counters, before)}
+            for k, b0 in zip(counters, before):
+                k.launches = b0          # the capture launched nothing
+            if len(cg.failed) == failed:
+                break
+            # a node failed while its plan was captured: it is isolated as
+            # in an eager block, and the block is captured again without it
+        torch.cuda.current_stream(dev).wait_stream(stream)
+        self.capture_ms = (time.perf_counter() - t0) * 1e3
+        self.graph, self.out, self.closed = graph, out, closed
+        self.new_states = self.states if closed else new
+
+    def replay(self, states, frame0: int, xs_block):
+        """Walk the block at `frame0` from `states`: -> (states', output
+        (N, C, B), valid until the next replay)."""
+        if states is not self.states:
+            _copy_tree(self.states, states)
+        if xs_block.numel():
+            self.xs.copy_(xs_block)
+        if frame0 != self.next_frame0:
+            self.frame0.fill_(frame0)
+        self.graph.replay()
+        self.replays += 1
+        self.next_frame0 = frame0 + self.block_frames
+        for k, n in self.launches.items():
+            k.launches += n
+        return self.new_states, self.out
+
+
 def scan_render(cg: CompiledGraph, states: dict, frame0s, xs: torch.Tensor,
                 resources: dict):
     """The block walk over a whole render: N instances, block by block.
 
     states: leaves (N, ...); frame0s: host ints, one per block; xs:
     (N, nb, P, B) dense rows on the device; resources: staged with their
-    leading 1 or N axis.  Returns (final states, (N, C, nb*B) output)."""
+    leading 1 or N axis.  Returns (final states, (N, C, nb*B) output),
+    both the caller's own: no later walk writes into them.
+
+    On the card, unless `WEBAUDIO_CUDA_GRAPHS=0` or the plan says why not
+    (`cg.capture`), a block whose input shapes were walked eagerly once is
+    captured as a `BlockGraph` (its frame0 a device scalar) and replayed
+    from then on: at a plan's first block of a walk after one that marked
+    it, or within a walk when at least `CAPTURE_MIN_BLOCKS_LEFT` blocks are
+    left.  A marking block walks eagerly with frame0 on the card, as the
+    graph will.  A plan's first walk marks its blocks only where it is
+    long enough to capture in; a shorter one (a fresh one-block render)
+    and every walk that cannot capture walk eagerly with frame0 on the
+    host and no capture bookkeeping, and the plan's next walk marks."""
+    nb = len(frame0s)
+    capturable = (cg.device.type == "cuda" and cg.capture is True
+                  and cuda_graphs_enabled()
+                  and (cg.walks > 0 or nb > CAPTURE_MIN_BLOCKS_LEFT))
+    marked = set(cg.warm)          # marked by an earlier walk
     outs = []
+    graph = None
     for b, frame0 in enumerate(frame0s):
-        states, out = cg.block_fn(states, frame0, xs[:, b], resources)
-        outs.append(out)
+        xb = xs[:, b]
+        graph = None
+        if capturable:
+            key = _graph_key(states, xb, resources)
+            graph = cg.graphs.get(key)
+            if graph is None and key in cg.warm and (
+                    key in marked or nb - b >= CAPTURE_MIN_BLOCKS_LEFT):
+                if len(cg.graphs) >= MAX_GRAPHS_PER_PLAN:
+                    cg.graphs.pop(next(iter(cg.graphs)))
+                graph = BlockGraph(cg, states, xb, resources)
+                cg.graphs[key] = graph
+        if graph is None and not capturable:
+            states, y = cg.block_fn(states, None, xb, resources, frame0)
+        elif graph is None:
+            # the block a later one captures, walked first with frame0 on
+            # the card: its device-side code, caches and lazily loaded
+            # kernels run once outside the capture
+            f0 = torch.full((), frame0, dtype=torch.int64, device=cg.device)
+            states, y = cg.block_fn(states, f0, xb, resources)
+            cg.warm.add(key)
+        else:
+            states, y = graph.replay(states, frame0, xb)
+            y = y.clone()          # the graph's buffer: the next replay's
+        outs.append(y)
+    cg.walks += 1
+    if graph is not None:
+        # the graph's buffers: its next replay overwrites them
+        states = _clone_tree(states)
     return states, torch.cat(outs, dim=-1)
+
+
+def drop_graphs(cg: CompiledGraph) -> None:
+    """Release a plan's CUDA graphs and their memory (a re-planned online
+    graph's, a finished offline render's)."""
+    cg.graphs.clear()
+    cg.warm.clear()
 
 
 def render_args(cg: CompiledGraph, total_frames: int, start_frame: int = 0,

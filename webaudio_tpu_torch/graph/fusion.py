@@ -602,6 +602,8 @@ class _FusedVoicesKernel(Kernel):
     _fp_staged_attrs = ("data_host", "start_times")
 
     def __init__(self, node: _FusedVoicesNode, rc):
+        self._staged = {}        # host index arrays on the device (_index)
+        self.device = rc.device
         self.fs = rc.sample_rate
         self.block_frames = rc.block_frames
         self.V = len(node.sources)
@@ -962,8 +964,7 @@ class _FusedVoicesKernel(Kernel):
                                  params.get("detune"), self.det_lim)
                 computed = osc_ops.computed_frequency(freq, det)   # (N, V, B)
                 if self.const_voices.any():
-                    keep = torch.as_tensor(self.const_voices,
-                                           device=computed.device)
+                    keep = self._index(self.const_voices)
                     computed = torch.where(keep[:, None],
                                            r["computed_const"][..., None],
                                            computed)
@@ -1062,7 +1063,8 @@ class _FusedVoicesKernel(Kernel):
                 f["startv"].to(i32).contiguous(),
                 f["stopv"].to(i32).contiguous(),
                 f["base_i"].contiguous(), f["base_f"].contiguous(),
-                f["rate32"].contiguous(), gain.contiguous(), scope.frame0,
+                f["rate32"].contiguous(), gain.contiguous(),
+                scope.frame0,
                 L, self.gain_lim[0], self.gain_lim[1])
 
         def per_sample(x):                       # (I, K, nq) -> (I, K, nq, Q)
@@ -1115,9 +1117,18 @@ class _FusedVoicesKernel(Kernel):
         if len(dense):
             n = _lead(full, rows)
             full = full.expand(n, self.V, B).clone()
-            full[:, torch.as_tensor(dense, device=full.device)] = \
-                torch.clamp(rows, lo, hi)
+            full[:, self._index(dense)] = torch.clamp(rows, lo, hi)
         return full
+
+    def _index(self, arr):
+        """A host index array of this kernel's on its device, staged at
+        its first block (an eager one) and reused: a captured walk
+        uploads nothing."""
+        t = self._staged.get(id(arr))
+        if t is None:
+            t = self._staged[id(arr)] = torch.as_tensor(arr,
+                                                        device=self.device)
+        return t
 
     def _process_dense(self, scope, params):
         """The (V, B) closed-form playhead of every voice

@@ -318,10 +318,15 @@ class _BufferSourceKernel(Kernel):
             out = self._fetch(scope, pos_eff, valid)
         # keep the playhead state current for position() readback
         max_rel = float(min(self.stop_frame, 2**31 - 1) - start_i)
-        end_rel = torch.clamp(
-            torch.tensor(float(scope.frame0 + B - start_i), dtype=torch.float64,
-                         device=scope.device),
-            0.0, max(max_rel, 0.0))
+        if scope.eager:
+            end_rel = torch.clamp(
+                torch.tensor(float(scope.frame0_host + B - start_i),
+                             dtype=torch.float64, device=scope.device),
+                0.0, max(max_rel, 0.0))
+        else:
+            end_rel = torch.clamp(
+                (scope.frame0 + (B - start_i)).to(torch.float64),
+                0.0, max(max_rel, 0.0))
         pos_end = offset_pos + (rate * ratio) * end_rel
         if self.loop:
             entered_end = self._entered(pos_end, offset_pos, ls, le, rate)
@@ -338,8 +343,10 @@ class _BufferSourceKernel(Kernel):
         """Automated (k-rate) compound rate: the playhead is the exclusive
         masked cumsum of the per-sample increments, one per instance,
         carried across blocks in f64 (buffer_time, elapsed, entered).
-        Whether the start falls in this block is known on the host, so
-        nothing here waits for the device."""
+        Whether the start falls in this block is known on the host in an
+        eager walk; in a captured one it is device data (frame0 is), and
+        the start's branch is a `where`.  Nothing here waits for the
+        device."""
         B = scope.frames
         fs = self.sample_rate
         dt = 1.0 / fs
@@ -359,11 +366,18 @@ class _BufferSourceKernel(Kernel):
             delta = self.start_frame * dt - self.start_time
         else:
             delta = 0.0
-        in_block = scope.frame0 <= self.start_frame < scope.frame0 + B
-        if in_block:
-            rate_n0 = rate[:, self.start_frame - scope.frame0]
+        if scope.eager:
+            in_block = (scope.frame0_host <= self.start_frame
+                        < scope.frame0_host + B)
+            rate_n0 = (rate[:, self.start_frame - scope.frame0_host]
+                       if in_block else torch.zeros_like(rate[:, 0]))
         else:
-            rate_n0 = torch.zeros_like(rate[:, 0])
+            # the start's index in this block, and whether it lies in it
+            rel = self.start_frame - scope.frame0
+            in_block = (rel >= 0) & (rel < B)
+            at = torch.clamp(rel, 0, B - 1).reshape(1)
+            rate_n0 = torch.where(in_block, rate.index_select(1, at)[:, 0],
+                                  0.0)
         offset_eff = torch.clamp(self.offset + delta * rate_n0, 0.0,
                                  self.buf_duration)
         if self.loop:
@@ -377,13 +391,20 @@ class _BufferSourceKernel(Kernel):
         # (reference: :652-667); a sub-sample start adds |delta * rate|
         # up front (reference: :689)
         excl_abs, total_abs = _masked_cumsum_f64(torch.abs(rate), sched)
-        delta_elapsed = (torch.abs(delta * rate_n0) * fs if in_block
-                         else torch.zeros_like(rate_n0))
+        if scope.eager:
+            delta_elapsed = (torch.abs(delta * rate_n0) * fs if in_block
+                             else torch.zeros_like(rate_n0))
+        else:
+            delta_elapsed = torch.where(
+                in_block, torch.abs(delta * rate_n0) * fs, 0.0)
         elapsed0 = state["elapsed"] + delta_elapsed
         active = sched & (elapsed0[:, None] + excl_abs < self.duration * fs)
 
         excl, total = _masked_cumsum_f64(rate * ratio, active)
-        pos0 = pos0_val if in_block else state["buffer_time"]
+        if scope.eager:
+            pos0 = pos0_val if in_block else state["buffer_time"]
+        else:
+            pos0 = torch.where(in_block, pos0_val, state["buffer_time"])
         pos = pos0[:, None] + excl
 
         if self.loop:
@@ -475,19 +496,25 @@ class _BufferSourceKernel(Kernel):
     def _fetch_aligned(self, scope, valid):
         """Aligned unit-step fetch: the block's samples are
         data[(aligned_off + t - start) mod L] (loop) or
-        data[aligned_off + t - start] (one-shot), i.e. one contiguous slice
-        of the pre-tiled layout (_tiled_data).  Pre-start and out-of-range
-        positions read tiled data or pad zeros and are masked by `valid`
-        exactly like the gather path."""
+        data[aligned_off + t - start] (one-shot), i.e. one contiguous run
+        of the pre-tiled layout (_tiled_data): a slice at the host's
+        frame0 in an eager walk, a read at s + arange(B) from the device
+        scalar s in a captured one (JAX: a `dynamic_slice`).  Pre-start
+        and out-of-range positions read tiled data or pad zeros and are
+        masked by `valid` exactly like the gather path."""
         tiled = scope.node_resources["data_tiled"]           # (R, C, T)
         start_i = min(self.start_frame, 2**31 - 1)
-        raw = scope.frame0 - start_i + self.aligned_off
-        if self.loop:
-            s = raw % self.buf_len
+        pad = self.aligned_pad
+        if scope.eager:
+            raw = scope.frame0_host - start_i + self.aligned_off
+            s = (raw % self.buf_len if self.loop
+                 else min(max(raw, -pad), self.buf_len) + pad)
+            out = tiled[..., s:s + scope.frames]
         else:
-            pad = self.aligned_pad
-            s = min(max(raw, -pad), self.buf_len) + pad
-        out = tiled[..., s:s + scope.frames]
+            raw = scope.frame0 + (self.aligned_off - start_i)
+            s = (torch.remainder(raw, self.buf_len) if self.loop
+                 else torch.clamp(raw, -pad, self.buf_len) + pad)
+            out = tiled.index_select(-1, s + scope.arange)
         return torch.where(valid, out, 0.0).to(torch.float32)
 
 

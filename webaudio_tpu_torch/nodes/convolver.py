@@ -79,13 +79,19 @@ class _ConvolverKernel(Kernel):
             return state, [x]
         cin = x.shape[1]
         # route input channels to the convolver lanes
-        # (reference: convolver.rs:378-487)
+        # (reference: convolver.rs:378-487), each lane a copy of one input
+        # channel: input channel c feeds `rep` lanes in a row
+        n, _, B = x.shape
         if self.ir_channels == 4:
-            lanes = x[:, [0, 0, 0, 0] if cin == 1 else [0, 0, 1, 1]]
+            src, rep = (1, 4) if cin == 1 else (2, 2)
         elif cin == 1 and self.ir_channels == 1:
-            lanes = x[:, 0:1]
+            src, rep = 1, 1
         else:
-            lanes = x[:, [0, 0] if cin == 1 else [0, 1]]
+            src, rep = (1, 2) if cin == 1 else (2, 1)
+        lanes = x[:, :src]
+        if rep > 1:
+            lanes = lanes[:, :, None].expand(n, src, rep, B).reshape(
+                n, src * rep, B)
         n_lanes = lanes.shape[1]
         h = scope.node_resources["h"][:, :n_lanes]      # (1 or N, L, K, P+1)
         st = state

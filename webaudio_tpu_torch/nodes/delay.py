@@ -12,7 +12,11 @@ frame0 mod R (out of place: the state of the block before stays as it
 was).  A constant delay's read offset and lerp weights are host numbers,
 computed once when the kernel is built, so its reader is two contiguous
 reads across the wrap and a lerp, with no device sync; an automated or
-audio-driven delay reads per-sample f64 positions with a gather.
+audio-driven delay reads per-sample f64 positions with a gather.  Where
+the block's position is device data (a captured walk), the writer is one
+scatter at (frame0 + arange(B)) mod R and the constant reader one gather
+of B + 1 consecutive ring positions: neither reads the position on the
+host.
 """
 
 from __future__ import annotations
@@ -60,6 +64,17 @@ class _DelayKernel(Kernel):
             ks = np.float32(0.0) if k0 == 0.0 else np.float32(1.0) - k0
             self.const_read = (shift, float(np.float32(1.0) - ks), float(ks))
 
+        self._offs = {}          # block frames -> arange(B + 1) - shift
+
+    def _offsets(self, frames: int, shift: int, device) -> torch.Tensor:
+        """arange(frames + 1) - shift on the device, made at the block
+        walked eagerly before a capture and reused by the graph."""
+        offs = self._offs.get(frames)
+        if offs is None:
+            offs = self._offs[frames] = torch.arange(
+                -shift, frames + 1 - shift, dtype=torch.int64, device=device)
+        return offs
+
     def tail_frames(self):
         return None if self.in_cycle else self.R
 
@@ -71,7 +86,10 @@ class _DelayKernel(Kernel):
     def process_writer(self, scope, state, inputs, params):
         x = inputs[0]                                       # (N, C, B)
         ring = state["ring"]
-        pos = scope.frame0 % self.R
+        if not scope.eager:
+            pos = torch.remainder(scope.t_idx, self.R)  # wraps at the end
+            return {"ring": ring.index_copy(-1, pos, x)}
+        pos = scope.frame0_host % self.R
         B = x.shape[-1]
         head = min(B, self.R - pos)
         ring = ring.slice_scatter(x[..., :head], dim=-1, start=pos,
@@ -90,16 +108,28 @@ class _DelayKernel(Kernel):
             # the constant delay: consecutive read positions, two
             # contiguous reads of the ring and a lerp with host weights
             shift, wa, wb = self.const_read
-            start = scope.frame0 - shift
-            a = _read(ring, start % self.R, B)
-            b = _read(ring, (start + 1) % self.R, B)
-            out = a * wa + b * wb
-            if start < 0:
-                # reads from before the first written sample are silent
-                prev_i = start + torch.arange(B, device=ring.device)
-                out = torch.where(prev_i >= 0, out,
-                                  torch.where(prev_i + 1 >= 0, b * wb, 0.0))
-            return state, [out]
+            if scope.eager:
+                start = scope.frame0_host - shift
+                a = _read(ring, start % self.R, B)
+                b = _read(ring, (start + 1) % self.R, B)
+                out = a * wa + b * wb
+                if start < 0:
+                    # reads from before the first written sample are silent
+                    prev_i = start + torch.arange(B, device=ring.device)
+                    out = torch.where(prev_i >= 0, out, torch.where(
+                        prev_i + 1 >= 0, b * wb, 0.0))
+                return state, [out]
+            # the B + 1 positions frame0 - shift + e: both taps in one
+            # gather (a = w[e], b = w[e + 1])
+            prev = scope.frame0 + self._offsets(B, shift, ring.device)
+            w = ring.index_select(-1, torch.remainder(prev, self.R))
+            a, b = w[..., :B], w[..., 1:]
+            bw = b * wb
+            out = a * wa + bw
+            # reads from before the first written sample are silent
+            prev_i = prev[:B]
+            return state, [torch.where(prev_i >= 0, out,
+                                       bw.masked_fill(prev_i < -1, 0.0))]
         # automated or audio-driven: per-sample f64 read positions, as in
         # the reference (delay.rs:688-706); an f32 position would put an
         # exact integer delay ~1e-6 samples off and leak lerp error

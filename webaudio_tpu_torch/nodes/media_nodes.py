@@ -14,7 +14,9 @@ port's block walk is a Python loop, so the host calls are plain calls:
 
 In a GraphBatch the instances pull (and push) in turn, lane 0 first, as
 the JAX package's `vmap_method="sequential"` does.  Each node counts its
-transfers in `uploads` / `host_copies`.
+transfers in `uploads` / `host_copies`.  A plan with one of these nodes
+walks eagerly: a CUDA graph cannot call the host (`CompiledGraph.capture`
+names the node).
 """
 
 from __future__ import annotations
@@ -32,6 +34,8 @@ from .audio_node import AudioNode
 class _HostPullKernel(Kernel):
     """Pull (channels, B) from the host per block and instance, then one
     upload of the (N, channels, B) block to the render device."""
+
+    capture_refusal = "pulls each block from a host stream"
 
     def __init__(self, node, pull, device):
         self.node = node
@@ -138,6 +142,8 @@ class MediaElementAudioSourceNode(AudioNode):
 
 
 class _PushKernel(Kernel):
+    capture_refusal = "pushes each block to a host stream"
+
     def __init__(self, node):
         self.node = node
 

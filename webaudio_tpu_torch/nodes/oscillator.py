@@ -59,6 +59,12 @@ class _OscillatorKernel(Kernel):
         self.sample_rate = sample_rate
         # constant computed frequency -> closed-form phase (no cumsums)
         self.const_freq = const_freq
+        if const_freq is not None:
+            # the f32 per-sample increment, staged once
+            self.incr_host = float(np.float64(np.float32(const_freq))
+                                   / sample_rate)
+            self.incr = torch.tensor(np.float32(self.incr_host),
+                                     device=device)
         # sub-sample start phase pre-advance ratio in [0, 1)
         # (reference: oscillator.rs:521-529)
         if start_frame >= 2**31 - 1:
@@ -86,12 +92,12 @@ class _OscillatorKernel(Kernel):
             # closed-form phase for a constant frequency: no cumsums, no
             # carry dependency; phase = incr * (n - start) + ratio * incr,
             # one row shared by every instance
-            incr_host = float(np.float64(np.float32(self.const_freq)) / fs)
+            incr_host = self.incr_host
             ref = min(self.start_frame, 2**31 - 1)
             n_rel = (scope.t_idx - ref).to(torch.float64)
             phase = torch.remainder((n_rel + self.start_ratio) * incr_host,
                                     1.0).to(torch.float32)[None, None]
-            incr = torch.tensor(np.float32(incr_host), device=scope.device)
+            incr = self.incr
             carry = state["phase"]  # structural placeholder
             if not abs(np.float32(self.const_freq)) < fs / 2.0:
                 mask = torch.zeros_like(mask)

@@ -12,7 +12,8 @@ on the device inside the block walk).  Graphs containing this node keep
 the block size a power of two, so buffers align with blocks.  Ported from
 `webaudio_tpu/nodes/script_processor.py`, whose `jax.pure_callback` is a
 plain call here and whose `lax.cond` on the buffer boundary a host `if`
-(the block's `frame0` is a host int).
+on the block's `frame0_host`: a plan with this node is never captured as
+a CUDA graph (`CompiledGraph.capture` names it).
 """
 
 from __future__ import annotations
@@ -37,6 +38,8 @@ class AudioProcessingEvent:
 
 
 class _ScriptProcessorKernel(Kernel):
+    capture_refusal = "calls its host handler on each completed buffer"
+
     def __init__(self, node, rc):
         self.node = node
         # the handler as planned: a callable attribute, so MixedGraphBatch
@@ -86,7 +89,7 @@ class _ScriptProcessorKernel(Kernel):
             # latency comes from the carried output queue
             assert B % n == 0, "block must align with buffer_size"
             produced = [self._host_process(x[..., c * n:(c + 1) * n],
-                                           scope.frame0 + c * n)
+                                           scope.frame0_host + c * n)
                         for c in range(B // n)]
             stream = torch.cat([outq] + produced, dim=-1)
             return {"inbuf": state["inbuf"], "outbuf": stream[..., B:]}, \
@@ -97,14 +100,14 @@ class _ScriptProcessorKernel(Kernel):
         # boundary falls exactly at a block edge.
         assert n % B == 0
         ext_in = torch.cat([state["inbuf"], x], dim=-1)
-        phase = (scope.frame0 // B) % (n // B)
+        phase = (scope.frame0_host // B) % (n // B)
         # play from the current (pre-shift) queue head
         out = outq[..., phase * B:(phase + 1) * B]
         if phase == n // B - 1:
             # at the cycle boundary, process the completed input buffer and
             # rotate the queue: [playing | next] -> [next | processed]
             processed = self._host_process(ext_in[..., -n:],
-                                           scope.frame0 + B - n)
+                                           scope.frame0_host + B - n)
             outq = torch.cat([outq[..., n:], processed], dim=-1)
         return {"inbuf": ext_in[..., B:], "outbuf": outq}, [out]
 

@@ -82,3 +82,15 @@ def check(rc: int, what: str) -> None:
     """Raise KernelError for a nonzero cudaError_t returned by a launch."""
     if rc != 0:
         raise KernelError(f"{what}: CUDA error {rc}")
+
+
+def launch_counters() -> tuple:
+    """The wrappers of the port's hand-written kernels.  Each carries a
+    plain integer `launches` that it raises by one where it launches its
+    kernel; a captured block walk adds its graph's launches on every
+    replay (graph/compiler.py)."""
+    from . import curve_kernel, detector, dither, grain_read
+
+    return (curve_kernel.curve_lookup, detector.detector_scan,
+            dither.dither_i16, dither.ulaw_u8, grain_read.grain_bank,
+            grain_read.grouped_lerp)

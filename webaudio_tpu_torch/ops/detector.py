@@ -36,7 +36,8 @@ _SOURCE = "detector.cu"
 def _taus(x, at, rt):
     """at, rt as (N, B) (one tau a sample) or (N, 1) (one an instance)."""
     N, B = x.shape
-    at, rt = (torch.as_tensor(t, device=x.device) for t in (at, rt))
+    at, rt = (t if isinstance(t, torch.Tensor)
+              else torch.as_tensor(t, device=x.device) for t in (at, rt))
     at, rt = (t.reshape(-1, 1) if t.dim() < 2 else t for t in (at, rt))
     if at.shape[1] == 1 and rt.shape[1] == 1:
         return at.expand(N, 1), rt.expand(N, 1)

@@ -126,7 +126,8 @@ def grouped_lerp_reference(ext, pi, fr, g: int, w: int, wrap_len: int = 0):
 
 
 def grain_bank_reference(ext, edge, ok, sv, ev, base_i, base_f, rate, gain,
-                         frame0: int, L: int, gl0: float, gl1: float):
+                         frame0: torch.Tensor, L: int, gl0: float,
+                         gl1: float):
     """Plain version of the grain bank (K2's contract).
 
     ext (Ie, C, Lx) f32 with column L the end-of-buffer constant; edge
@@ -134,7 +135,8 @@ def grain_bank_reference(ext, edge, ok, sv, ev, base_i, base_f, rate, gain,
     (start/stop frames), base_i int32 and base_f, rate f32 (the playhead
     at the quantum start, split, and buffer samples per frame); gain
     (Ig, K, B) f32 envelope rows, B = nq * 128, clipped to [gl0, gl1];
-    frame0 the block's first frame.  -> (I, C, B) f32: the masked,
+    frame0 the block's first frame, a 0-d int64 tensor (device data, as
+    the block walk's).  -> (I, C, B) f32: the masked,
     enveloped lane samples summed over k in ascending order."""
     Q = RENDER_QUANTUM_SIZE
     If, K, nq = ok.shape
@@ -176,12 +178,11 @@ def _bind(lib):
     # ext, pi, fr, out, I, ext_inst, pi_inst, C, Lx, R, B, g, w, wrap, stream
     lerp.argtypes = [p, p, p, p, i, i, i, i, ll, i, ll, i, i, ll, p]
     lerp.restype = ctypes.c_int
-    bank = lib.grain_bank_f32
+    bank = lib.grain_bank_launch
     # ext, edge, ok, sv, ev, base_i, base_f, rate, gain, out,
-    # I, ext_inst, field_inst, gain_inst, C, Lx, L, K, nq, frame0,
-    # gl0, gl1, edge_frac, stream
-    bank.argtypes = [p] * 10 + [i, i, i, i, i, ll, ll, i, i, ll,
-                                f, f, f, p]
+    # I, ext_inst, field_inst, gain_inst, C, Lx, L, K, nq, frame0 (a
+    # device pointer), gl0, gl1, edge_frac, stream
+    bank.argtypes = [p] * 10 + [i, i, i, i, i, ll, ll, i, i, p, f, f, f, p]
     bank.restype = ctypes.c_int
     return {"grouped_lerp": lerp, "grain_bank": bank}
 
@@ -205,13 +206,14 @@ def _launch_lerp(entry, out, ext, pi, fr, g, w, wrap_len=0):
 def _launch_bank(entry, out, ext, edge, ok, sv, ev, base_i, base_f, rate,
                  gain, frame0, L, gl0, gl1):
     """One launch of the grain-bank C entry point `entry` on checked CUDA
-    tensors, writing into `out` (I, C, B)."""
+    tensors, writing into `out` (I, C, B); frame0 a 0-d int64 tensor on
+    the card."""
     check(entry(ext.data_ptr(), edge.data_ptr(), ok.data_ptr(), sv.data_ptr(),
                 ev.data_ptr(), base_i.data_ptr(), base_f.data_ptr(),
                 rate.data_ptr(), gain.data_ptr(), out.data_ptr(),
                 out.shape[0], int(ext.shape[0] > 1), int(ok.shape[0] > 1),
                 int(gain.shape[0] > 1), ext.shape[1], ext.shape[2], L,
-                ok.shape[1], ok.shape[2], int(frame0),
+                ok.shape[1], ok.shape[2], frame0.data_ptr(),
                 float(np.float32(gl0)), float(np.float32(gl1)), EDGE_FRAC,
                 torch.cuda.current_stream(out.device).cuda_stream),
           "grain_bank launch")
@@ -267,21 +269,27 @@ def grouped_lerp(ext: torch.Tensor, pi: torch.Tensor, fr: torch.Tensor,
 
 
 def grain_bank(ext, edge, ok, sv, ev, base_i, base_f, rate, gain,
-               frame0: int, L: int, gl0: float, gl1: float) -> torch.Tensor:
+               frame0: torch.Tensor, L: int, gl0: float,
+               gl1: float) -> torch.Tensor:
     """The grain bank (K2's contract; arguments as in
     `grain_bank_reference`, with ok, sv, ev and base_i int32 for the
-    kernel and at most 2 channels).  CUDA tensors go through the
-    hand-written kernel (each launch adds one to `grain_bank.launches`);
-    CPU tensors take the plain version."""
+    kernel, at most 2 channels, and frame0 a 0-d int64 tensor that the
+    kernel reads on the card).  CUDA tensors go through the hand-written
+    kernel (each launch adds one to `grain_bank.launches`); CPU tensors
+    take the plain version."""
     args = {"ext": ext, "edge": edge, "ok": ok, "sv": sv, "ev": ev,
-            "base_i": base_i, "base_f": base_f, "rate": rate, "gain": gain}
+            "base_i": base_i, "base_f": base_f, "rate": rate, "gain": gain,
+            "frame0": frame0}
+    if not isinstance(frame0, torch.Tensor) or frame0.shape != ():
+        raise KernelError("grain_bank: frame0 must be a 0-d int64 tensor")
     if all(t.device.type == "cpu" for t in args.values()):
         return grain_bank_reference(ext, edge, ok, sv, ev, base_i, base_f,
                                     rate, gain, frame0, L, gl0, gl1)
     i32, f32 = torch.int32, torch.float32
     dev = _check_cuda("grain_bank", args, {
         "ext": f32, "edge": f32, "ok": i32, "sv": i32, "ev": i32,
-        "base_i": i32, "base_f": f32, "rate": f32, "gain": f32})
+        "base_i": i32, "base_f": f32, "rate": f32, "gain": f32,
+        "frame0": torch.int64})
     if ext.dim() != 3 or edge.shape != ext.shape[:2] or gain.dim() != 3:
         raise KernelError(f"grain_bank: needs ext (I, C, Lx), edge (I, C), "
                           f"gain (I, K, B), got {tuple(ext.shape)}, "

@@ -140,7 +140,15 @@ def mix(signal: torch.Tensor, c_out: int,
         return torch.cat([signal, pad], dim=-2)
     if (c_in, c_out) == (1, 2) and interpretation == ChannelInterpretation.SPEAKERS:
         return torch.cat([signal, signal], dim=-2)
-    return torch.from_numpy(m).to(signal.device) @ signal
+    return _matrix_on(c_in, c_out, interpretation, signal.device) @ signal
+
+
+@functools.lru_cache(maxsize=None)
+def _matrix_on(c_in: int, c_out: int, interpretation: ChannelInterpretation,
+               device: torch.device) -> torch.Tensor:
+    """The mix matrix on `device`, staged at its first use (an eager
+    block) and reused, so a captured walk uploads nothing."""
+    return torch.from_numpy(mix_matrix(c_in, c_out, interpretation)).to(device)
 
 
 def computed_number_of_channels(

@@ -70,10 +70,19 @@ def _down_taps(factor: int) -> np.ndarray:
     return np.ascontiguousarray(h[::-1]).reshape(1, 1, -1)
 
 
-def _conv(x: torch.Tensor, taps: np.ndarray, stride: int = 1) -> torch.Tensor:
-    """conv1d of every row of x (..., T) with the (out, 1, K) taps, summed
-    in f64 and rounded once to f32: (rows, out, (T - K) // stride + 1)."""
-    w = torch.from_numpy(taps).to(device=x.device, dtype=torch.float64)
+@functools.lru_cache(maxsize=None)
+def _taps_on(kind: str, factor: int, device: torch.device) -> torch.Tensor:
+    """The up (`_up_bank`) or down (`_down_taps`) taps as f64 on `device`,
+    staged at their first use (an eager block) and reused, so a captured
+    walk uploads nothing."""
+    taps = _up_bank(factor) if kind == "up" else _down_taps(factor)
+    return torch.from_numpy(taps).to(device=device, dtype=torch.float64)
+
+
+def _conv(x: torch.Tensor, w: torch.Tensor, stride: int = 1) -> torch.Tensor:
+    """conv1d of every row of x (..., T) with the (out, 1, K) f64 taps w,
+    summed in f64 and rounded once to f32: (rows, out, (T - K) // stride
+    + 1)."""
     y = torch.nn.functional.conv1d(
         x.reshape(-1, 1, x.shape[-1]).to(torch.float64), w, stride=stride)
     return y.to(torch.float32)
@@ -97,7 +106,7 @@ def upsample(x: torch.Tensor, factor: int, state: torch.Tensor):
     state)."""
     *lead, B = x.shape
     xd = torch.cat([state, x], dim=-1)                  # (..., C, 48 + B)
-    y = _conv(xd, _up_bank(factor))                     # (rows, factor, B)
+    y = _conv(xd, _taps_on("up", factor, xd.device))    # (rows, factor, B)
     # (rows, factor, B) -> (rows, B, factor): phase r is output t*factor + r
     y = y.transpose(1, 2).reshape(*lead, B * factor)
     return y, xd[..., -TAPS_PER_PHASE:]
@@ -109,7 +118,8 @@ def downsample(x: torch.Tensor, factor: int, state: torch.Tensor):
     *lead, B4 = x.shape
     HN = len(_interp_fir(factor))
     ext = torch.cat([state, x], dim=-1)                 # (..., C, B4 + HN-1)
-    y = _conv(ext, _down_taps(factor), stride=factor)   # (rows, 1, B)
+    y = _conv(ext, _taps_on("down", factor, ext.device),
+              stride=factor)                            # (rows, 1, B)
     return y.reshape(*lead, B4 // factor), ext[..., -(HN - 1):]
 
 
@@ -119,4 +129,5 @@ def fir_valid(x: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
     reference the streaming paths above are held to (the JAX package's
     `_fir_valid`)."""
     taps = np.ascontiguousarray(h.cpu().numpy()[::-1]).reshape(1, 1, -1)
-    return _conv(x, taps).reshape(*x.shape[:-1], -1)
+    w = torch.from_numpy(taps).to(device=x.device, dtype=torch.float64)
+    return _conv(x, w).reshape(*x.shape[:-1], -1)

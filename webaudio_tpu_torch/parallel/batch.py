@@ -89,6 +89,11 @@ class GraphBatch:
         self._staged_xs = None
         self._staged_res = None
         self._staged_states = None
+        # device copies of the resources, kept across overrides: shared
+        # leaves once a device, each shard's per-instance leaves rewritten
+        # in place, so a captured walk keeps reading the same addresses
+        self._shared_res: dict = {}
+        self._res_buffers: dict = {}
 
     def _split(self, mesh) -> list:
         """The shards: one over the whole batch on the context's device
@@ -225,18 +230,25 @@ class GraphBatch:
             common = {nk: {lk: v for lk, v in leaves.items()
                            if (nk, lk) not in batched}
                       for nk, leaves in self._resources.items()}
-            shared = {}
+            shared = self._shared_res
             for sh in shards:
                 if sh.device not in shared:
                     shared[sh.device] = convert.stage_resources(common,
                                                                 sh.device)
+
+            def per_instance(s, sh, nk, lk, v):
+                key = (s, nk, lk)
+                self._res_buffers[key] = convert.upload_into(
+                    self._res_buffers.get(key), v[sh.lo:sh.hi], sh.device)
+                return self._res_buffers[key]
+
             self._staged_res = [
-                {nk: {lk: (convert.upload(v[sh.lo:sh.hi], sh.device)
+                {nk: {lk: (per_instance(s, sh, nk, lk, v)
                            if (nk, lk) in batched
                            else shared[sh.device][nk][lk])
                       for lk, v in leaves.items()}
                  for nk, leaves in self._resources.items()}
-                for sh in shards]
+                for s, sh in enumerate(shards)]
         return list(zip(self._staged_states, self._staged_xs,
                         self._staged_res))
 

@@ -24,7 +24,10 @@ its instance directly; with N > 1 its `process` runs under
 `vmap`), or, where it cannot be vmapped (data-dependent Python control
 flow, `.item()`), once per instance in a loop.  Either way an error the
 processor raises fails the node as the reference isolates it: its outputs
-go silent and `onprocessorerror` fires.
+go silent and `onprocessorerror` fires.  User code may read the host
+and branch on device values, so a plan with a worklet walks eagerly on the
+card and is never captured as a CUDA graph (`CompiledGraph.capture` names
+the node).
 
 MessagePort messaging is control-side and takes effect at plan boundaries
 (construction, suspend re-plans), mirroring how the reference delivers
@@ -119,6 +122,8 @@ class WorkletScope:
 
 
 class _WorkletKernel(Kernel):
+    capture_refusal = "runs an AudioWorkletProcessor's user code"
+
     def __init__(self, processor: AudioWorkletProcessor, rc, n_outputs: int,
                  output_channel_count):
         self.processor = processor
@@ -164,7 +169,7 @@ class _WorkletKernel(Kernel):
                       for i, x in enumerate(inputs)]
         # dense params (N, 1, B) -> (N, B); constants stay shared 0-d
         params = {k: v if v.dim() == 0 else v[:, 0] for k, v in params.items()}
-        wscope = WorkletScope(scope.frame0, scope.frames,
+        wscope = WorkletScope(scope.frame0_host, scope.frames,
                               self.rc.sample_rate, scope.device)
 
         def one(i):
