@@ -22,6 +22,7 @@ from ..constants import (
     RENDER_QUANTUM_SIZE, InvalidStateError, NotSupportedError,
     assert_valid_number_of_channels,
 )
+from ..diagnostics import span
 from ..graph import compiler as _compiler
 from .base import AudioContextState, BaseAudioContext
 
@@ -124,24 +125,30 @@ class OfflineAudioContext(BaseAudioContext):
             cg = _compiler.compile_graph(
                 dict(self._nodes), list(self._edges), fs, seg_len,
                 self._destination.node_id, self._device, start_frame=cursor)
-            seg_out, states = _compiler.render_compiled(
-                cg, seg_len, start_frame=cursor,
-                init_states=self._merge_states(states, cg))
-            out[:, cursor:boundary] = \
-                seg_out[: self._number_of_channels, :seg_len].cpu().numpy()
-            segments.append({"block_frames": cg.block_frames,
-                             "failed": dict(cg.failed)})
-            # keep the plan for diagnostics, without its staged resources
-            # or its CUDA graphs
-            cg.resource_cache = None
-            _compiler.drop_graphs(cg)
-            self._cg = cg
-            cursor = boundary
-            self._current_time = cursor / fs
-            self._advance_param_state(cursor)
-            # publish states (the buffer playhead) so suspend callbacks
-            # observe the graph's live state
-            self._publish_render_states(states)
+            with span("render.stage"):
+                args = _compiler.render_args(
+                    cg, seg_len, start_frame=cursor,
+                    init_states=self._merge_states(states, cg))
+            final, seg_out = _compiler.scan_render(cg, *args)
+            with span("render.fetch"):
+                out[:, cursor:boundary] = \
+                    seg_out[0, :self._number_of_channels, :seg_len].cpu() \
+                    .numpy()
+            with span("render.finish"):
+                states = _compiler.unbatch_states(final)
+                segments.append({"block_frames": cg.block_frames,
+                                 "failed": dict(cg.failed)})
+                # keep the plan for diagnostics, without its staged
+                # resources or its CUDA graphs
+                cg.resource_cache = None
+                _compiler.drop_graphs(cg)
+                self._cg = cg
+                cursor = boundary
+                self._current_time = cursor / fs
+                self._advance_param_state(cursor)
+                # publish states (the buffer playhead) so suspend callbacks
+                # observe the graph's live state
+                self._publish_render_states(states)
 
             q = cursor // RENDER_QUANTUM_SIZE
             if q in self._suspend_callbacks:
@@ -155,22 +162,24 @@ class OfflineAudioContext(BaseAudioContext):
             "segments": segments,
         }
 
-        # `ended` events: at offline unload the reference fires ended for
-        # every source that has started (before_drop, e.g.
-        # constant_source.rs:290-296: current_time >= start_time)
-        for node in self._nodes.values():
-            cb = getattr(node, "_onended", None)
-            if cb is None:
-                continue
-            start = getattr(node, "_start_time", math.inf)
-            if start < math.inf:
-                cb()
+        with span("render.finish"):
+            # `ended` events: at offline unload the reference fires ended
+            # for every source that has started (before_drop, e.g.
+            # constant_source.rs:290-296: current_time >= start_time)
+            for node in self._nodes.values():
+                cb = getattr(node, "_onended", None)
+                if cb is None:
+                    continue
+                start = getattr(node, "_start_time", math.inf)
+                if start < math.inf:
+                    cb()
 
-        self._set_state(AudioContextState.CLOSED)
-        buffer = AudioBuffer.from_array(out, fs)
-        from ..events import OfflineAudioCompletionEvent
+            self._set_state(AudioContextState.CLOSED)
+            buffer = AudioBuffer.from_array(out, fs)
+            from ..events import OfflineAudioCompletionEvent
 
-        self._dispatch_event("complete", OfflineAudioCompletionEvent(buffer))
+            self._dispatch_event("complete",
+                                 OfflineAudioCompletionEvent(buffer))
         return buffer
 
     # --- promise-style variants (reference: offline.rs:198-251, 394) -------

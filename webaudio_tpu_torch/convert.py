@@ -46,6 +46,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .diagnostics import span
+
 
 def tree_map(fn, tree):
     """Apply fn to every non-None leaf of a tree of dicts."""
@@ -61,14 +63,15 @@ def upload(arr: np.ndarray, device) -> torch.Tensor:
     touches: on CUDA through a fresh pinned buffer and a non-blocking copy
     (the host may overwrite `arr` while the copy is in flight, and the
     copy does not wait for work already queued on the stream); on the CPU
-    as a plain copy."""
+    the snapshot is the copy.  The snapshot's allocation is a `pin`
+    span."""
     device = torch.device(device)
     src = torch.from_numpy(np.ascontiguousarray(arr))
-    if device.type != "cuda":
-        return src.clone()
-    pinned = torch.empty(src.shape, dtype=src.dtype, pin_memory=True)
-    pinned.copy_(src)
-    return pinned.to(device, non_blocking=True)
+    on_card = device.type == "cuda"
+    with span("pin"):
+        host = torch.empty(src.shape, dtype=src.dtype, pin_memory=on_card)
+    host.copy_(src)
+    return host.to(device, non_blocking=True) if on_card else host
 
 
 def upload_into(dst, arr: np.ndarray, device) -> torch.Tensor:
@@ -82,7 +85,9 @@ def upload_into(dst, arr: np.ndarray, device) -> torch.Tensor:
     device = torch.device(device)
     src = torch.from_numpy(arr)
     if device.type == "cuda":
-        pinned = torch.empty(src.shape, dtype=src.dtype, pin_memory=True)
+        with span("pin"):
+            pinned = torch.empty(src.shape, dtype=src.dtype,
+                                 pin_memory=True)
         pinned.copy_(src)
         src = pinned
     dst.copy_(src, non_blocking=device.type == "cuda")

@@ -5,12 +5,59 @@ node/edge dump collected on the render thread via a control message).  Here
 the control side *is* the graph, so the dump is synchronous; the last
 render's plan contributes ordering / block information.  Ported from
 `webaudio_tpu/diagnostics.py`; `profile_render` traces with
-`torch.profiler` instead of the XLA profiler.
+`torch.profiler` instead of the XLA profiler, and `span` marks what the
+port does on the host in that trace.
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
+
+import torch
+from torch.profiler import record_function
+
+# The port's spans, each recorded as "webaudio.<name>"; "walk.node" is
+# followed by the node's kernel class ("walk.node._GainKernel").
+SPANS = (
+    "plan",                   # compile_graph, whole
+    "plan.fuse",              # source fusion
+    "plan.order",             # topology, block size, the two-rate plan
+    "plan.params",            # the dense param timelines
+    "plan.kernels",           # node kernels and the block's closure
+    "render.stage",           # a fresh render's states, rows, resources
+    "walk.block",             # one eager block of the walk
+    "walk.node",              # one node of an eager block
+    "walk.replay",            # one captured block replayed
+    "capture",                # one block captured as a CUDA graph
+    "render.fetch",           # the copy of a render's output to the host
+    "render.finish",          # a render's bookkeeping after its walk
+    "batch.override_param",   # GraphBatch's row copy
+    "batch.override_buffer",  # GraphBatch's per-instance resources
+    "batch.stage",            # GraphBatch's uploads
+    "batch.fetch_wait",       # the host waiting for a batch's copy back
+    "pin",                    # a host staging buffer (pinned for a card)
+    "build",                  # a kernel or host library compiled
+)
+PREFIX = "webaudio."
+_OFF = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A context manager recording `webaudio.<name>` (a name of `SPANS`)
+    as a `torch.profiler.record_function` range while a torch profiler
+    records on this thread (`profile_render`, or any
+    `torch.profiler.profile`), in the same session and time base as the
+    card's kernels and copies.  Otherwise it returns one shared null
+    context: a span costs one check when nothing records."""
+    if not torch.autograd._profiler_enabled():
+        return _OFF
+    return record_function(PREFIX + name)
+
+
+def recording() -> bool:
+    """Whether a torch profiler records on this thread (spans are on)."""
+    return torch.autograd._profiler_enabled()
 
 
 def collect_diagnostics(context) -> dict:
@@ -88,7 +135,17 @@ class profile_render:
             ctx.start_rendering_sync()
 
     Open it in chrome://tracing or Perfetto; `.profiler` holds the
-    `torch.profiler.profile` for `key_averages()`."""
+    `torch.profiler.profile` for `key_averages()`.  The trace carries the
+    port's host spans (`span`, named in `SPANS`) beside the kernels:
+    `webaudio.plan` (compile_graph) with `plan.fuse`, `plan.order`,
+    `plan.params` and `plan.kernels` inside it; an offline render's
+    `render.stage`, `render.fetch` and `render.finish`; the walk's
+    `walk.block` and its `walk.node.<kernel class>` a node, or
+    `walk.replay` a captured block, and `capture`; a GraphBatch's
+    `batch.override_param`, `batch.override_buffer`, `batch.stage` and
+    `batch.fetch_wait`; `pin` for each host staging buffer allocated
+    (page-locked where it feeds a card), and `build` where a kernel or
+    host library compiles."""
 
     def __init__(self, log_dir: str):
         self.log_dir = log_dir

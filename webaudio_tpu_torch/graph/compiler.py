@@ -25,8 +25,8 @@ the JAX package's `vmap` over `scan_render` written out as a leading
 instance axis.  Signals are (N, C, B), dense params (N, 1, B), constant
 params shared 0-d tensors, every state leaf (N, ...), and every resource
 leaf (1, ...) when the instances share it or (N, ...) when each has its
-own (`convert.stage_resources`).  `render_compiled` (the offline context)
-runs it with N = 1; `parallel/batch.py::GraphBatch` with N instances.
+own (`convert.stage_resources`).  `render_compiled` and the offline
+context run it with N = 1; `parallel/batch.py::GraphBatch` with N instances.
 
 Source fusion (`graph/fusion.py`) rewrites banks of same-buffer buffer
 sources into one node before planning, as the JAX package does.
@@ -60,6 +60,7 @@ from ..constants import (
     RENDER_QUANTUM_SIZE, DEFAULT_QUANTA_PER_BLOCK, NotSupportedError,
 )
 from ..convert import batch_states, stage_resources, unbatch_states
+from ..diagnostics import recording, span
 from ..ops.cuda_lib import KernelError, launch_counters
 from ..ops.mixing import (
     ChannelInterpretation, computed_number_of_channels, sum_inputs,
@@ -351,76 +352,95 @@ def compile_graph(nodes: dict, edges: list[Edge], sample_rate: float,
     `force_dense_params` gives every param a dense row (streamed per step),
     so no kernel specializes on a constant: the LTI biquad runs the a-rate
     scan, oscillators the cumsum phase, a delay the automated read."""
+    with span("plan"):
+        return _plan(nodes, edges, sample_rate, total_frames, dest_id,
+                     device, start_frame, quanta_per_block,
+                     force_dense_params)
+
+
+def _plan(nodes, edges, sample_rate, total_frames, dest_id, device,
+          start_frame, quanta_per_block, force_dense_params):
+    """`compile_graph`'s work, its phases in spans of their own."""
     from . import fusion as _fusion
     from ..nodes.delay import DelayNode  # the nodes import this module
 
     device = torch.device(device)
     # rewrite homogeneous source chains into fused banks before anything
     # looks at the topology (see graph/fusion.py)
-    nodes, edges, param_alias = _fusion.fuse_sources(
-        nodes, edges, dest_id, sample_rate=sample_rate)
-    delay_ids = {nid for nid, n in nodes.items() if isinstance(n, DelayNode)}
-    # ordering also respects foreign-param subscriptions: when node X reads
-    # node Y's param P, whatever drives (Y, P) with audio runs before X
-    order_edges = list(edges)
-    for xid, xnode in nodes.items():
-        for src_node, pname in xnode.foreign_params().values():
-            order_edges += [Edge(e.src, e.src_output, xid, -2) for e in edges
-                            if e.param == pname and e.dst == src_node.node_id]
-    ordered = order_graph(list(nodes.keys()), order_edges, delay_ids)
+    with span("plan.fuse"):
+        nodes, edges, param_alias = _fusion.fuse_sources(
+            nodes, edges, dest_id, sample_rate=sample_rate)
+    with span("plan.order"):
+        delay_ids = {nid for nid, n in nodes.items()
+                     if isinstance(n, DelayNode)}
+        # ordering also respects foreign-param subscriptions: when node X
+        # reads node Y's param P, whatever drives (Y, P) with audio runs
+        # before X
+        order_edges = list(edges)
+        for xid, xnode in nodes.items():
+            for src_node, pname in xnode.foreign_params().values():
+                order_edges += [Edge(e.src, e.src_output, xid, -2)
+                                for e in edges if e.param == pname
+                                and e.dst == src_node.node_id]
+        ordered = order_graph(list(nodes.keys()), order_edges, delay_ids)
 
-    total_quanta = -(-total_frames // RENDER_QUANTUM_SIZE)
-    two_rate_m = 1          # inner sub-steps per block (two-rate compiler)
-    inner_frames = None     # delay-bounded inner block (frames)
-    fast_ids: set = set()   # nodes stepped at the inner rate
-    if quanta_per_block is not None:
-        qpb = min(quanta_per_block, total_quanta)
-        if ordered.has_cycle:
-            # an explicit block must still respect the cycle-delay bound (a
-            # feedback read inside one block would see unwritten ring
-            # samples): the largest divisor of the request within the
-            # bound, so callers stepping in multiples of it stay aligned
-            bound = _cycle_delay_bound(nodes, edges, ordered.cycle_breakers,
-                                       sample_rate)
-            if os.environ.get("WEBAUDIO_CYCLE_BLOCKS", "auto") == "1":
-                bound = 1
-            if bound < qpb:
-                qpb = next(d for d in range(bound, 0, -1)
-                           if quanta_per_block % d == 0)
-    elif not ordered.has_cycle:
-        qpb = _acyclic_qpb(nodes, total_quanta)
-    elif os.environ.get("WEBAUDIO_CYCLE_BLOCKS", "auto") == "1":
-        qpb = 1
-    else:
-        # a constant delay of d frames admits blocks of up to d - 1 frames
-        # (`_cycle_safe_qpb`); the delay bound applies only to nodes on a
-        # cycle, so each broken SCC steps at the bounded rate inside the
-        # larger blocks of the acyclic rest (two-rate).  The plan, switches
-        # included, is the JAX package's default one.
-        qpb = _cycle_safe_qpb(nodes, edges, ordered.cycle_breakers,
-                              sample_rate, total_quanta)
-        # a graph with a pow2-constrained node (the script processor) keeps
-        # a pow2 inner block and takes m from `_two_rate_steps`; any other
-        # chooses the inner block and m jointly (`_two_rate_plan`)
-        pow2_only = _pow2_only(nodes.values())
-        if (qpb >= 2 and ordered.cycle_groups
-                and os.environ.get("WEBAUDIO_TWO_RATE", "1") != "0"
-                and not (pow2_only and (qpb & (qpb - 1)))
-                and _two_rate_eligible(nodes, edges, ordered)):
-            if pow2_only:
-                inner_qpb = qpb
-                m = _two_rate_steps(nodes, total_quanta, qpb, pow2_only)
-            else:
-                plan = _two_rate_plan(nodes, edges, ordered.cycle_breakers,
-                                      sample_rate, total_quanta)
-                inner_qpb, m = plan if plan else (qpb, 1)
-            if m >= 2:
-                two_rate_m = m
-                inner_frames = inner_qpb * RENDER_QUANTUM_SIZE
-                fast_ids = {nid for grp in ordered.cycle_groups
-                            for (nid, _) in grp}
-                qpb = inner_qpb * two_rate_m
-    block_frames = qpb * RENDER_QUANTUM_SIZE
+        total_quanta = -(-total_frames // RENDER_QUANTUM_SIZE)
+        two_rate_m = 1          # inner sub-steps per block (two-rate)
+        inner_frames = None     # delay-bounded inner block (frames)
+        fast_ids: set = set()   # nodes stepped at the inner rate
+        if quanta_per_block is not None:
+            qpb = min(quanta_per_block, total_quanta)
+            if ordered.has_cycle:
+                # an explicit block must still respect the cycle-delay
+                # bound (a feedback read inside one block would see
+                # unwritten ring samples): the largest divisor of the
+                # request within the bound, so callers stepping in
+                # multiples of it stay aligned
+                bound = _cycle_delay_bound(nodes, edges,
+                                           ordered.cycle_breakers,
+                                           sample_rate)
+                if os.environ.get("WEBAUDIO_CYCLE_BLOCKS", "auto") == "1":
+                    bound = 1
+                if bound < qpb:
+                    qpb = next(d for d in range(bound, 0, -1)
+                               if quanta_per_block % d == 0)
+        elif not ordered.has_cycle:
+            qpb = _acyclic_qpb(nodes, total_quanta)
+        elif os.environ.get("WEBAUDIO_CYCLE_BLOCKS", "auto") == "1":
+            qpb = 1
+        else:
+            # a constant delay of d frames admits blocks of up to d - 1
+            # frames (`_cycle_safe_qpb`); the delay bound applies only to
+            # nodes on a cycle, so each broken SCC steps at the bounded
+            # rate inside the larger blocks of the acyclic rest
+            # (two-rate).  The plan, switches included, is the JAX
+            # package's default one.
+            qpb = _cycle_safe_qpb(nodes, edges, ordered.cycle_breakers,
+                                  sample_rate, total_quanta)
+            # a graph with a pow2-constrained node (the script processor)
+            # keeps a pow2 inner block and takes m from `_two_rate_steps`;
+            # any other chooses the inner block and m jointly
+            # (`_two_rate_plan`)
+            pow2_only = _pow2_only(nodes.values())
+            if (qpb >= 2 and ordered.cycle_groups
+                    and os.environ.get("WEBAUDIO_TWO_RATE", "1") != "0"
+                    and not (pow2_only and (qpb & (qpb - 1)))
+                    and _two_rate_eligible(nodes, edges, ordered)):
+                if pow2_only:
+                    inner_qpb = qpb
+                    m = _two_rate_steps(nodes, total_quanta, qpb, pow2_only)
+                else:
+                    plan = _two_rate_plan(nodes, edges,
+                                          ordered.cycle_breakers,
+                                          sample_rate, total_quanta)
+                    inner_qpb, m = plan if plan else (qpb, 1)
+                if m >= 2:
+                    two_rate_m = m
+                    inner_frames = inner_qpb * RENDER_QUANTUM_SIZE
+                    fast_ids = {nid for grp in ordered.cycle_groups
+                                for (nid, _) in grp}
+                    qpb = inner_qpb * two_rate_m
+        block_frames = qpb * RENDER_QUANTUM_SIZE
 
     in_counts, out_counts, in_edges = _propagate_channel_counts(nodes, edges)
 
@@ -433,12 +453,13 @@ def compile_graph(nodes: dict, edges: list[Edge], sample_rate: float,
     # compile every param timeline over the render range
     param_plan = {}
     param_objects = {}
-    for nid, node in nodes.items():
-        for pname, p in node.params.items():
-            param_objects[(nid, pname)] = p
-            param_plan[(nid, pname)] = p.compile_for_render(
-                sample_rate, _pad_len(total_frames, block_frames), start_frame,
-                force_dense=force_dense_params)
+    with span("plan.params"):
+        for nid, node in nodes.items():
+            for pname, p in node.params.items():
+                param_objects[(nid, pname)] = p
+                param_plan[(nid, pname)] = p.compile_for_render(
+                    sample_rate, _pad_len(total_frames, block_frames),
+                    start_frame, force_dense=force_dense_params)
 
     # dense params are packed into one (P, B) tensor per block
     dense_params = [key for key, plan in param_plan.items()
@@ -469,73 +490,83 @@ def compile_graph(nodes: dict, edges: list[Edge], sample_rate: float,
         if cb is not None:
             cb(exc)
 
-    for nid, node in nodes.items():
-        rc = RenderContext(
-            sample_rate=sample_rate,
-            # two-rate: cycle-group members process inner_frames at a time
-            block_frames=(inner_frames if nid in fast_ids else block_frames),
-            input_channel_counts=in_counts[nid],
-            device=device,
-            in_cycle=nid in ordered.cycle_breakers,
-            param_plans={pname: param_plan[(nid, pname)]
-                         for pname in node.params},
-            input_connected=[bool(in_edges[nid][i])
-                             for i in range(node.number_of_inputs)],
-        )
-        try:
-            kernels[nid] = node.make_kernel(rc)
-        except (NotSupportedError, KernelError):
-            # capability fences and kernel build faults are environment
-            # errors, not processor bugs: muting the node would hide them
-            raise
-        except Exception as exc:
-            # a processor whose construction throws is isolated exactly like
-            # a process()-time failure: its outputs are silent,
-            # onprocessorerror fires, the rest of the graph renders
-            # (reference: worklet.rs:301-321 + graph.rs:507-521)
-            kernels[nid] = Kernel()
-            fail(nid, exc)
+    # the kernels, and what the block's closure reads
+    with span("plan.kernels"):
+        for nid, node in nodes.items():
+            rc = RenderContext(
+                sample_rate=sample_rate,
+                # two-rate: cycle-group members process inner_frames at a
+                # time
+                block_frames=(inner_frames if nid in fast_ids
+                              else block_frames),
+                input_channel_counts=in_counts[nid],
+                device=device,
+                in_cycle=nid in ordered.cycle_breakers,
+                param_plans={pname: param_plan[(nid, pname)]
+                             for pname in node.params},
+                input_connected=[bool(in_edges[nid][i])
+                                 for i in range(node.number_of_inputs)],
+            )
+            try:
+                kernels[nid] = node.make_kernel(rc)
+            except (NotSupportedError, KernelError):
+                # capability fences and kernel build faults are
+                # environment errors, not processor bugs: muting the node
+                # would hide them
+                raise
+            except Exception as exc:
+                # a processor whose construction throws is isolated
+                # exactly like a process()-time failure: its outputs are
+                # silent, onprocessorerror fires, the rest of the graph
+                # renders (reference: worklet.rs:301-321 +
+                # graph.rs:507-521)
+                kernels[nid] = Kernel()
+                fail(nid, exc)
 
-    # a host callback or user code keeps the walk eager (decided here,
-    # never by a capture that failed)
-    capture = True
-    for nid, kern in kernels.items():
-        if kern.capture_refusal:
-            capture = (f"{type(nodes[nid]).__name__} #{nid}: "
-                       f"{kern.capture_refusal}")
-            break
+        # a host callback or user code keeps the walk eager (decided here,
+        # never by a capture that failed)
+        capture = True
+        for nid, kern in kernels.items():
+            if kern.capture_refusal:
+                capture = (f"{type(nodes[nid]).__name__} #{nid}: "
+                           f"{kern.capture_refusal}")
+                break
 
-    interp_of = {nid: nodes[nid]._channel_config.interpretation for nid in nodes}
-    constants = {}
-    for (nid, pname), plan in param_plan.items():
-        if plan.is_constant:
-            p = nodes[nid].params[pname]
-            constants[(nid, pname)] = torch.tensor(
-                min(max(plan.scalar, p.min_value), p.max_value),
-                dtype=torch.float32, device=device)
+        interp_of = {nid: nodes[nid]._channel_config.interpretation
+                     for nid in nodes}
+        constants = {}
+        for (nid, pname), plan in param_plan.items():
+            if plan.is_constant:
+                p = nodes[nid].params[pname]
+                constants[(nid, pname)] = torch.tensor(
+                    min(max(plan.scalar, p.min_value), p.max_value),
+                    dtype=torch.float32, device=device)
 
-    # execution plan: vertices in topological order, each broken-SCC group
-    # collapsed into one ("g", gi) step at its first vertex (the groups are
-    # contiguous in ordered.order, graph/ir.py)
-    group_of = {v: gi for gi, grp in enumerate(ordered.cycle_groups)
-                for v in grp} if two_rate_m > 1 else {}
-    exec_plan = []
-    seen_groups: set = set()
-    for v in ordered.order:
-        gi = group_of.get(v)
-        if gi is None:
-            exec_plan.append(("v", v))
-        elif gi not in seen_groups:
-            seen_groups.add(gi)
-            exec_plan.append(("g", gi))
+        # execution plan: vertices in topological order, each broken-SCC
+        # group collapsed into one ("g", gi) step at its first vertex (the
+        # groups are contiguous in ordered.order, graph/ir.py)
+        group_of = {v: gi for gi, grp in enumerate(ordered.cycle_groups)
+                    for v in grp} if two_rate_m > 1 else {}
+        exec_plan = []
+        seen_groups: set = set()
+        for v in ordered.order:
+            gi = group_of.get(v)
+            if gi is None:
+                exec_plan.append(("v", v))
+            elif gi not in seen_groups:
+                seen_groups.add(gi)
+                exec_plan.append(("g", gi))
 
-    def run_node(kern, role, scope, state, ins, prm):
-        """One vertex: (state', outputs); a writer has no outputs."""
-        if role == "node":
-            return kern.process(scope, state, ins, prm)
-        if role == "reader":
-            return kern.process_reader(scope, state, prm)
-        return kern.process_writer(scope, state, ins, prm), []
+    def run_node(kern, role, scope, state, ins, prm, traced):
+        """One vertex: (state', outputs); a writer has no outputs.  traced:
+        a `walk.node.<kernel class>` span around it."""
+        with (span("walk.node." + type(kern).__name__) if traced
+              else _UNTRACED):
+            if role == "node":
+                return kern.process(scope, state, ins, prm)
+            if role == "reader":
+                return kern.process_reader(scope, state, prm)
+            return kern.process_writer(scope, state, ins, prm), []
 
     # the blocks' arange(B) for t_idx = frame0 + base, made once per plan
     # at its first block with frame0 on the device (eager walks make
@@ -558,6 +589,8 @@ def compile_graph(nodes: dict, edges: list[Edge], sample_rate: float,
         n = xs_params.shape[0]
         scope = BlockScope(frame0, block_frames, n, device, frame0_host,
                            None if frame0 is None else base(block_frames))
+        # a span a node while a profiler records, never inside a capture
+        traced = recording() and not _capturing()
         signals: dict = {}
         new_states = dict(states)
 
@@ -683,7 +716,7 @@ def compile_graph(nodes: dict, edges: list[Edge], sample_rate: float,
                                for i, src in enumerate(srcs)]
                         st, o = run_node(
                             kernels[nid], role, sc, carry[_k(nid)], ins,
-                            {a: step(v, s) for a, v in prm.items()})
+                            {a: step(v, s) for a, v in prm.items()}, traced)
                         carry[_k(nid)] = st
                         for oi, y in enumerate(o):
                             local[(nid, oi)] = y.expand((n,) + y.shape[1:])
@@ -729,7 +762,8 @@ def compile_graph(nodes: dict, edges: list[Edge], sample_rate: float,
                 # a delay's writer ran earlier in this block unless the
                 # delay breaks a cycle: its reader sees the written ring
                 st, outs = run_node(kernels[nid], role, scope,
-                                    new_states.get(_k(nid)), ins, prm)
+                                    new_states.get(_k(nid)), ins, prm,
+                                    traced)
                 new_states[_k(nid)] = st
                 for oi, o in enumerate(outs):
                     # an output shared by all instances broadcasts (a view)
@@ -758,12 +792,20 @@ def compile_graph(nodes: dict, edges: list[Edge], sample_rate: float,
         capture=capture)
 
 
+_UNTRACED = contextlib.nullcontext()
+
+
+def _capturing() -> bool:
+    """Whether this thread's CUDA stream is capturing a graph."""
+    return (torch.cuda.is_available()
+            and torch.cuda.is_current_stream_capturing())
+
+
 def _capture_fault(exc: BaseException) -> bool:
     """Whether an exception a node raised is a fault of the CUDA graph
     capture in progress (a host sync, a pageable upload, a CUDA error),
     which propagates, and not a processor error, which isolates the node."""
-    if not (torch.cuda.is_available()
-            and torch.cuda.is_current_stream_capturing()):
+    if not _capturing():
         return False
     accel = getattr(torch, "AcceleratorError", ())
     msg = str(exc)
@@ -1113,40 +1155,44 @@ class BlockGraph:
         t0 = time.perf_counter()
         stream = torch.cuda.Stream(dev)
         stream.wait_stream(torch.cuda.current_stream(dev))
-        while True:
-            failed = len(cg.failed)
-            before = [k.launches for k in counters]
-            graph = torch.cuda.CUDAGraph()
-            _hold_gc(True)
-            try:
-                with torch.cuda.stream(stream):
-                    # thread-local: other threads' CUDA calls (an online
-                    # context's render thread, the control thread) go on
-                    # meanwhile; this capture makes no host sync itself
-                    graph.capture_begin(pool=entry[0],
-                                        capture_error_mode="thread_local")
-                    try:
-                        new, out = cg.block_fn(self.states, self.frame0,
-                                               self.xs, resources)
-                        closed = _signature(new) == _signature(self.states)
-                        if closed:
-                            _copy_tree(self.states, new)
-                        self.frame0.add_(cg.block_frames)
-                    except BaseException:
-                        with contextlib.suppress(Exception):
-                            graph.capture_end()
-                        raise
-                    graph.capture_end()
-            finally:
-                _hold_gc(False)
-            self.launches = {k: k.launches - b0
-                             for k, b0 in zip(counters, before)}
-            for k, b0 in zip(counters, before):
-                k.launches = b0          # the capture launched nothing
-            if len(cg.failed) == failed:
-                break
-            # a node failed while its plan was captured: it is isolated as
-            # in an eager block, and the block is captured again without it
+        with span("capture"):
+            while True:
+                failed = len(cg.failed)
+                before = [k.launches for k in counters]
+                graph = torch.cuda.CUDAGraph()
+                _hold_gc(True)
+                try:
+                    with torch.cuda.stream(stream):
+                        # thread-local: other threads' CUDA calls (an
+                        # online context's render thread, the control
+                        # thread) go on meanwhile; this capture makes no
+                        # host sync itself
+                        graph.capture_begin(
+                            pool=entry[0], capture_error_mode="thread_local")
+                        try:
+                            new, out = cg.block_fn(self.states, self.frame0,
+                                                   self.xs, resources)
+                            closed = (_signature(new)
+                                      == _signature(self.states))
+                            if closed:
+                                _copy_tree(self.states, new)
+                            self.frame0.add_(cg.block_frames)
+                        except BaseException:
+                            with contextlib.suppress(Exception):
+                                graph.capture_end()
+                            raise
+                        graph.capture_end()
+                finally:
+                    _hold_gc(False)
+                self.launches = {k: k.launches - b0
+                                 for k, b0 in zip(counters, before)}
+                for k, b0 in zip(counters, before):
+                    k.launches = b0          # the capture launched nothing
+                if len(cg.failed) == failed:
+                    break
+                # a node failed while its plan was captured: it is isolated
+                # as in an eager block, and the block is captured again
+                # without it
         torch.cuda.current_stream(dev).wait_stream(stream)
         self.capture_ms = (time.perf_counter() - t0) * 1e3
         self.graph, self.out, self.closed = graph, out, closed
@@ -1155,13 +1201,14 @@ class BlockGraph:
     def replay(self, states, frame0: int, xs_block):
         """Walk the block at `frame0` from `states`: -> (states', output
         (N, C, B), valid until the next replay)."""
-        if states is not self.states:
-            _copy_tree(self.states, states)
-        if xs_block.numel():
-            self.xs.copy_(xs_block)
-        if frame0 != self.next_frame0:
-            self.frame0.fill_(frame0)
-        self.graph.replay()
+        with span("walk.replay"):
+            if states is not self.states:
+                _copy_tree(self.states, states)
+            if xs_block.numel():
+                self.xs.copy_(xs_block)
+            if frame0 != self.next_frame0:
+                self.frame0.fill_(frame0)
+            self.graph.replay()
         self.replays += 1
         self.next_frame0 = frame0 + self.block_frames
         for k, n in self.launches.items():
@@ -1208,13 +1255,16 @@ def scan_render(cg: CompiledGraph, states: dict, frame0s, xs: torch.Tensor,
                 graph = BlockGraph(cg, states, xb, resources)
                 cg.graphs[key] = graph
         if graph is None and not capturable:
-            states, y = cg.block_fn(states, None, xb, resources, frame0)
+            with span("walk.block"):
+                states, y = cg.block_fn(states, None, xb, resources, frame0)
         elif graph is None:
             # the block a later one captures, walked first with frame0 on
             # the card: its device-side code, caches and lazily loaded
             # kernels run once outside the capture
-            f0 = torch.full((), frame0, dtype=torch.int64, device=cg.device)
-            states, y = cg.block_fn(states, f0, xb, resources)
+            with span("walk.block"):
+                f0 = torch.full((), frame0, dtype=torch.int64,
+                                device=cg.device)
+                states, y = cg.block_fn(states, f0, xb, resources)
             cg.warm.add(key)
         else:
             states, y = graph.replay(states, frame0, xb)

@@ -24,6 +24,8 @@ from pathlib import Path
 
 import numpy as np
 
+from ..diagnostics import span
+
 _HERE = Path(__file__).resolve().parent
 BUILD_DIR = _HERE.parent / "build"
 _SRC = _HERE / "wahost.cpp"
@@ -53,8 +55,10 @@ def _build(src: Path, flags, libs=(), timeout=180) -> Path | None:
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
     t0 = time.perf_counter()
     try:
-        proc = subprocess.run(["g++", *flags, str(src), "-o", str(tmp), *libs],
-                              capture_output=True, text=True, timeout=timeout)
+        with span("build"):
+            proc = subprocess.run(
+                ["g++", *flags, str(src), "-o", str(tmp), *libs],
+                capture_output=True, text=True, timeout=timeout)
     except (OSError, subprocess.TimeoutExpired) as exc:
         builds[src.stem] = (None, str(exc))
         return None

@@ -18,6 +18,8 @@ import subprocess
 import threading
 from pathlib import Path
 
+from ..diagnostics import span
+
 _PKG = Path(__file__).resolve().parent.parent
 CSRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
@@ -65,9 +67,10 @@ def load_library(source: str) -> ctypes.CDLL:
         if not out.exists():
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
             tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-            proc = subprocess.run(
-                [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
-                capture_output=True, text=True)
+            with span("build"):
+                proc = subprocess.run(
+                    [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+                    capture_output=True, text=True)
             if proc.returncode != 0:
                 tmp.unlink(missing_ok=True)
                 raise KernelError(

@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from .. import convert
+from ..diagnostics import span
 from ..graph import compiler as _compiler
 from ..ops.dither import dither_i16, ulaw_u8
 from .mesh import Mesh, default_mesh, indexed, on_device  # noqa: F401
@@ -136,121 +137,131 @@ class GraphBatch:
         `key="data"` takes raw (batch, C, L) audio and stages the derived
         pair-row layout, end-of-buffer constants and aligned-read layout
         the kernel actually reads (ops/bufread.py)."""
-        nk = _compiler._k(node.node_id)
-        if nk not in self._resources:
-            raise ValueError(f"node has no staged resource {key!r}")
-        leaves = self._resources[nk]
-        if key == "data" and "data_rows" in leaves:
-            from ..ops.bufread import edge_vals, pair_rows
+        with span("batch.override_buffer"):
+            nk = _compiler._k(node.node_id)
+            if nk not in self._resources:
+                raise ValueError(f"node has no staged resource {key!r}")
+            leaves = self._resources[nk]
+            if key == "data" and "data_rows" in leaves:
+                from ..ops.bufread import edge_vals, pair_rows
 
-            kern = self.cg.kernels[node.node_id]
-            C = leaves["data_rows"].shape[-1] // 2
-            want = (self.batch, C, leaves["data_rows"].shape[-2])
-            stacked = np.asarray(stacked, np.float32)
-            if stacked.shape != want:
-                raise ValueError(f"expected {want}, got {stacked.shape}")
-            wrap = int(math.ceil(kern.loop_start * kern.buf_rate)) \
-                if kern.loop else 0
-            per_inst = {"data_rows": [pair_rows(inst) for inst in stacked],
-                        "edge_vals": [edge_vals(inst, kern.loop, wrap)
-                                      for inst in stacked]}
-            saved = kern.data_host
-            try:
-                for inst in stacked:
-                    kern.data_host = inst
-                    for rk, rv in kern._read_resources().items():
-                        per_inst.setdefault(rk, []).append(rv)
-            finally:
-                kern.data_host = saved
-            for rk, rvs in per_inst.items():
-                leaves[rk] = np.stack(rvs)
-                self._batched_resources.add((nk, rk))
+                kern = self.cg.kernels[node.node_id]
+                C = leaves["data_rows"].shape[-1] // 2
+                want = (self.batch, C, leaves["data_rows"].shape[-2])
+                stacked = np.asarray(stacked, np.float32)
+                if stacked.shape != want:
+                    raise ValueError(f"expected {want}, got {stacked.shape}")
+                wrap = int(math.ceil(kern.loop_start * kern.buf_rate)) \
+                    if kern.loop else 0
+                per_inst = {"data_rows": [pair_rows(inst) for inst in stacked],
+                            "edge_vals": [edge_vals(inst, kern.loop, wrap)
+                                          for inst in stacked]}
+                saved = kern.data_host
+                try:
+                    for inst in stacked:
+                        kern.data_host = inst
+                        for rk, rv in kern._read_resources().items():
+                            per_inst.setdefault(rk, []).append(rv)
+                finally:
+                    kern.data_host = saved
+                for rk, rvs in per_inst.items():
+                    leaves[rk] = np.stack(rvs)
+                    self._batched_resources.add((nk, rk))
+                self._staged_res = None
+                return
+            if key not in leaves:
+                raise ValueError(f"node has no staged resource {key!r}")
+            base = np.asarray(leaves[key])
+            if (nk, key) in self._batched_resources:
+                base = base[0]
+            stacked = np.asarray(stacked, base.dtype)
+            if stacked.shape != (self.batch,) + base.shape:
+                raise ValueError(
+                    f"expected {(self.batch,) + base.shape}, "
+                    f"got {stacked.shape}")
+            leaves[key] = stacked
+            self._batched_resources.add((nk, key))
             self._staged_res = None
-            return
-        if key not in leaves:
-            raise ValueError(f"node has no staged resource {key!r}")
-        base = np.asarray(leaves[key])
-        if (nk, key) in self._batched_resources:
-            base = base[0]
-        stacked = np.asarray(stacked, base.dtype)
-        if stacked.shape != (self.batch,) + base.shape:
-            raise ValueError(
-                f"expected {(self.batch,) + base.shape}, got {stacked.shape}")
-        leaves[key] = stacked
-        self._batched_resources.add((nk, key))
-        self._staged_res = None
 
     def override_param(self, node, param_name: str, dense: np.ndarray):
         """Give each instance its own automation row.
 
         dense: (batch, total_frames) f32, per-instance per-sample values.
         """
-        B = self.cg.block_frames
-        padded = self.nb * B
-        arr = np.asarray(dense, np.float32)
-        if arr.shape != (self.batch, self.total_frames):
-            raise ValueError(
-                f"expected ({self.batch}, {self.total_frames}), got {arr.shape}")
-        if arr.shape[1] < padded:
-            arr = np.concatenate(
-                [arr, np.repeat(arr[:, -1:], padded - arr.shape[1], 1)], axis=1)
-        key = (node.node_id, param_name)
-        key = self.cg.param_alias.get(key, key)  # fused chains remap rows
-        kern = self.cg.kernels.get(key[0])
-        if getattr(kern, "lane_env", False) and str(key[1]).endswith(".gain"):
-            # a lane-packed grain bank (graph/fusion.py) splices its voices'
-            # envelopes into per-lane rows: no per-voice row exists
-            raise ValueError(
-                "this envelope compiled into the grain bank's per-lane "
-                "spliced rows (its per-voice dense row does not exist), so "
-                "it cannot be batch-overridden")
-        if key not in self.cg.dense_params:
-            raise ValueError(
-                "param was compiled as a constant; schedule at least one "
-                "automation event before batching to make it dense")
-        row = self.cg.dense_params.index(key)
-        self._xs[:, :, row, :] = arr.reshape(self.batch, self.nb, B)
-        self._staged_xs = None
+        with span("batch.override_param"):
+            B = self.cg.block_frames
+            padded = self.nb * B
+            arr = np.asarray(dense, np.float32)
+            if arr.shape != (self.batch, self.total_frames):
+                raise ValueError(
+                    f"expected ({self.batch}, {self.total_frames}), "
+                    f"got {arr.shape}")
+            if arr.shape[1] < padded:
+                arr = np.concatenate(
+                    [arr, np.repeat(arr[:, -1:], padded - arr.shape[1], 1)],
+                    axis=1)
+            key = (node.node_id, param_name)
+            key = self.cg.param_alias.get(key, key)  # fused chains remap rows
+            kern = self.cg.kernels.get(key[0])
+            if getattr(kern, "lane_env", False) and \
+                    str(key[1]).endswith(".gain"):
+                # a lane-packed grain bank (graph/fusion.py) splices its
+                # voices' envelopes into per-lane rows: no per-voice row
+                # exists
+                raise ValueError(
+                    "this envelope compiled into the grain bank's per-lane "
+                    "spliced rows (its per-voice dense row does not exist), "
+                    "so it cannot be batch-overridden")
+            if key not in self.cg.dense_params:
+                raise ValueError(
+                    "param was compiled as a constant; schedule at least "
+                    "one automation event before batching to make it dense")
+            row = self.cg.dense_params.index(key)
+            self._xs[:, :, row, :] = arr.reshape(self.batch, self.nb, B)
+            self._staged_xs = None
 
     def _stage(self):
         """Upload each shard's rows, states and resources where an override
         changed them (from snapshots no later override touches; shared
         resources once a device) and return (states, xs, resources) for
         each shard's block walk, in shard order."""
-        shards = self._shards
-        if self._staged_xs is None:
-            self._staged_xs = [convert.upload(self._xs[sh.lo:sh.hi], sh.device)
-                               for sh in shards]
-        if self._staged_states is None:
-            self._staged_states = [convert.tree_map(
-                lambda x, sh=sh: x[sh.lo:sh.hi].to(sh.device), self._states)
-                for sh in shards]
-        if self._staged_res is None:
-            batched = self._batched_resources
-            common = {nk: {lk: v for lk, v in leaves.items()
-                           if (nk, lk) not in batched}
-                      for nk, leaves in self._resources.items()}
-            shared = self._shared_res
-            for sh in shards:
-                if sh.device not in shared:
-                    shared[sh.device] = convert.stage_resources(common,
-                                                                sh.device)
+        with span("batch.stage"):
+            shards = self._shards
+            if self._staged_xs is None:
+                self._staged_xs = [
+                    convert.upload(self._xs[sh.lo:sh.hi], sh.device)
+                    for sh in shards]
+            if self._staged_states is None:
+                self._staged_states = [convert.tree_map(
+                    lambda x, sh=sh: x[sh.lo:sh.hi].to(sh.device),
+                    self._states)
+                    for sh in shards]
+            if self._staged_res is None:
+                batched = self._batched_resources
+                common = {nk: {lk: v for lk, v in leaves.items()
+                               if (nk, lk) not in batched}
+                          for nk, leaves in self._resources.items()}
+                shared = self._shared_res
+                for sh in shards:
+                    if sh.device not in shared:
+                        shared[sh.device] = convert.stage_resources(common,
+                                                                    sh.device)
 
-            def per_instance(s, sh, nk, lk, v):
-                key = (s, nk, lk)
-                self._res_buffers[key] = convert.upload_into(
-                    self._res_buffers.get(key), v[sh.lo:sh.hi], sh.device)
-                return self._res_buffers[key]
+                def per_instance(s, sh, nk, lk, v):
+                    key = (s, nk, lk)
+                    self._res_buffers[key] = convert.upload_into(
+                        self._res_buffers.get(key), v[sh.lo:sh.hi], sh.device)
+                    return self._res_buffers[key]
 
-            self._staged_res = [
-                {nk: {lk: (per_instance(s, sh, nk, lk, v)
-                           if (nk, lk) in batched
-                           else shared[sh.device][nk][lk])
-                      for lk, v in leaves.items()}
-                 for nk, leaves in self._resources.items()}
-                for s, sh in enumerate(shards)]
-        return list(zip(self._staged_states, self._staged_xs,
-                        self._staged_res))
+                self._staged_res = [
+                    {nk: {lk: (per_instance(s, sh, nk, lk, v)
+                               if (nk, lk) in batched
+                               else shared[sh.device][nk][lk])
+                          for lk, v in leaves.items()}
+                     for nk, leaves in self._resources.items()}
+                    for s, sh in enumerate(shards)]
+            return list(zip(self._staged_states, self._staged_xs,
+                            self._staged_res))
 
     def _walk(self) -> list:
         """Each shard's (k, channels, padded_frames) f32 on its device."""
@@ -331,8 +342,9 @@ def _fetch_async(parts: list, shards: list, copiers: dict):
     if len(parts) == 1 and parts[0].device.type == "cpu":
         return parts[0].numpy
     on_card = any(p.device.type == "cuda" for p in parts)
-    host = torch.empty((shards[-1].hi,) + tuple(parts[0].shape[1:]),
-                       dtype=parts[0].dtype, pin_memory=on_card)
+    with span("pin"):
+        host = torch.empty((shards[-1].hi,) + tuple(parts[0].shape[1:]),
+                           dtype=parts[0].dtype, pin_memory=on_card)
     done = []
     for sh, t in zip(shards, parts):
         rows = host[sh.lo:sh.hi]
@@ -353,8 +365,9 @@ def _fetch_async(parts: list, shards: list, copiers: dict):
         done.append(event)
 
     def result():
-        for event in done:
-            event.synchronize()
+        with span("batch.fetch_wait"):
+            for event in done:
+                event.synchronize()
         return host.numpy()
 
     return result
