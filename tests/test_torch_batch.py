@@ -436,3 +436,197 @@ def test_curve_table_rows_equal_single_curves():
         assert torch.equal(torch.nan_to_num(got[r]), torch.nan_to_num(want))
     assert torch.equal(torch.nan_to_num(ck.curve_lookup(table[:1], x)),
                        torch.nan_to_num(ck.curve_lookup(table[0], x)))
+
+
+# --- change-tracked staging --------------------------------------------------
+
+
+def _mastering(length=12000, n=4, seed=0):
+    """The mastering chain as the augment benchmark builds it, at a CPU size
+    (one block of 12,032 frames, so every row has a pad): a looping
+    source -> WaveShaper (4x) -> compressor whose threshold and ratio carry
+    automation (dense rows) -> analyser.  -> (GraphBatch, nodes) with each
+    instance's clip overridden, as staged once at set-up."""
+    rng = np.random.default_rng(seed)
+    ctx = _context(wt, 2, length)
+    src = ctx.create_buffer_source(loop=True)
+    src.buffer = wt.AudioBuffer.from_array(_buffers(1, 2, 3000, seed)[0], FS)
+    src.start()
+    shaper = ctx.create_wave_shaper(
+        oversample="4x", curve=np.tanh(np.linspace(-2, 2, 256)).astype(np.float32))
+    comp = ctx.create_dynamics_compressor(threshold=-20.0, ratio=4.0)
+    for p, v in ((comp.threshold, -20.0), (comp.ratio, 4.0)):
+        p.set_value_at_time(v, 0.0)
+        p.set_value_at_time(v + 1.0, length / FS / 2)
+    an = ctx.create_analyser(fft_size=2048)
+    src.connect(shaper)
+    shaper.connect(comp)
+    comp.connect(an)
+    an.connect(ctx.destination)
+    gb = wt.GraphBatch(ctx, batch=n)
+    nodes = {"source": src, "shaper": shaper, "compressor": comp}
+    clips = _buffers(n, 2, 3000, seed + 1)
+    gb.override_buffer(src, clips)
+    nodes["clips"] = clips
+    return gb, nodes
+
+
+def _request(rng, n, length):
+    """One augment request's settings: a curve, a threshold row and a ratio
+    row an instance."""
+    drive = rng.uniform(1.0, 5.0, n)
+    curves = np.tanh(drive[:, None] * np.linspace(-1, 1, 256)[None])
+    rows = {name: np.repeat(rng.uniform(lo, hi, (n, 1)), length, 1)
+            for name, lo, hi in (("threshold", -30, -10), ("ratio", 2, 12))}
+    return curves.astype(np.float32), {k: v.astype(np.float32)
+                                       for k, v in rows.items()}
+
+
+def _apply(gb, nodes, given):
+    """Replay the overrides `given` names onto a batch, in one order."""
+    if "clips" in given:
+        gb.override_buffer(nodes["source"], given["clips"])
+    if "curves" in given:
+        gb.override_buffer(nodes["shaper"], given["curves"], key="curve")
+    for name in ("threshold", "ratio"):
+        if name in given:
+            gb.override_param(nodes["compressor"], name, given[name])
+
+
+def _write_host_row(gb, node, param, dense):
+    """Write a row into the batch's host base rows as staging did before it
+    tracked changes: padded on the host with its last value repeated, then
+    written strided into (batch, nb, P, B)."""
+    B = gb.cg.block_frames
+    pad = gb.nb * B - dense.shape[1]
+    arr = np.concatenate([dense, np.repeat(dense[:, -1:], pad, 1)], axis=1)
+    key = (node.node_id, param)
+    row = gb.cg.dense_params.index(gb.cg.param_alias.get(key, key))
+    gb._xs[:, :, row, :] = arr.reshape(gb.batch, gb.nb, B)
+
+
+def _fresh(given, seed=7):
+    """A new batch staged once with every override `given` holds, its rows
+    written into the host base rows (`_write_host_row`): its render and
+    int16 bounce."""
+    gb, nodes = _mastering()
+    _apply(gb, nodes, {k: v for k, v in given.items()
+                       if k not in ("threshold", "ratio")})
+    for name in ("threshold", "ratio"):
+        if name in given:
+            _write_host_row(gb, nodes["compressor"], name, given[name])
+    return gb.render(), gb.render_i16(seed)
+
+
+def _names(gb, nodes):
+    k = tbatch._compiler._k
+    src, shaper, comp = (k(nodes[n].node_id)
+                         for n in ("source", "shaper", "compressor"))
+    return {"layouts": {f"{src}.{lk}" for lk in
+                        ("data_rows", "edge_vals", "data_tiled")},
+            "curve": f"{shaper}.curve",
+            "threshold": f"{comp}.threshold", "ratio": f"{comp}.ratio"}
+
+
+def test_staging_sends_only_what_an_override_changed():
+    """The augment's request sequence on a mastering batch: every render is
+    bit-equal to a fresh batch staged once with the same overrides, and
+    `stage_stats` shows the clip layouts kept across requests, sent again
+    only after the source's override, and one row sent after a one-row
+    override."""
+    gb, nodes = _mastering()
+    names = _names(gb, nodes)
+    n, T = gb.batch, gb.total_frames
+    every = names["layouts"] | {names["curve"], names["threshold"],
+                                names["ratio"]}
+    rng = np.random.default_rng(3)
+    given = {"clips": nodes["clips"]}
+
+    def check():
+        """Render and bounce; -> the render's stage_stats."""
+        got = gb.render()
+        stats = gb.stage_stats
+        q = gb.render_i16(7)
+        assert gb.stage_stats["uploaded"] == []       # nothing changed
+        want, wq = _fresh(given)
+        assert torch.equal(got, want) and torch.equal(q, wq)
+        assert every <= set(stats["uploaded"]) | set(stats["kept"])
+        assert not set(stats["uploaded"]) & set(stats["kept"])
+        return stats
+
+    # overrides made before the first render land, the threshold twice
+    # before one stage (the last wins)
+    curves, rows = _request(rng, n, T)
+    gb.override_param(nodes["compressor"], "threshold", rows["ratio"])
+    given.update(curves=curves, **rows)
+    _apply(gb, nodes, given)
+    stats = check()
+    assert stats["kept"] == [] and stats["bytes_kept"] == 0
+    row_bytes = 4 * n * gb.nb * gb.cg.block_frames
+    for _ in range(2):
+        curves, rows = _request(rng, n, T)
+        given.update(curves=curves, **rows)
+        _apply(gb, nodes, {"curves": curves, **rows})
+        stats = check()
+        assert sorted(stats["uploaded"]) == sorted(
+            [names["curve"], names["threshold"], names["ratio"]])
+        assert names["layouts"] <= set(stats["kept"])
+        assert stats["bytes_uploaded"] == 4 * n * 256 + 2 * row_bytes
+    given["clips"] = _buffers(n, 2, 3000, seed=9)
+    gb.override_buffer(nodes["source"], given["clips"])
+    stats = check()
+    assert sorted(stats["uploaded"]) == sorted(names["layouts"])
+    rows = _request(rng, n, T)[1]
+    given["threshold"] = rows["threshold"]
+    gb.override_param(nodes["compressor"], "threshold", rows["threshold"])
+    stats = check()
+    assert stats["uploaded"] == [names["threshold"]]
+    assert stats["bytes_uploaded"] == row_bytes
+
+
+@pytest.mark.parametrize("graph,length", [("sweep", 40000), ("sweep", 32768),
+                                          ("gain", 2048)])
+def test_row_override_equals_host_padded_rows(graph, length):
+    """A row sent by a stage lands in its blocks of the device rows as the
+    host pad and strided write put it there (3 blocks with a pad, 2 whole
+    blocks, one block), and the other rows stay."""
+    ctx, _, node = (sweep_graph if graph == "sweep" else gain_graph)(wt, length)
+    param = "frequency" if graph == "sweep" else "gain"
+    gb = wt.GraphBatch(ctx, batch=3)
+    gb.render()
+    want = gb._xs.copy()
+    rows = np.random.default_rng(length).uniform(
+        100.0, 900.0, (3, length)).astype(np.float32)
+    gb.override_param(node, param, rows)
+    gb.render()
+    ref = wt.GraphBatch(ctx, batch=3)
+    _write_host_row(ref, node, param, rows)
+    np.testing.assert_array_equal(gb._staged_xs[0].numpy(), ref._xs)
+    assert not np.array_equal(ref._xs, want)
+
+
+def test_mixed_bucket_takes_a_row_after_its_first_render():
+    """A MixedGraphBatch bucket stages its members' own rows (written into
+    its host base rows before the first render); a row override after that
+    sends that row alone, and the render equals a batch with the row
+    written on the host."""
+    ramps = (0.3, 0.9)
+    ctxs = [gain_graph(wt, 2048, ramp_to=r)[0] for r in ramps]
+    mb = wt.MixedGraphBatch(ctxs)
+    assert mb.num_buckets == 1
+    (_, gb), = mb._buckets
+    for r, out in zip(ramps, mb.render()):
+        np.testing.assert_array_equal(
+            out, gain_graph(wt, 2048, ramp_to=r)[0].start_rendering_sync()
+            .to_array())
+    _, _, g = gain_graph(wt, 2048)
+    rows = np.linspace(1.0, 0.2, 2048, dtype=np.float32)[None] * \
+        np.array([[1.0], [0.5]], np.float32)
+    gb.override_param(g, "gain", rows)
+    outs = mb.render()
+    assert gb.stage_stats["uploaded"] == [f"n{g.node_id}.gain"]
+    ref = wt.GraphBatch(gain_graph(wt, 2048)[0], batch=2)
+    _write_host_row(ref, g, "gain", rows)
+    want = ref.render().numpy()[..., :2048]
+    for j, out in enumerate(outs):
+        np.testing.assert_array_equal(out, want[j])

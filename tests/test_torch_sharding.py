@@ -22,7 +22,7 @@ import __graft_entry__ as jgraft
 import webaudio_tpu as wa
 import webaudio_tpu_torch as wt
 from test_torch_batch import (_assert_close, _buffers, _sweep_rows,
-                              gain_graph, sweep_graph)
+                              _write_host_row, gain_graph, sweep_graph)
 from test_torch_drivers import segments_graph
 from webaudio_tpu.parallel.batch import GraphBatch as JGraphBatch
 from webaudio_tpu_torch import convert, graft_entry
@@ -149,6 +149,23 @@ def test_overrides_after_staging_restage_the_shards(graph):
     assert torch.equal(outs[0][0], outs[1][0])
     assert torch.equal(outs[0][1], outs[1][1])
     assert not torch.equal(outs[1][0], outs[1][1])
+
+
+@pytest.mark.parametrize("graph", ("gain", "sweep", "delay"))
+def test_overrides_after_the_first_render_land_in_every_shard(graph):
+    """A row override after the first render is sent to each shard alone
+    (its own slice, on its own device), and the sharded render equals an
+    unsharded batch with the row written into its host base rows."""
+    gb, _, node, param = _batch(graph, _mesh(4))
+    gb.render()
+    rows = _graph(wt, graph, gb.total_frames)[4][::-1].copy() * 0.5
+    gb.override_param(node, param, rows)
+    got = gb.render()
+    name = f"n{node.node_id}.{param}"
+    assert gb.stage_stats["uploaded"] == [name] * 4
+    ref = wt.GraphBatch(_graph(wt, graph, gb.total_frames)[0], batch=BATCH)
+    _write_host_row(ref, node, param, rows)
+    assert torch.equal(got, ref.render())
 
 
 @pytest.mark.parametrize("mesh,error", [

@@ -144,6 +144,13 @@ def test_a_batch_records_its_spans(tmp_path):
     assert count["pin"] >= 2
     assert count["walk.block"] == 2
     assert all(_known(n) for n in count), count
+    # a send a row or leaf, inside its stage: the second request sends
+    # its gain row and its curves alone
+    stages = [s for s in got if s[0] == "batch.stage"]
+    sends = [[u for u in got if u[0] == "batch.upload" and _inside(u, st)]
+             for st in stages]
+    assert sum(map(len, sends)) == count["batch.upload"]
+    assert len(sends[1]) == 2 < len(sends[0])
 
 
 def test_every_span_of_the_source_is_in_spans():

@@ -58,19 +58,24 @@ def tree_map(fn, tree):
     return fn(tree)
 
 
-def upload(arr: np.ndarray, device) -> torch.Tensor:
-    """Copy a host array to `device` from a snapshot that nothing else
-    touches: on CUDA through a fresh pinned buffer and a non-blocking copy
-    (the host may overwrite `arr` while the copy is in flight, and the
-    copy does not wait for work already queued on the stream); on the CPU
-    the snapshot is the copy.  The snapshot's allocation is a `pin`
-    span."""
-    device = torch.device(device)
+def snapshot(arr: np.ndarray, pin: bool) -> torch.Tensor:
+    """A host copy of `arr` that nothing else touches, page-locked where
+    `pin` (a card will read it without blocking); the caller may change
+    `arr` as soon as this returns.  The allocation is a `pin` span."""
     src = torch.from_numpy(np.ascontiguousarray(arr))
-    on_card = device.type == "cuda"
     with span("pin"):
-        host = torch.empty(src.shape, dtype=src.dtype, pin_memory=on_card)
+        host = torch.empty(src.shape, dtype=src.dtype, pin_memory=pin)
     host.copy_(src)
+    return host
+
+
+def upload(arr: np.ndarray, device) -> torch.Tensor:
+    """Copy a host array to `device` from a `snapshot`: on CUDA a pinned
+    one and a non-blocking copy (the host may overwrite `arr` while the
+    copy is in flight, and the copy does not wait for work already queued
+    on the stream); on the CPU the snapshot is the copy."""
+    on_card = torch.device(device).type == "cuda"
+    host = snapshot(arr, on_card)
     return host.to(device, non_blocking=True) if on_card else host
 
 
@@ -82,15 +87,9 @@ def upload_into(dst, arr: np.ndarray, device) -> torch.Tensor:
     if dst is None or tuple(dst.shape) != arr.shape or \
             dst.dtype != torch.from_numpy(arr[:0]).dtype:
         return upload(arr, device)
-    device = torch.device(device)
-    src = torch.from_numpy(arr)
-    if device.type == "cuda":
-        with span("pin"):
-            pinned = torch.empty(src.shape, dtype=src.dtype,
-                                 pin_memory=True)
-        pinned.copy_(src)
-        src = pinned
-    dst.copy_(src, non_blocking=device.type == "cuda")
+    on_card = torch.device(device).type == "cuda"
+    src = snapshot(arr, True) if on_card else torch.from_numpy(arr)
+    dst.copy_(src, non_blocking=on_card)
     return dst
 
 

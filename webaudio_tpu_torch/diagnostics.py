@@ -32,9 +32,10 @@ SPANS = (
     "capture",                # one block captured as a CUDA graph
     "render.fetch",           # the copy of a render's output to the host
     "render.finish",          # a render's bookkeeping after its walk
-    "batch.override_param",   # GraphBatch's row copy
+    "batch.override_param",   # GraphBatch's row snapshot
     "batch.override_buffer",  # GraphBatch's per-instance resources
     "batch.stage",            # GraphBatch's uploads
+    "batch.upload",           # one row or resource leaf sent by a stage
     "batch.fetch_wait",       # the host waiting for a batch's copy back
     "pin",                    # a host staging buffer (pinned for a card)
     "build",                  # a kernel or host library compiled
@@ -142,10 +143,10 @@ class profile_render:
     `render.stage`, `render.fetch` and `render.finish`; the walk's
     `walk.block` and its `walk.node.<kernel class>` a node, or
     `walk.replay` a captured block, and `capture`; a GraphBatch's
-    `batch.override_param`, `batch.override_buffer`, `batch.stage` and
-    `batch.fetch_wait`; `pin` for each host staging buffer allocated
-    (page-locked where it feeds a card), and `build` where a kernel or
-    host library compiles."""
+    `batch.override_param`, `batch.override_buffer`, `batch.stage` with a
+    `batch.upload` a row or leaf it sends, and `batch.fetch_wait`; `pin`
+    for each host staging buffer allocated (page-locked where it feeds a
+    card), and `build` where a kernel or host library compiles."""
 
     def __init__(self, log_dir: str):
         self.log_dir = log_dir

@@ -50,9 +50,11 @@ class GraphBatch:
     schedules); per-instance variation comes from `override_param` (dense
     per-sample automation differing per instance), `override_buffer`
     (per-instance resources) and per-instance initial states.  Everything
-    is staged on the device once and re-staged only where an override
-    changed it, so a staged batch re-renders without rebuilding or
-    re-copying anything.
+    is staged on the device once; a later stage sends only the rows and
+    resource leaves an override replaced since the last one, into the
+    device buffers that hold them, so a staged batch re-renders without
+    rebuilding or re-copying anything.  `stage_stats` counts what the
+    last stage sent and kept.
 
     mesh: a `Mesh` over ("graphs",) whose size divides `batch` (else
     ValueError); shard s renders instances [s k, (s + 1) k), k = batch / n,
@@ -76,10 +78,15 @@ class GraphBatch:
         self._shards = self._split(mesh)
 
         # base param rows (shared across instances unless overridden),
-        # host (batch, nb, P, B); override_param writes into it
+        # host (batch, nb, P, B), uploaded at the first stage; an
+        # override_param's row goes to the device rows, not here
         base = _compiler.block_rows(
             _compiler.pack_dense_params(self.cg, self.nb * B), B)
         self._xs = np.broadcast_to(base[None], (batch,) + base.shape).copy()
+        self._on_card = any(sh.device.type == "cuda" for sh in self._shards)
+        # row index -> snapshot (batch, total_frames) of its last override,
+        # sent at the next stage
+        self._rows: dict = {}
         self._states = convert.batch_states(_compiler.zero_states(self.cg),
                                             batch)
         # static kernel data (one instance's numpy): shared by every
@@ -87,14 +94,16 @@ class GraphBatch:
         # stacked along a leading batch axis
         self._resources = _compiler.collect_resources(self.cg)
         self._batched_resources: set = set()   # (node_key, leaf_key)
-        self._staged_xs = None
-        self._staged_res = None
+        # per-instance leaves an override replaced since the last stage
+        self._stale: set = set()
+        self._staged_xs = None     # each shard's (k, nb, P, B) device rows
         self._staged_states = None
         # device copies of the resources, kept across overrides: shared
         # leaves once a device, each shard's per-instance leaves rewritten
         # in place, so a captured walk keeps reading the same addresses
-        self._shared_res: dict = {}
-        self._res_buffers: dict = {}
+        self._shared_res: dict = {}    # device -> {(node_key, leaf_key)}
+        self._res_buffers: dict = {}   # (shard, node_key, leaf_key)
+        self.stage_stats = None
 
     def _split(self, mesh) -> list:
         """The shards: one over the whole batch on the context's device
@@ -167,7 +176,7 @@ class GraphBatch:
                 for rk, rvs in per_inst.items():
                     leaves[rk] = np.stack(rvs)
                     self._batched_resources.add((nk, rk))
-                self._staged_res = None
+                    self._stale.add((nk, rk))
                 return
             if key not in leaves:
                 raise ValueError(f"node has no staged resource {key!r}")
@@ -181,25 +190,21 @@ class GraphBatch:
                     f"got {stacked.shape}")
             leaves[key] = stacked
             self._batched_resources.add((nk, key))
-            self._staged_res = None
+            self._stale.add((nk, key))
 
     def override_param(self, node, param_name: str, dense: np.ndarray):
         """Give each instance its own automation row.
 
-        dense: (batch, total_frames) f32, per-instance per-sample values.
+        dense: (batch, total_frames) f32, per-instance per-sample values,
+        copied once into a snapshot (pinned for a card) that the next stage
+        sends: the caller may reuse `dense` as soon as this returns.
         """
         with span("batch.override_param"):
-            B = self.cg.block_frames
-            padded = self.nb * B
             arr = np.asarray(dense, np.float32)
             if arr.shape != (self.batch, self.total_frames):
                 raise ValueError(
                     f"expected ({self.batch}, {self.total_frames}), "
                     f"got {arr.shape}")
-            if arr.shape[1] < padded:
-                arr = np.concatenate(
-                    [arr, np.repeat(arr[:, -1:], padded - arr.shape[1], 1)],
-                    axis=1)
             key = (node.node_id, param_name)
             key = self.cg.param_alias.get(key, key)  # fused chains remap rows
             kern = self.cg.kernels.get(key[0])
@@ -217,51 +222,88 @@ class GraphBatch:
                     "param was compiled as a constant; schedule at least "
                     "one automation event before batching to make it dense")
             row = self.cg.dense_params.index(key)
-            self._xs[:, :, row, :] = arr.reshape(self.batch, self.nb, B)
-            self._staged_xs = None
+            self._rows[row] = convert.snapshot(arr, self._on_card)
 
     def _stage(self):
-        """Upload each shard's rows, states and resources where an override
-        changed them (from snapshots no later override touches; shared
-        resources once a device) and return (states, xs, resources) for
-        each shard's block walk, in shard order."""
+        """Send each shard what changed since the last stage, into the
+        device buffers that hold it, and return (states, xs, resources) for
+        each shard's block walk, in shard order.
+
+        Rows: a shard's (k, nb, P, B) device array is made from the host
+        base rows at the first stage; an overridden row goes from its
+        snapshot into its slice, its pad filled on the device.  Resources:
+        a per-instance leaf is written in place (`convert.upload_into`) at
+        the first stage and after an override replaced it; a shared leaf
+        once a device.  Each send is a `batch.upload` span.
+
+        `stage_stats` then lists each shard's items, its rows and the
+        resource leaves its walk reads, under "uploaded" (sent by this
+        stage) or "kept" (left on the device), by name: a leaf as
+        "<node key>.<leaf key>" ("n1.data_rows"), a row as "<node
+        key>.<param>" ("n3.ratio"); "bytes_uploaded" and "bytes_kept" sum
+        their sizes on the device."""
         with span("batch.stage"):
+            stats = {"uploaded": [], "kept": [], "bytes_uploaded": 0,
+                     "bytes_kept": 0}
+
+            def tally(sent, name, t):
+                stats["uploaded" if sent else "kept"].append(name)
+                stats["bytes_uploaded" if sent else "bytes_kept"] += \
+                    t.numel() * t.element_size()
+
             shards = self._shards
-            if self._staged_xs is None:
-                self._staged_xs = [
-                    convert.upload(self._xs[sh.lo:sh.hi], sh.device)
-                    for sh in shards]
             if self._staged_states is None:
                 self._staged_states = [convert.tree_map(
                     lambda x, sh=sh: x[sh.lo:sh.hi].to(sh.device),
                     self._states)
                     for sh in shards]
-            if self._staged_res is None:
-                batched = self._batched_resources
-                common = {nk: {lk: v for lk, v in leaves.items()
-                               if (nk, lk) not in batched}
-                          for nk, leaves in self._resources.items()}
-                shared = self._shared_res
+            first = self._staged_xs is None
+            if first:
+                self._staged_xs = []
                 for sh in shards:
-                    if sh.device not in shared:
-                        shared[sh.device] = convert.stage_resources(common,
-                                                                    sh.device)
+                    with span("batch.upload"):
+                        self._staged_xs.append(
+                            convert.upload(self._xs[sh.lo:sh.hi], sh.device))
+            rows, self._rows = self._rows, {}
+            names = [f"{_compiler._k(nid)}.{param}"
+                     for nid, param in self.cg.dense_params]
+            for sh, xs in zip(shards, self._staged_xs):
+                for r, name in enumerate(names):
+                    if r in rows:
+                        with span("batch.upload"):
+                            _write_row(xs, r, rows[r][sh.lo:sh.hi])
+                    tally(first or r in rows, name, xs[:, :, r])
 
-                def per_instance(s, sh, nk, lk, v):
-                    key = (s, nk, lk)
-                    self._res_buffers[key] = convert.upload_into(
-                        self._res_buffers.get(key), v[sh.lo:sh.hi], sh.device)
-                    return self._res_buffers[key]
-
-                self._staged_res = [
-                    {nk: {lk: (per_instance(s, sh, nk, lk, v)
-                               if (nk, lk) in batched
-                               else shared[sh.device][nk][lk])
-                          for lk, v in leaves.items()}
-                     for nk, leaves in self._resources.items()}
-                    for s, sh in enumerate(shards)]
-            return list(zip(self._staged_states, self._staged_xs,
-                            self._staged_res))
+            batched = self._batched_resources
+            stale, self._stale = self._stale, set()
+            staged_res = []
+            for s, sh in enumerate(shards):
+                shared = self._shared_res.setdefault(sh.device, {})
+                tree = {}
+                for nk, leaves in self._resources.items():
+                    tree[nk] = {}
+                    for lk, v in leaves.items():
+                        if (nk, lk) in batched:
+                            key = (s, nk, lk)
+                            buf = self._res_buffers.get(key)
+                            sent = buf is None or (nk, lk) in stale
+                            if sent:
+                                with span("batch.upload"):
+                                    buf = self._res_buffers[key] = \
+                                        convert.upload_into(
+                                            buf, v[sh.lo:sh.hi], sh.device)
+                        else:
+                            buf = shared.get((nk, lk))
+                            sent = buf is None
+                            if sent:
+                                with span("batch.upload"):
+                                    buf = shared[nk, lk] = convert.upload(
+                                        np.asarray(v)[None], sh.device)
+                        tally(sent, f"{nk}.{lk}", buf)
+                        tree[nk][lk] = buf
+                staged_res.append(tree)
+            self.stage_stats = stats
+            return list(zip(self._staged_states, self._staged_xs, staged_res))
 
     def _walk(self) -> list:
         """Each shard's (k, channels, padded_frames) f32 on its device."""
@@ -332,6 +374,22 @@ class GraphBatch:
             prev = cur
         if prev is not None:
             yield prev()
+
+
+def _write_row(xs: torch.Tensor, r: int, snap: torch.Tensor) -> None:
+    """Write row r of a shard's rows xs (k, nb, P, B) from its snapshot
+    (k, total_frames) on the host: one copy to xs's device (non-blocking
+    from pinned memory), then into the row's blocks there, the last value
+    repeated over the pad past total_frames.  In stream order after the
+    walks queued before it."""
+    k, nb, _, B = xs.shape
+    src = snap.to(xs.device, non_blocking=True)
+    n, rem = divmod(src.shape[1], B)
+    dst = xs[:, :, r, :]
+    dst[:, :n].copy_(src[:, :n * B].view(k, n, B))
+    if rem:
+        dst[:, n, :rem].copy_(src[:, n * B:])
+        dst[:, n, rem:].copy_(src[:, -1:].expand(k, B - rem))
 
 
 def _fetch_async(parts: list, shards: list, copiers: dict):
