@@ -153,6 +153,50 @@ def test_a_batch_records_its_spans(tmp_path):
     assert len(sends[1]) == 2 < len(sends[0])
 
 
+SESSION = ("session.rows", "session.walk", "session.advance", "session.fetch")
+
+
+def test_a_session_records_its_spans_and_counts(tmp_path):
+    """A traced session step records its rows, walk, advance and fetch
+    one after another, the walk's blocks inside its walk; a save and a
+    restore record theirs, the restore's plan inside it.  `stats` counts
+    the steps, saves and restores, and holds the last save's bytes on disk
+    and leaves."""
+    import json
+    import os
+
+    from webaudio_tpu_torch.checkpoint import RenderSession
+
+    s = RenderSession(_reverb(frames=4096), quanta_per_block=16)
+    path = str(tmp_path / "s.npz")
+    with profile_render(str(tmp_path / "trace")) as p:
+        s.step(2048)
+        s.save(path)
+        r = RenderSession(_reverb(frames=4096), quanta_per_block=16)
+        r.restore(path)
+        r.step(2048)
+    got = _spans(p.profiler)
+    names = [n for n, *_ in got]
+    assert all(_known(n) for n in names), names
+    assert {*SESSION, "session.save", "session.restore"} <= set(names)
+    assert all(names.count(n) == 2 for n in SESSION)
+    first = [next(x for x in got if x[0] == n) for n in SESSION]
+    assert all(a[2] <= b[1] for a, b in zip(first, first[1:]))
+    blocks = [x for x in got if x[0] == "walk.block"]
+    assert blocks and all(any(_inside(b, w) for w in got
+                              if w[0] == "session.walk") for b in blocks)
+    restore = next(x for x in got if x[0] == "session.restore")
+    assert any(x[0] == "plan" and _inside(x, restore) for x in got)
+    with np.load(path) as z:
+        leaves = json.loads(str(z["__header__"]))["n_leaves"]
+    assert s.stats == {"steps": 1, "saves": 1, "restores": 0,
+                       "save_bytes": os.path.getsize(path),
+                       "save_leaves": leaves}
+    assert leaves >= 3
+    assert (r.stats["steps"], r.stats["saves"], r.stats["restores"]) == \
+        (1, 0, 1)
+
+
 def test_every_span_of_the_source_is_in_spans():
     """Each `span("...")` the package opens names an entry of SPANS, and
     each entry is opened somewhere ("walk.node" with its kernel class)."""

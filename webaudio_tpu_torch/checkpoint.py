@@ -20,12 +20,14 @@ dtype.
 from __future__ import annotations
 
 import json
+import os
 import time
 
 import numpy as np
 import torch
 
 from .convert import batch_states, states_from_jax, unbatch_states
+from .diagnostics import span
 from .graph import compiler as _compiler
 
 
@@ -59,7 +61,7 @@ def _unflatten(template, leaves):
 
 def save_states(path: str, states: dict, frame: int, meta: dict | None = None):
     """Serialize a state tree (dict of dicts of tensors, one instance, no
-    instance axis) + frame cursor."""
+    instance axis) + frame cursor; returns the number of leaves."""
     flat = _flatten(states)
     arrays = {f"leaf_{i}": x.detach().cpu().numpy()
               for i, (_, x) in enumerate(flat)}
@@ -71,6 +73,7 @@ def save_states(path: str, states: dict, frame: int, meta: dict | None = None):
     }
     with open(path, "wb") as f:
         np.savez(f, __header__=json.dumps(header), **arrays)
+    return len(flat)
 
 
 def load_states(path: str, template_states: dict, device):
@@ -116,7 +119,16 @@ class RenderSession:
     pattern): the LTI biquad runs its a-rate scan, oscillators their
     cumsum phase.  After a step, `host_ms` is its host time compiling the
     dense rows and advancing the live timelines, and `walk_ms()` the time
-    of its block walk (CUDA events on the card, which it waits for)."""
+    of its block walk (CUDA events on the card, which it waits for).
+
+    While a torch profiler records, a step's host work is traced as the
+    spans `session.rows` (the dense rows compiled, laid out in blocks and
+    uploaded), `session.walk` (the block walk enqueued), `session.fetch`
+    (`step`'s copy of the output to the host, its wait for the walk
+    included) and `session.advance` (the live timelines advanced), and
+    `save` and `restore` as `session.save` and `session.restore`.
+    `stats` counts the steps taken, the saves and restores, and holds the
+    last save's bytes on disk and state leaves."""
 
     def __init__(self, context, quanta_per_block: int = 128):
         self._context = context
@@ -129,6 +141,8 @@ class RenderSession:
         self.block_frames = quanta_per_block * 128
         self.host_ms = 0.0
         self._walk = None            # (start, stop) events or wall ms
+        self.stats = {"steps": 0, "saves": 0, "restores": 0,
+                      "save_bytes": 0, "save_leaves": 0}
 
     def _ensure_compiled(self):
         """One plan per graph version, with a fixed block size and dense
@@ -164,14 +178,15 @@ class RenderSession:
         # divides the requested session block (compile_graph's clamp)
         B = cg.block_frames
         nb = frames // B
-        rows = np.zeros((len(cg.dense_params), frames), np.float32)
-        for i, key in enumerate(cg.dense_params):
-            plan = cg.param_objects[key].compile_for_render(
-                ctx.sample_rate, frames, self._frame, force_dense=True)
-            rows[i] = plan.dense
-        t1 = time.perf_counter()
-        xs = torch.from_numpy(
-            _compiler.block_rows(rows, B)[None].copy()).to(cg.device)
+        with span("session.rows"):
+            rows = np.zeros((len(cg.dense_params), frames), np.float32)
+            for i, key in enumerate(cg.dense_params):
+                plan = cg.param_objects[key].compile_for_render(
+                    ctx.sample_rate, frames, self._frame, force_dense=True)
+                rows[i] = plan.dense
+            t1 = time.perf_counter()
+            xs = torch.from_numpy(
+                _compiler.block_rows(rows, B)[None].copy()).to(cg.device)
         if self._resources is None:
             self._resources = _compiler.stage_resources(
                 _compiler.collect_resources(cg), cg.device)
@@ -180,8 +195,9 @@ class RenderSession:
         if cuda:
             events = [torch.cuda.Event(enable_timing=True) for _ in "ab"]
             events[0].record()
-        self._states, out = _compiler.scan_render(cg, self._states, frame0s,
-                                                  xs, self._resources)
+        with span("session.walk"):
+            self._states, out = _compiler.scan_render(
+                cg, self._states, frame0s, xs, self._resources)
         if cuda:
             events[1].record()
         t2 = time.perf_counter()
@@ -189,10 +205,13 @@ class RenderSession:
         self._frame += frames
         ctx._current_time = self._frame / ctx.sample_rate
         # advance live timelines so control-side values stay coherent
-        for node in ctx._nodes.values():
-            for p in node.params.values():
-                p.advance_dense(ctx.sample_rate, frames, self._frame - frames)
+        with span("session.advance"):
+            for node in ctx._nodes.values():
+                for p in node.params.values():
+                    p.advance_dense(ctx.sample_rate, frames,
+                                    self._frame - frames)
         self.host_ms = (t1 - t0 + time.perf_counter() - t2) * 1e3
+        self.stats["steps"] += 1
         return out[0, :, :frames]
 
     def walk_ms(self) -> float:
@@ -206,25 +225,35 @@ class RenderSession:
     def step(self, frames: int) -> np.ndarray:
         """Render the next `frames` frames (a multiple of the session block
         size); returns (channels, frames) f32 on the host."""
-        return self.step_device(frames).cpu().numpy()
+        out = self.step_device(frames)
+        with span("session.fetch"):
+            return out.cpu().numpy()
 
     @property
     def frame(self) -> int:
         return self._frame
 
     def save(self, path: str):
-        save_states(path, unbatch_states(self._states), self._frame,
-                    meta={"sample_rate": self._context.sample_rate,
-                          "block_frames": self.block_frames})
+        with span("session.save"):
+            leaves = save_states(
+                path, unbatch_states(self._states), self._frame,
+                meta={"sample_rate": self._context.sample_rate,
+                      "block_frames": self.block_frames})
+        self.stats["saves"] += 1
+        self.stats["save_bytes"] = os.path.getsize(path)
+        self.stats["save_leaves"] = leaves
 
     def restore(self, path: str):
-        self._ensure_compiled()
-        states, self._frame = load_states(path, self._template_states(),
-                                          self._cg.device)
-        self._states = batch_states(states, 1)
-        self._context._current_time = \
-            self._frame / self._context.sample_rate
-        # consume timelines up to the restored cursor
-        for node in self._context._nodes.values():
-            for p in node.params.values():
-                p.advance_dense(self._context.sample_rate, self._frame, 0)
+        with span("session.restore"):
+            self._ensure_compiled()
+            states, self._frame = load_states(
+                path, self._template_states(), self._cg.device)
+            self._states = batch_states(states, 1)
+            self._context._current_time = \
+                self._frame / self._context.sample_rate
+            # consume timelines up to the restored cursor
+            for node in self._context._nodes.values():
+                for p in node.params.values():
+                    p.advance_dense(self._context.sample_rate, self._frame,
+                                    0)
+        self.stats["restores"] += 1

@@ -38,6 +38,12 @@ SPANS = (
     "batch.upload",           # one row or resource leaf sent by a stage
     "batch.fetch_wait",       # the host waiting for a batch's copy back
     "pin",                    # a host staging buffer (pinned for a card)
+    "session.rows",           # a session step's dense rows and their upload
+    "session.walk",           # a session step's block walk enqueued
+    "session.fetch",          # a session step's copy back, its wait included
+    "session.advance",        # a session step's live timelines advanced
+    "session.save",           # RenderSession.save
+    "session.restore",        # RenderSession.restore
     "build",                  # a kernel or host library compiled
 )
 PREFIX = "webaudio."
@@ -144,7 +150,9 @@ class profile_render:
     `walk.block` and its `walk.node.<kernel class>` a node, or
     `walk.replay` a captured block, and `capture`; a GraphBatch's
     `batch.override_param`, `batch.override_buffer`, `batch.stage` with a
-    `batch.upload` a row or leaf it sends, and `batch.fetch_wait`; `pin`
+    `batch.upload` a row or leaf it sends, and `batch.fetch_wait`; a
+    RenderSession's `session.rows`, `session.walk`, `session.fetch` and
+    `session.advance` a step, `session.save` and `session.restore`; `pin`
     for each host staging buffer allocated (page-locked where it feeds a
     card), and `build` where a kernel or host library compiles."""
 

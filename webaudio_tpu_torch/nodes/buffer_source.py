@@ -14,7 +14,8 @@ math over the block, on the compound rate
   (`ops/oscillator.py::cumsum_f32`), so the card, the CPU and the JAX
   package round it alike;
 - loop wrapping (`while bt >= loop_end: bt -= len`) is `mod` arithmetic on
-  the unwrapped playhead;
+  the playhead, and the cumsum's carried playhead is kept wrapped once it
+  entered the loop;
 - the sample fetch is one contiguous slice from a pre-tiled copy of the
   buffer when the playhead advances by exactly one buffer sample per frame
   from an integral position (the reference's fast track), and a pair-row
@@ -57,12 +58,15 @@ def _floor_mod(x, y: float):
 
 
 def _loop_wrap(pos, ls, le, loop_len):
-    """Wrap an unwrapped playhead into [loop_start, loop_end) with the
-    reference's `almost::equal` stickiness (audio_buffer_source.rs:694-699):
-    a read landing within relative fp-epsilon of loop_end snaps back to
-    loop_start instead of reading the (possibly nonexistent) end sample."""
+    """Wrap a playhead into [loop_start, loop_end) with the reference's
+    `almost::equal` stickiness (audio_buffer_source.rs:694-699): a read
+    whose WRAPPED position lies within sqrt(eps) of loop_end, relative to
+    the two compared values (so to loop_end), snaps back to loop_start
+    instead of reading the (possibly nonexistent) end sample.  The
+    tolerance never scales with the unwrapped playhead: past 2^26 samples
+    it would span a whole sample and misread each loop's last."""
     wrapped = ls + _floor_mod(pos - ls, loop_len)
-    tol = 1.5e-8 * torch.clamp(torch.abs(pos), min=1.0)
+    tol = 1.5e-8 * max(abs(le), 1.0)
     return torch.where(le - wrapped <= tol, torch.full_like(wrapped, ls), wrapped)
 
 
@@ -427,8 +431,15 @@ class _BufferSourceKernel(Kernel):
         valid = active & (pos_eff >= 0.0) & (pos_eff < L)
         out = self._fetch(scope, pos_eff[:, None], valid[:, None])
         n = scope.n
+        pos_end = pos0 + total
+        if self.loop:
+            # carried wrapped into the loop once entered, as the
+            # reference's buffer_time is: the f64 playhead's rounding then
+            # stays that of the loop's length however long the render
+            pos_end = torch.where(
+                entered_end, ls + _floor_mod(pos_end - ls, le - ls), pos_end)
         new_state = {
-            "buffer_time": (pos0 + total).expand(n).clone(),
+            "buffer_time": pos_end.expand(n).clone(),
             "elapsed": (elapsed0 + total_abs).expand(n).clone(),
             "entered": entered_end.expand(n).clone(),
         }
