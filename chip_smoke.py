@@ -243,9 +243,9 @@ with a 0.4 s time constant as the IR, normalized; a 0.31 s delay fed back
 through 0.4), each main path with every kernel's launch count from 0:
 
   w. config 3, 10 s, through start_rendering_sync: the plan must be the
-     JAX package's (one block of 442,368 frames, the cycle group stepped
-     36 times at 12,288 frames, the convolver's partition 16,384 with K 6);
-     within 1e-5 x peak of the port's CPU render and 1e-4 x peak of a
+     JAX package's (one block of 442,368 frames, two-rate m 36 at 12,288
+     frames, the convolver's partition 16,384 with K 6), its loop walked
+     "fused" by the feedback-delay kernel, once a block; within 1e-5 x peak of the port's CPU render and 1e-4 x peak of a
      numpy f64 oracle (scipy fftconvolve of the looped dry signal with the
      scaled IR, plus the feedback loop stepped in chunks one delay long
      with the delay's lerp); end to end (one warm-up, median of 5), the
@@ -253,6 +253,17 @@ through 0.4), each main path with every kernel's launch count from 0:
      and top device ops (torch.profiler).  Then case_iir_chain (10 s, 48
      kHz, butter(4, 0.2) on bench.py's looping buffer) against scipy
      lfilter in f64 at 1e-4 x peak, and its end to end;
+ wf. the feedback-delay kernel (csrc/feedback_delay.cu) on card tensors
+     at phase w's block (1 x 2 x 442,368 frames, its delay's shift and
+     lerp weights, ring of 61,440, gain 0.4) bit for bit against its
+     plain version on the same tensors (frame0 0, the silent reads, and
+     across the ring's end; frame0 on the host and on the card; 8
+     instances), and against the plain version on the CPU; device time
+     warm and cold L2 at 1 and 1,024 instances, the plain version's on
+     the card, the bytes bound and the latency floor (the kernel on as
+     many runs of one frame as the block has); a RenderSession of config 3
+     stepped as the reverb session (16,384-frame steps, 128 quanta a
+     block) must not launch it;
   x. one-quantum stepping: config 3 at 2 s with WEBAUDIO_CYCLE_BLOCKS=1
      (690 blocks of 128 frames, the convolver's FDL 690 partitions of
      128) within 3e-6 of its two-rate render (the JAX suite's bound); the
@@ -450,8 +461,11 @@ session; the detector kernel's row its launches on the
 default 5a and 5b paths and the forced-chunked 5a path, its plain
 version's host time, the latency floors of one sequential chain, the
 step's cycles, the chunked path's time, 5b's and the sweep's times,
-and its launches on the online path; every row its launches a call on
-each captured path of zk, the grain kernel's how it reads frame0)
+and its launches on the online path; the feedback-delay kernel's its
+launches on config 3's, the reverb corpus's and the session's paths,
+phase wf's times, bound and latency floor; every row its launches a call
+on each captured path of zk, the grain and feedback-delay kernels' how
+they read frame0)
 and the card's name and power limit, then as
 its last line {"ok": true, "device": {...}}.  Exits non-zero, printing no result, if CUDA is unavailable or any
 phase fails.  Imports nothing of JAX.
@@ -3335,13 +3349,14 @@ def flanger_oracle(frames=BATCH_FRAMES):
 
 
 def _reverb_plan(compiler, ctx):
-    """(plan, blocks, the convolver's (partition, K), the delay's ring)."""
+    """(plan, blocks, the convolver's (partition, K), the delay's
+    kernel)."""
     cg, nb = _plan(compiler, ctx)
     (conv,) = [k for k in cg.kernels.values()
                if type(k).__name__ == "_ConvolverKernel"]
     (dl,) = [k for k in cg.kernels.values()
              if type(k).__name__ == "_DelayKernel"]
-    return cg, nb, (conv.partition, conv.k), dl.R
+    return cg, nb, (conv.partition, conv.k), dl
 
 
 def _loop_ms(compiler, cg, frames, reps=3):
@@ -3359,7 +3374,8 @@ def phase_w(wt, compiler, kernels):
     padenot suite's IIR chain.  Returns the timings and launches."""
     label = "w. config 3, reverb + feedback delay, 10 s 44.1 kHz"
     ctx, _ = reverb_context(wt, "cuda")
-    cg, nb, (P, K), R = _reverb_plan(compiler, ctx)
+    cg, nb, (P, K), dl = _reverb_plan(compiler, ctx)
+    R = dl.R
     plan = (cg.block_frames, cg.two_rate_m, cg.inner_frames, P, K)
     print(f"{label}: plan block_frames {cg.block_frames} ({nb} block(s)), "
           f"two-rate m {cg.two_rate_m} x inner {cg.inner_frames} frames, "
@@ -3368,8 +3384,14 @@ def phase_w(wt, compiler, kernels):
         raise AssertionError(f"config 3's plan {plan} is not the JAX "
                              "package's (442368, 36, 12288, 16384, 6)")
     out, launches = _main_path(ctx, kernels)
-    print(f"{label}: main path launched {launches} (no hand kernel lies on "
-          "this path: cuFFT and PyTorch ops)", flush=True)
+    print(f"{label}: cycle paths {cg.cycle_paths}; main path launched "
+          f"{launches} (the feedback-delay kernel once a block, the "
+          "convolver's cuFFT and PyTorch ops)", flush=True)
+    if cg.cycle_paths != ["fused"] or launches["feedback_delay"] != nb:
+        raise AssertionError(f"{label}: the loop is {cg.cycle_paths}, the "
+                             f"feedback-delay kernel launched "
+                             f"{launches['feedback_delay']} times in {nb} "
+                             "block(s)")
     cpu = reverb_context(wt, "cpu")[0].start_rendering_sync().to_array()
     err_cpu = _check_close(f"{label}: vs the port's CPU render", out, cpu,
                            1e-5)
@@ -3392,6 +3414,7 @@ def phase_w(wt, compiler, kernels):
                                 for _ in range(3)])
     loop_busy, loop_ops = _busy_launches(
         label, "block loop", [lambda: compiler.scan_render(cg, *args)] * 3)
+    loop = {"read": dl.const_read, "R": R, "B": cg.block_frames}
     del args, cg
 
     ilabel = "w. case_iir_chain, butter(4, 0.2), 10 s 48 kHz"
@@ -3411,8 +3434,138 @@ def phase_w(wt, compiler, kernels):
     return {"launches": launches, "e2e_ms": e2e, "loop_ms": loop_ms,
             "busy": busy, "ops": ops, "loop_busy": loop_busy,
             "loop_ops": loop_ops, "err_cpu": err_cpu, "err_oracle": err,
-            "iir_ms": i_ms, "iir_err": ierr}
+            "iir_ms": i_ms, "iir_err": ierr, "loop": loop}
 
+
+FEEDBACK_BATCH = 1024        # phase wf's batch of config 3's loop
+SESSION_STEP = 16384         # the reverb session's step (frames) and
+SESSION_STEP_QPB = 128       # its quanta a block (wabench traffic/session)
+
+
+def _feedback_inputs(n, R, B, seed):
+    """A random ring (n, 2, R) and outside signal (n, 2, B) on the card."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return (torch.randn((n, 2, R), generator=g, device="cuda"),
+            torch.randn((n, 2, B), generator=g, device="cuda"))
+
+
+def _cold_events_ms(fn, reps=10):
+    """Median ms of one call between CUDA events, a 256 MB write (five
+    times the L2) before each."""
+    flush = torch.empty(64 << 20, dtype=torch.float32, device="cuda")
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    runs = []
+    for _ in range(reps):
+        flush.zero_()
+        start.record()
+        fn()
+        stop.record()
+        torch.cuda.synchronize()
+        runs.append(start.elapsed_time(stop))
+    return statistics.median(runs)
+
+
+def phase_wf(wt, fbk, loop, kernels):
+    """The feedback-delay kernel (csrc/feedback_delay.cu) on card tensors at
+    config 3's block (phase w's plan: its delay's shift and lerp weights,
+    ring and block, the gain 0.4): bit for bit against its plain version
+    on the same tensors at frame0 0 (the silent reads) and across the
+    ring's end, frame0 on the host and on the card, and at 8 instances;
+    device time warm (CUDA-graph replay) and cold L2 at 1 and
+    FEEDBACK_BATCH instances, the plain version's time on the card, the
+    bytes bound and the latency floor (the kernel on runs of one frame,
+    as many runs as the block has: its barrier and dependent read
+    alone); and a RenderSession of config 3 stepped as the reverb session
+    steps it, whose loop steps (every param a dense row), launching the
+    kernel never.  Returns the row's numbers."""
+    label = "wf. feedback-delay kernel at config 3's block"
+    (shift, wa, wb), R, B = loop["read"], loop["R"], loop["B"]
+    gains = (float(np.float32(REVERB_FEEDBACK)),)
+    run = min(shift - 1, R - shift)
+    runs = -(-B // run)
+
+    def call(ring, x, n, frame0):
+        return fbk.feedback_delay(ring, x, n, shift, wa, wb, gains, frame0)
+
+    for n, frame0, where in ((1, 0, "host"), (1, 2 * B, "host"),
+                             (1, 2 * B, "card"), (8, 3 * B, "card")):
+        ring, x = _feedback_inputs(n, R, B, SEED + 7 * n + frame0)
+        kept = ring.clone()
+        f0 = frame0 if where == "host" else torch.tensor(
+            frame0, dtype=torch.int64, device="cuda")
+        before = fbk.feedback_delay.launches
+        got = call(ring, x, B, f0)
+        want = fbk.feedback_delay_reference(ring, x, B, shift, wa, wb, gains,
+                                            frame0)
+        torch.cuda.synchronize()
+        same = [torch.equal(g, w) for g, w in zip(got, want)]
+        print(f"{label}: ({n}, 2, {B}) R {R} shift {shift} frame0 {frame0} "
+              f"({where}): r, y, ring bit-equal to the plain version "
+              f"{same}; ring kept {torch.equal(ring, kept)}", flush=True)
+        if not all(same) or not torch.equal(ring, kept) or \
+                fbk.feedback_delay.launches != before + 1:
+            raise AssertionError(f"{label}: frame0 {frame0} ({where}), "
+                                 f"{n} instance(s): the kernel differs from "
+                                 "its plain version, wrote its input ring or "
+                                 "did not count its launch")
+        if n == 1 and frame0 == 0:
+            cpu = fbk.feedback_delay_reference(ring.cpu(), x.cpu(), B, shift,
+                                               wa, wb, gains, 0)
+            if not all(torch.equal(g.cpu(), w) for g, w in zip(got, cpu)):
+                raise AssertionError(f"{label}: the kernel differs from the "
+                                     "plain version on the CPU")
+        del ring, x, got, want
+
+    res = {"shape": [1, 2, B], "R": R, "shift": shift, "runs": runs}
+    for n in (1, FEEDBACK_BATCH):
+        ring, x = _feedback_inputs(n, R, B, SEED + n)
+        fn = lambda: call(ring, x, B, 2 * B)          # noqa: E731
+        warm = (_graph_ms(fn, 20) if n == 1 else _events_ms(fn, 3))
+        cold = _cold_events_ms(fn, 10 if n == 1 else 3)
+        fn()
+        plain = _events_ms(lambda: fbk.feedback_delay_reference(
+            ring, x, B, shift, wa, wb, gains, 2 * B), 3 if n == 1 else 1)
+        nbytes = 4 * n * 2 * (3 * B + 2 * R)   # x in; r, y out; ring in, out
+        b_ms, b_by = _bound(nbytes, n * 2 * B * (3 + len(gains) + 1))
+        key = "" if n == 1 else f"_{n}"
+        res.update({f"ms{key}": warm, f"cold_ms{key}": cold,
+                    f"plain_ms{key}": plain, f"bound_ms{key}": b_ms,
+                    f"bound_by{key}": b_by, f"bytes{key}": nbytes})
+        print(f"{label}: ({n}, 2, {B}): warm {warm * 1000:.2f} us, cold L2 "
+              f"{cold * 1000:.2f} us; plain version on the card "
+              f"{plain * 1000:.1f} us; bound {b_ms * 1000:.2f} us ({b_by}: "
+              f"{nbytes / 1e6:.1f} MB at 3.35 TB/s)", flush=True)
+        del ring, x
+        torch.cuda.empty_cache()
+    # the latency floor: as many runs of one frame (shift 2) as the block
+    # has runs, no bytes to speak of
+    ring, x = _feedback_inputs(1, R, runs, SEED + 3)
+    floor = _graph_ms(lambda: fbk.feedback_delay(
+        ring, x, runs, 2, wa, wb, gains, 2 * B), 20)
+    res["latency_bound_ms"] = floor
+    res["share_of_bound"] = max(res["bound_ms"], floor) / res["cold_ms"]
+    print(f"{label}: latency floor ({runs} runs of one frame) "
+          f"{floor * 1000:.2f} us; the cold time is "
+          f"{100 * res['share_of_bound']:.1f}% of the larger bound",
+          flush=True)
+
+    for k in kernels:
+        k.launches = 0
+    s = wt.RenderSession(reverb_context(wt, "cuda")[0],
+                         quanta_per_block=SESSION_STEP_QPB)
+    for _ in range(3):
+        s.step_device(SESSION_STEP)
+    torch.cuda.synchronize()
+    res["launches_session_path"] = fbk.feedback_delay.launches
+    print(f"{label}: RenderSession of config 3, 3 steps of {SESSION_STEP} "
+          f"frames: two-rate m {s._cg.two_rate_m}, cycle paths "
+          f"{s._cg.cycle_paths}, the kernel launched "
+          f"{fbk.feedback_delay.launches} times", flush=True)
+    if fbk.feedback_delay.launches:
+        raise AssertionError(f"{label}: the session launched the kernel")
+    torch.cuda.empty_cache()
+    return res
 
 def phase_x(wt, compiler, kernels):
     """One-quantum stepping (WEBAUDIO_CYCLE_BLOCKS=1): config 3 at 2 s
@@ -3425,7 +3578,7 @@ def phase_x(wt, compiler, kernels):
         .to_array()
     with _env("WEBAUDIO_CYCLE_BLOCKS", "1"):
         ctx, _ = reverb_context(wt, "cuda", REVERB_SHORT)
-        cg, nb, (P, K), R = _reverb_plan(compiler, ctx)
+        cg, nb, (P, K), _ = _reverb_plan(compiler, ctx)
         print(f"{label}: plan block_frames {cg.block_frames} ({nb} blocks), "
               f"convolver partition {P} K {K}", flush=True)
         if (cg.block_frames, P, K) != (128, 128, 690):
@@ -5380,7 +5533,8 @@ TRACE_NAMES = {"curve_lookup": ("curve_lookup_",),
                "grain_bank": ("grain_bank_kernel",),
                "grouped_lerp": ("grouped_lerp_kernel",),
                "dither_i16": ("quantize", "DitherI16"),
-               "ulaw_u8": ("quantize", "UlawU8")}
+               "ulaw_u8": ("quantize", "UlawU8"),
+               "feedback_delay": ("feedback_delay_loop",)}
 
 
 def _traced_launches(label, kernels, traced):
@@ -5839,6 +5993,7 @@ def main() -> int:
     from webaudio_tpu_torch.ops import cuda_lib
     from webaudio_tpu_torch.ops import curve_kernel as ck
     from webaudio_tpu_torch.ops import dither
+    from webaudio_tpu_torch.ops import feedback as fbk
     from webaudio_tpu_torch.graph import fusion
     from webaudio_tpu_torch.ops import grain_read as gr
     from webaudio_tpu_torch.ops import detector as det
@@ -5887,6 +6042,7 @@ def main() -> int:
     dither._launchers()
     gr._launchers()
     det._launcher()
+    fbk._lib()
     print(f"build: {', '.join(sources)} built and loaded in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
     marks = [t0]
@@ -5933,7 +6089,7 @@ def main() -> int:
     # oscillators and voice banks, o-r: each main path counts every
     # kernel's launches from 0
     every = (ck.curve_lookup, dither.dither_i16, dither.ulaw_u8,
-             gr.grain_bank, gr.grouped_lerp)
+             gr.grain_bank, gr.grouped_lerp, fbk.feedback_delay)
     phase_o(wt, compiler, every)
     phase_p(wt, compiler, every)
     voice_launches, s7, s7_err = phase_q(wt, compiler, fusion, ck, every)
@@ -5952,10 +6108,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     lap("s-v")
 
-    # config 3, w-y: delay, feedback cycles, the convolver, the IIR
-    # filter; each main path counts every kernel's launches from 0
+    # config 3, w-y: delay, feedback cycles (the feedback-delay kernel,
+    # wf), the convolver, the IIR filter; each main path counts every
+    # kernel's launches from 0
     every = every + (det.detector_scan,)
-    phase_w(wt, compiler, every)
+    w = phase_w(wt, compiler, every)
+    wf = phase_wf(wt, fbk, w["loop"], every)
     phase_x(wt, compiler, every)
     y = phase_y(wt, compiler, dither, every)
     lap("w-y")
@@ -6129,6 +6287,20 @@ def main() -> int:
          "sweep": {k[len("detector "):]: v[k] for k in v
                    if k.startswith("detector ") and k[9:] not in ("5a", "5b")},
          "library_ms": None},
+        {"name": "feedback_delay", "route": "cuda",
+         "source": "webaudio_tpu_torch/csrc/feedback_delay.cu",
+         "replaces": "no TPU kernel: run_group's sub-step scan, "
+                     "webaudio_tpu/graph/compiler.py:652",
+         "launches": w["launches"]["feedback_delay"],
+         "launches_reverb_corpus_path": y["launches"]["feedback_delay"],
+         "launches_session_path": wf["launches_session_path"],
+         "launches_captured_paths": captured("feedback_delay"),
+         "frame0": "the block's first frame, a host int (eager) or a 0-d "
+                   "int64 tensor on the card read when the kernel runs "
+                   "(captured)",
+         "max_abs_err": 0.0,
+         **{k: v for k, v in wf.items() if k != "launches_session_path"},
+         "plain_on": "cuda", "library_ms": None},
     ]
     for row in rows:
         row.setdefault("share_of_bound", row["bound_ms"] / row["ms"])

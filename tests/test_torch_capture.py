@@ -13,7 +13,8 @@ capture one block of a plan as a CUDA graph and replay it for every block
   fused granular, a `GraphBatch`) and must record nothing.  The plain
   versions of the card's kernels run unwatched: on the card their wrapper
   launches the kernel instead (the detector's plain version is a host
-  loop).
+  loop; the feedback loop's reads frame0 on the host, its kernel at a
+  device pointer).
 - A replay: `make_fx(block_fn)` traced at block 0 with frame0 as a tensor
   (`tracing_mode="real"`, so every host value the trace reads is baked
   in, as a CUDA graph bakes it) and replayed for blocks 1 ... nb-1 is
@@ -44,6 +45,7 @@ import webaudio_tpu_torch as wt
 from webaudio_tpu_torch.graph import compiler as tcomp
 from webaudio_tpu_torch.ops import curve_kernel as tck
 from webaudio_tpu_torch.ops import detector as tdet
+from webaudio_tpu_torch.ops import feedback as tfb
 from webaudio_tpu_torch.ops import grain_read as tgr
 from webaudio_tpu_torch.parallel.batch import GraphBatch
 
@@ -123,6 +125,7 @@ def audit(monkeypatch):
     # the card's kernels' plain versions stand in for a launch here
     for mod, name in ((tdet, "detector_reference"),
                       (tck, "curve_lookup_reference"),
+                      (tfb, "feedback_delay_reference"),
                       (tgr, "grain_bank_reference"),
                       (tgr, "grouped_lerp_reference")):
         monkeypatch.setattr(mod, name, unwatched(getattr(mod, name)))

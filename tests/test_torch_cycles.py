@@ -393,6 +393,179 @@ def test_mixed_batch_of_two_rate_plans_matches_own_renders():
         _close(got, ctx.start_rendering_sync().to_array(), 1e-6)
 
 
+def loop_net(mod, kind, automate=False, seconds=None):
+    """A source into a constant feedback-delay loop, one of `LOOPS`: the
+    delay (0.2 s) feeding itself directly ("k0"), through 0.6 ("k1"),
+    through 0.9 then 0.7 ("k2"), or config 3's loop ("stereo": a looping
+    stereo buffer into 0.31 s and 0.4 at 44.1 kHz, no convolver); the
+    chain's tail into the destination.  The rest change one thing each, so
+    the group steps: "biquad" puts a lowpass in the loop, "two_inputs" adds
+    a second outside signal at the delay, "two_delays" a second delay in
+    the loop, "mix_inside" a gain mixing the stereo loop to mono,
+    "inner_heard" k2's first gain into the destination too.  "long", a
+    2.75 s delay (132,000 frames) rendered 6 s, is fused too: a run of
+    shift - 1 frames a launch walks is no limit.  `automate` gives the first gain one automation event that
+    keeps its value: a dense row, so the loop steps with the same
+    numbers."""
+    fs = REVERB_FS if kind in ("stereo", "mix_inside") else FS
+    if seconds is None:
+        seconds = 6.0 if kind == "long" else 1.0
+    ctx = _context(mod, 2, int(fs * seconds), fs)
+    if kind in ("stereo", "mix_inside"):
+        dry = np.sin(np.arange(int(fs)) * 0.03, dtype=np.float32)
+        src = ctx.create_buffer_source(loop=True)
+        src.buffer = mod.AudioBuffer.from_array(np.stack([dry, -0.5 * dry]),
+                                                fs)
+    else:
+        src = ctx.create_oscillator(frequency=330.0)
+    src.start()
+    if kind not in ("stereo", "mix_inside"):
+        src.stop(0.25)
+    d = ctx.create_delay(max_delay_time=4.0 if kind == "long" else 1.0)
+    d.delay_time.value = {"long": 2.75, "stereo": 0.31,
+                          "mix_inside": 0.31}.get(kind, 0.2)
+    src.connect(d)
+    gains = {"k0": (), "k1": (0.6,), "k2": (0.9, 0.7), "stereo": (0.4,),
+             "inner_heard": (0.9, 0.7)}.get(kind, (0.6,))
+    chain = [d]
+    for g in gains:
+        chain.append(ctx.create_gain(gain=g))
+    if kind == "biquad":
+        chain.insert(1, ctx.create_biquad_filter(type="lowpass"))
+    if kind == "two_delays":
+        chain.append(ctx.create_delay(max_delay_time=1.0, delay_time=0.05))
+    if kind == "mix_inside":
+        chain[1].channel_count_mode = "explicit"
+        chain[1].channel_count = 1
+    if automate:
+        chain[1].gain.set_value_at_time(gains[0], 0.01)
+    for a, b in zip(chain, chain[1:]):
+        a.connect(b)
+    chain[-1].connect(d)
+    chain[-1].connect(ctx.destination)
+    if kind == "two_inputs":
+        o2 = ctx.create_oscillator(frequency=550.0)
+        o2.start()
+        o2.stop(0.1)
+        o2.connect(d)
+    if kind == "inner_heard":
+        chain[1].connect(ctx.destination)
+    return ctx
+
+
+FUSED = ("k0", "k1", "k2", "stereo", "long")
+STEPPED = ("biquad", "two_inputs", "two_delays", "mix_inside", "inner_heard")
+
+
+def _paths(ctx, **kw):
+    return _plan(tcomp, ctx).cycle_paths if not kw else tcomp.compile_graph(
+        dict(ctx._nodes), list(ctx._edges), ctx.sample_rate, ctx.length,
+        ctx._destination.node_id, "cpu", **kw).cycle_paths
+
+
+@pytest.mark.parametrize("case", [
+    *[(k, lambda k=k: _paths(loop_net(wt, k)), "fused") for k in FUSED],
+    ("config3", lambda: _paths(reverb(wt)), "fused"),
+    ("batch4", lambda: wt.GraphBatch(delay_net(wt), batch=4).cg.cycle_paths,
+     "fused"),
+    *[(k, lambda k=k: _paths(loop_net(wt, k)), "stepped") for k in STEPPED],
+    ("automated_gain", lambda: _paths(loop_net(wt, "k1", automate=True)),
+     "stepped"),
+    ("ramped_gain", lambda: _paths(delay_net(wt, automate_fb=True)),
+     "stepped"),
+    ("a_rate_delay", lambda: _paths(delay_net(wt, modulate=True)),
+     "stepped"),
+    ("audio_driven_delay", lambda: _paths(delay_net(wt, drive_delay=True)),
+     "stepped"),
+    ("dense_rows", lambda: _paths(delay_net(wt), force_dense_params=True),
+     "stepped"),
+    ("render_session", lambda: _session_paths(), "stepped"),
+], ids=lambda c: c[0])
+def test_constant_loop_path_is_planned(case):
+    """`compile_graph` walks a group that is one constant feedback-delay
+    loop as one launch a block ("fused") and steps any other."""
+    name, paths, want = case
+    assert paths() == [want]
+
+
+def _session_paths():
+    from webaudio_tpu_torch.checkpoint import RenderSession
+
+    s = RenderSession(delay_net(wt), quanta_per_block=16)
+    s.step(2048)
+    return s._cg.cycle_paths
+
+
+def test_two_rate_plans_record_a_path_per_group():
+    """A two-rate plan whose groups are a fused loop and a stepped one."""
+    ctx = _context(wt, 1, int(FS))
+    for g, kind in ((0.6, "gain"), (0.5, "biquad")):
+        o = ctx.create_oscillator(frequency=330.0)
+        o.start()
+        d = ctx.create_delay(max_delay_time=0.5, delay_time=0.2)
+        fb = ctx.create_gain(gain=g)
+        o.connect(d)
+        d.connect(fb)
+        if kind == "biquad":
+            f = ctx.create_biquad_filter()
+            fb.connect(f)
+            f.connect(d)
+        else:
+            fb.connect(d)
+        fb.connect(ctx.destination)
+    cg = _plan(tcomp, ctx)
+    assert cg.two_rate_m > 1 and sorted(cg.cycle_paths) == ["fused",
+                                                            "stepped"]
+    got = ctx.start_rendering_sync().to_array()
+    assert np.abs(got).max() > 0.1 and np.isfinite(got).all()
+
+
+@pytest.mark.parametrize("kind,other", [
+    *[(k, "flat") for k in FUSED],
+    *[(k, "automated") for k in FUSED if k != "k0"]])
+def test_fused_loop_is_bit_equal_to_stepping(monkeypatch, kind, other):
+    """A fused loop renders bit for bit as the single-rate walk steps it
+    (WEBAUDIO_TWO_RATE=0) and as the two-rate walk steps the same graph
+    with its first gain a dense row."""
+    ctx = loop_net(wt, kind)
+    assert _plan(tcomp, ctx).cycle_paths == ["fused"]
+    got = ctx.start_rendering_sync().to_array()
+    if other == "flat":
+        monkeypatch.setenv("WEBAUDIO_TWO_RATE", "0")
+    ref_ctx = loop_net(wt, kind, automate=other == "automated")
+    assert _plan(tcomp, ref_ctx).cycle_paths == ["stepped"]
+    ref = ref_ctx.start_rendering_sync().to_array()
+    assert np.abs(ref).max() > 0.1
+    np.testing.assert_array_equal(got, ref)
+
+
+def test_fused_reverb_and_batch_are_bit_equal_to_stepping(monkeypatch):
+    """Config 3 with its convolver against its gain as a dense row (the
+    same plan, so the same partitions), and a batch of 4 against the same
+    batch walked single-rate."""
+    got = reverb(wt).start_rendering_sync().to_array()
+    ctx = reverb(wt)
+    (fb,) = [n for n in ctx._nodes.values() if type(n).__name__ == "GainNode"]
+    fb.gain.set_value_at_time(0.4, 0.01)
+    assert _plan(tcomp, ctx).cycle_paths == ["stepped"]
+    np.testing.assert_array_equal(got, ctx.start_rendering_sync().to_array())
+    gb = wt.GraphBatch(delay_net(wt), batch=4)
+    fused = gb.render().numpy()
+    monkeypatch.setenv("WEBAUDIO_TWO_RATE", "0")
+    flat = wt.GraphBatch(delay_net(wt), batch=4)
+    assert flat.cg.two_rate_m == 1
+    np.testing.assert_array_equal(fused[..., :gb.total_frames],
+                                  flat.render().numpy()[..., :gb.total_frames])
+
+
+@pytest.mark.parametrize("kind", FUSED)
+def test_fused_loop_matches_jax(kind):
+    got = loop_net(wt, kind).start_rendering_sync().to_array()
+    want = loop_net(wa, kind).start_rendering_sync().to_array()
+    assert np.abs(want).max() > 0.1
+    _close(got, want, 1e-5)
+
+
 # halves whose plan pads nothing (a padded block would end the first half's
 # states past the split) and repeats in the second half (the ring and FDL
 # shapes follow the plan): 3 and 4 inner sub-steps

@@ -86,8 +86,10 @@ def test_an_offline_render_records_its_spans_nested(tmp_path):
             "render.finish"} <= names
     nodes = [s for s in mine if s[0].startswith("walk.node.")]
     assert {s[0] for s in nodes} >= {"walk.node._ConvolverKernel",
-                                     "walk.node._DelayKernel",
-                                     "walk.node._GainKernel"}
+                                     "walk.node._BufferSourceKernel"}
+    # the feedback loop (delay and gain) is one `walk.cycle` a block
+    assert "walk.cycle" in names
+    nodes += [s for s in mine if s[0] == "walk.cycle"]
     assert all(_inside(s, outer) for s in mine)
     one = {n: next(s for s in mine if s[0] == n)
            for n in ("plan", "render.stage", "walk.block", "render.fetch")}
@@ -101,6 +103,33 @@ def test_an_offline_render_records_its_spans_nested(tmp_path):
     finish = [s for s in mine if s[0] == "render.finish"]
     assert finish and all(one["render.fetch"][2] <= s[1] for s in finish)
     assert all(_known(n) for n in names), names
+
+
+def test_a_fused_feedback_loop_is_one_cycle_span_a_block(tmp_path):
+    """Config 3's loop walks as one `walk.cycle` span a block, inside the
+    block's `walk.block`, with no node span of the delay or the gain; a
+    loop that steps (its gain automated) records their node spans and no
+    `walk.cycle`."""
+    ctx = _reverb(frames=4 * 44100)
+    with profile_render(str(tmp_path)) as p:
+        ctx.start_rendering_sync()
+    got = _spans(p.profiler)
+    blocks = [s for s in got if s[0] == "walk.block"]
+    cycles = [s for s in got if s[0] == "walk.cycle"]
+    assert "walk.cycle" in SPANS and len(blocks) == 2
+    assert len(cycles) == len(blocks)
+    assert all(_inside(c, b) for c, b in zip(cycles, blocks))
+    names = {s[0] for s in got}
+    assert not names & {"walk.node._DelayKernel", "walk.node._GainKernel"}
+    stepped = _reverb(frames=4 * 44100)
+    (fb,) = [n for n in stepped._nodes.values()
+             if type(n).__name__ == "GainNode"]
+    fb.gain.set_value_at_time(0.4, 0.01)
+    with profile_render(str(tmp_path / "stepped")) as p:
+        stepped.start_rendering_sync()
+    names = {s[0] for s in _spans(p.profiler)}
+    assert {"walk.node._DelayKernel", "walk.node._GainKernel"} <= names
+    assert "walk.cycle" not in names
 
 
 def _batch(device="cpu", n=4, frames=4096, seed=1):

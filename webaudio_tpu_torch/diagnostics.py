@@ -28,6 +28,7 @@ SPANS = (
     "render.stage",           # a fresh render's states, rows, resources
     "walk.block",             # one eager block of the walk
     "walk.node",              # one node of an eager block
+    "walk.cycle",             # one constant feedback-delay loop, one launch
     "walk.replay",            # one captured block replayed
     "capture",                # one block captured as a CUDA graph
     "render.fetch",           # the copy of a render's output to the host
@@ -147,8 +148,9 @@ class profile_render:
     `webaudio.plan` (compile_graph) with `plan.fuse`, `plan.order`,
     `plan.params` and `plan.kernels` inside it; an offline render's
     `render.stage`, `render.fetch` and `render.finish`; the walk's
-    `walk.block` and its `walk.node.<kernel class>` a node, or
-    `walk.replay` a captured block, and `capture`; a GraphBatch's
+    `walk.block` and its `walk.node.<kernel class>` a node and
+    `walk.cycle` a constant feedback-delay loop, or `walk.replay` a
+    captured block, and `capture`; a GraphBatch's
     `batch.override_param`, `batch.override_buffer`, `batch.stage` with a
     `batch.upload` a row or leaf it sends, and `batch.fetch_wait`; a
     RenderSession's `session.rows`, `session.walk`, `session.fetch` and

@@ -40,6 +40,10 @@ package's.  The inner loop is a Python loop over sub-steps here (JAX: a
 `lax.scan`), with the same math per sub-step, so a two-rate render is
 bit-equal to one that steps every node at the inner block
 (`WEBAUDIO_TWO_RATE=0`) or one quantum at a time (`WEBAUDIO_CYCLE_BLOCKS=1`).
+A group that is one constant feedback-delay loop (a delay and a chain of
+gains, all constant: `_constant_loop`) skips the sub-steps: one call of
+`ops/feedback.py::feedback_delay` walks its whole block, with the same
+arithmetic frame by frame (`CompiledGraph.cycle_paths` says which groups).
 """
 
 from __future__ import annotations
@@ -62,6 +66,7 @@ from ..constants import (
 from ..convert import batch_states, stage_resources, unbatch_states
 from ..diagnostics import recording, span
 from ..ops.cuda_lib import KernelError, launch_counters
+from ..ops.feedback import MAX_GAINS, feedback_delay
 from ..ops.mixing import (
     ChannelInterpretation, computed_number_of_channels, sum_inputs,
 )
@@ -226,6 +231,10 @@ class CompiledGraph:
     muted: set = field(default_factory=set)          # in delay-free cycles
     cycle_breakers: set = field(default_factory=set)  # cut delays' ids
     cycle_groups: list = field(default_factory=list)  # broken SCCs, in order
+    # how each group walks a block: "fused" (a constant feedback-delay
+    # loop, one launch: `_constant_loop`) or "stepped" (two-rate sub-steps,
+    # or every node at the single-rate block)
+    cycle_paths: list = field(default_factory=list)
     two_rate_m: int = 1        # inner sub-steps per block (1 = single-rate)
     inner_frames: int = 0      # delay-bounded inner block (frames)
     # True, or why the walk stays eager on the card ("NodeType #id: ...")
@@ -556,6 +565,14 @@ def _plan(nodes, edges, sample_rate, total_frames, dest_id, device,
             elif gi not in seen_groups:
                 seen_groups.add(gi)
                 exec_plan.append(("g", gi))
+        # a group that is one constant feedback-delay loop runs as one
+        # launch a block (`run_loop`); any other steps (`run_group`)
+        loops = {gi: loop for gi in seen_groups
+                 if (loop := _constant_loop(
+                     ordered.cycle_groups[gi], nodes, kernels, edges,
+                     param_plan, in_counts, out_counts)) is not None}
+        cycle_paths = ["fused" if gi in loops else "stepped"
+                       for gi in range(len(ordered.cycle_groups))]
 
     def run_node(kern, role, scope, state, ins, prm, traced):
         """One vertex: (state', outputs); a writer has no outputs.  traced:
@@ -743,9 +760,31 @@ def _plan(nodes, edges, sample_rate, total_frames, dest_id, device,
                         if (nid, oi) not in signals or nid in failed:
                             signals[(nid, oi)] = silence(c)
 
+        def run_loop(loop):
+            """A constant feedback-delay loop over the whole block in one
+            call of `ops/feedback.py::feedback_delay`: the arithmetic of
+            `run_group`'s sub-steps, frame by frame, so bit-equal to it."""
+            with span("walk.cycle"):
+                x = signals.get(loop.x) if loop.x is not None else None
+                if x is not None:
+                    if x.shape[0] > 1 and x.stride(0) == 0:
+                        x = x[:1]          # one signal every instance shares
+                    x = x.contiguous()
+                key = _k(loop.delay)
+                r, y, ring = feedback_delay(
+                    states[key]["ring"], x, block_frames, loop.shift,
+                    loop.wa, loop.wb, loop.gains,
+                    scope.frame0 if frame0_host is None else frame0_host)
+                new_states[key] = {"ring": ring}
+                signals[(loop.delay, 0)] = r
+                signals[(loop.tail, 0)] = y
+
         for tag, payload in exec_plan:
             if tag == "g":
-                run_group(ordered.cycle_groups[payload])
+                if payload in loops:
+                    run_loop(loops[payload])
+                else:
+                    run_group(ordered.cycle_groups[payload])
                 continue
             nid, role = payload
             node = nodes[nid]
@@ -787,7 +826,7 @@ def _plan(nodes, edges, sample_rate, total_frames, dest_id, device,
         dense_params=dense_params, param_alias=param_alias,
         param_objects=param_objects, muted=ordered.muted,
         cycle_breakers=set(ordered.cycle_breakers),
-        cycle_groups=ordered.cycle_groups,
+        cycle_groups=ordered.cycle_groups, cycle_paths=cycle_paths,
         two_rate_m=two_rate_m, inner_frames=inner_frames or 0,
         capture=capture)
 
@@ -930,6 +969,96 @@ def _two_rate_eligible(nodes, edges, ordered) -> bool:
         if nodes[nid].foreign_params():
             return False
     return True
+
+
+@dataclass(frozen=True)
+class _Loop:
+    """A cycle group that `ops/feedback.py::feedback_delay` walks: the
+    delay, its constant read (`_DelayKernel.const_read`), the gains of the
+    chain reader -> g1 -> ... -> gk -> writer as f32 values, the chain's
+    tail (gk, or the delay's reader when k = 0) and the one outside signal
+    added at the writer's input, (node id, output), or None."""
+    delay: int
+    shift: int
+    wa: float
+    wb: float
+    gains: tuple
+    tail: int
+    x: Optional[tuple]
+
+
+def _constant_loop(grp, nodes, kernels, edges, param_plan, in_counts,
+                   out_counts) -> Optional[_Loop]:
+    """The group as a `_Loop` when it is one constant feedback-delay loop,
+    else None (it steps): one DelayNode, as reader and writer, and a chain
+    reader -> GainNode_1 -> ... -> GainNode_k -> writer (k >= 0, at most
+    MAX_GAINS) with no other members; a constant delay and constant
+    gains (no automation, no audio into a param, no dense row); every
+    member at the ring's channel
+    count, so nothing mixes inside; the writer fed by the chain's tail and
+    at most one signal from outside, at that count too (x + y, exact in
+    either edge order); and no member output read outside but the
+    reader's and the tail's."""
+    from ..nodes.delay import _DelayKernel   # the nodes import this module
+    from ..nodes.gain import _GainKernel
+
+    members = {nid for nid, _ in grp}
+    roles = [role for _, role in grp]
+    delays = [nid for nid, role in grp if role == "writer"]
+    if len(delays) != 1 or roles.count("reader") != 1 or \
+            len(roles) != len(members) + 1:
+        return None
+    d = delays[0]
+    kd = kernels[d]
+    gains = members - {d}
+    if type(kd) is not _DelayKernel or kd.const_read is None or \
+            len(gains) > MAX_GAINS or \
+            any(type(kernels[g]) is not _GainKernel for g in gains):
+        return None
+    C = kd.channels
+    if out_counts[d] != [C] or any(in_counts[g] != [C] or out_counts[g] != [C]
+                                   for g in gains):
+        return None
+    into = {nid: [] for nid in members}       # audio edges into members
+    for e in edges:
+        if e.dst in members:
+            if e.param is not None:
+                return None               # audio into a member's param
+            into[e.dst].append(e)
+    # the chain from the reader through every gain to the writer, each
+    # gain fed by the chain alone
+    chain, prev = [], d
+    while True:
+        nxt = [e for e in edges if e.src == prev and e.dst in members]
+        if len(nxt) != 1 or nxt[0].dst in chain:
+            return None
+        if nxt[0].dst == d:
+            break
+        prev = nxt[0].dst
+        if into[prev] != nxt:
+            return None
+        chain.append(prev)
+    if set(chain) != gains:
+        return None
+    tail = chain[-1] if chain else d
+    outside = [e for e in into[d] if e.src not in members]
+    if len(into[d]) != len(outside) + 1 or len(outside) > 1 or any(
+            out_counts[e.src][e.src_output] != C for e in outside):
+        return None
+    if any(e.src in gains and e.src != tail and e.dst not in members
+           for e in edges):
+        return None                       # an inner gain heard outside
+    consts = []
+    for g in chain:
+        plan = param_plan[(g, "gain")]
+        if not plan.is_constant:
+            return None
+        p = nodes[g].params["gain"]
+        consts.append(float(np.float32(
+            min(max(plan.scalar, p.min_value), p.max_value))))
+    shift, wa, wb = kd.const_read
+    return _Loop(d, shift, wa, wb, tuple(consts), tail,
+                 (outside[0].src, outside[0].src_output) if outside else None)
 
 
 def _two_rate_plan(nodes, edges, cycle_breakers, sample_rate,
