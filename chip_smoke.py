@@ -2409,7 +2409,7 @@ def phase_r(wt, compiler, fusion, ck, s7):
     for label, make, profiled in cases:
         _render_ms(label, make, SECONDS)
         cg = _host_planning(label, compiler, fusion, make)
-        args = compiler.render_args(cg, FRAMES)
+        args = _walk_args(compiler, cg, FRAMES)
         compiler.scan_render(cg, *args)
         loop = [_events_ms(lambda: compiler.scan_render(cg, *args), 3)
                 for _ in range(3)]
@@ -2801,7 +2801,7 @@ def phase_t(wt, compiler, ck, det, dc, waveshaper, kernels):
     t0 = time.perf_counter()
     cg, _ = _plan(compiler, make())
     plan_ms = (time.perf_counter() - t0) * 1e3
-    args = compiler.render_args(cg, FRAMES)
+    args = _walk_args(compiler, cg, FRAMES)
     compiler.scan_render(cg, *args)
     loop = [_events_ms(lambda: compiler.scan_render(cg, *args), 3)
             for _ in range(3)]
@@ -3359,10 +3359,16 @@ def _reverb_plan(compiler, ctx):
     return cg, nb, (conv.partition, conv.k), dl
 
 
+def _walk_args(compiler, cg, frames):
+    """One instance's walk of cg over `frames` from zero states, staged."""
+    return compiler.render_args(cg, compiler.pack_dense_params(
+        cg, compiler._pad_len(frames, cg.block_frames)))
+
+
 def _loop_ms(compiler, cg, frames, reps=3):
     """The block walk alone on a compiled plan: median of 3 x `reps`
     `scan_render`s between CUDA events."""
-    args = compiler.render_args(cg, frames)
+    args = _walk_args(compiler, cg, frames)
     compiler.scan_render(cg, *args)
     runs = [_events_ms(lambda: compiler.scan_render(cg, *args), reps)
             for _ in range(3)]
@@ -4287,18 +4293,17 @@ def crush_close(name, got, want, depth, rel, x, src, delta):
 def _session_steps(session, n_steps, kernels=()):
     """`n_steps` session steps of its block on the card with every
     kernel's count from 0: (each step's (C, frames) output on the card,
-    host ms, block-walk device ms and wall s per step, launches)."""
+    wall s per step, its walk waited for, launches)."""
     for k in kernels:
         k.launches = 0
     torch.cuda.synchronize()
-    chunks, host, walk, wall = [], [], [], []
+    chunks, wall = [], []
     for _ in range(n_steps):
         t0 = time.perf_counter()
         chunks.append(session.step_device(session.block_frames))
-        walk.append(session.walk_ms())       # waits for the step's walk
+        torch.cuda.synchronize()
         wall.append(time.perf_counter() - t0)
-        host.append(session.host_ms)
-    return chunks, host, walk, wall, {k.__name__: k.launches for k in kernels}
+    return chunks, wall, {k.__name__: k.launches for k in kernels}
 
 
 def _resumed_session(wt, make, steps, save_at, tmp):
@@ -4328,8 +4333,7 @@ def _session_case(wt, label, make, make_cpu, steps, save_at, oneshot_frames,
     import tempfile
 
     session = wt.RenderSession(make(), quanta_per_block=SESSION_QPB)
-    chunks, host, walk, wall, launches = _session_steps(session, steps,
-                                                        kernels)
+    chunks, wall, launches = _session_steps(session, steps, kernels)
     out = torch.cat(chunks, dim=-1)
     cg = session._cg
     print(f"{label}: {steps} steps of {session.block_frames} frames, plan "
@@ -4357,18 +4361,14 @@ def _session_case(wt, label, make, make_cpu, steps, save_at, oneshot_frames,
     err_one = _check_close(f"{label}: vs the one-shot start_rendering_sync",
                            host_out[:, :oneshot_frames], one, 1e-4)
     step_s = session.block_frames / fs
-    med_host, med_walk = statistics.median(host[1:]), statistics.median(walk[1:])
     med_wall = statistics.median(wall[1:])
     total = sum(wall)
     print(f"{label}: per step (median of steps 2-{steps}; step 1 in "
-          f"brackets) host {med_host:.3f} ms [{host[0]:.3f}] (dense rows and "
-          f"timelines), block walk {med_walk:.3f} ms [{walk[0]:.3f}] device "
-          f"time, wall {1000 * med_wall:.3f} ms [{1000 * wall[0]:.3f}] -> "
+          f"brackets) wall {1000 * med_wall:.3f} ms [{1000 * wall[0]:.3f}] -> "
           f"realtime factor {step_s / med_wall:.1f}x a step, "
           f"{steps * step_s / total:.1f}x over the {steps} steps "
           f"({total:.3f} s); checkpoint {nbytes} bytes", flush=True)
-    return chunks, {"launches": launches, "host_ms": med_host,
-                    "walk_ms": med_walk, "step_wall_ms": 1000 * med_wall,
+    return chunks, {"launches": launches, "step_wall_ms": 1000 * med_wall,
                     "first_step_ms": 1000 * wall[0], "wall_s": total,
                     "realtime_step": step_s / med_wall,
                     "realtime": steps * step_s / total, "ckpt_bytes": nbytes,

@@ -494,21 +494,24 @@ def _apply(gb, nodes, given):
 
 
 def _write_host_row(gb, node, param, dense):
-    """Write a row into the batch's host base rows as staging did before it
-    tracked changes: padded on the host with its last value repeated, then
-    written strided into (batch, nb, P, B)."""
+    """Write a row into the batch's staged device rows as staging did
+    before it tracked changes: padded on the host with its last value
+    repeated, then written strided into each shard's (k, nb, P, B)."""
     B = gb.cg.block_frames
     pad = gb.nb * B - dense.shape[1]
     arr = np.concatenate([dense, np.repeat(dense[:, -1:], pad, 1)], axis=1)
     key = (node.node_id, param)
     row = gb.cg.dense_params.index(gb.cg.param_alias.get(key, key))
-    gb._xs[:, :, row, :] = arr.reshape(gb.batch, gb.nb, B)
+    gb._stage()
+    for sh, xs in zip(gb._shards, gb._staged_xs):
+        xs[:, :, row, :] = torch.from_numpy(
+            arr[sh.lo:sh.hi].reshape(sh.hi - sh.lo, gb.nb, B)).to(xs.device)
 
 
 def _fresh(given, seed=7):
     """A new batch staged once with every override `given` holds, its rows
-    written into the host base rows (`_write_host_row`): its render and
-    int16 bounce."""
+    written into its staged device rows (`_write_host_row`): its render
+    and int16 bounce."""
     gb, nodes = _mastering()
     _apply(gb, nodes, {k: v for k, v in given.items()
                        if k not in ("threshold", "ratio")})
@@ -594,22 +597,23 @@ def test_row_override_equals_host_padded_rows(graph, length):
     param = "frequency" if graph == "sweep" else "gain"
     gb = wt.GraphBatch(ctx, batch=3)
     gb.render()
-    want = gb._xs.copy()
+    want = gb._staged_xs[0].clone()
     rows = np.random.default_rng(length).uniform(
         100.0, 900.0, (3, length)).astype(np.float32)
     gb.override_param(node, param, rows)
     gb.render()
+    assert gb.stage_stats["uploaded"] == [f"n{node.node_id}.{param}"]
     ref = wt.GraphBatch(ctx, batch=3)
     _write_host_row(ref, node, param, rows)
-    np.testing.assert_array_equal(gb._staged_xs[0].numpy(), ref._xs)
-    assert not np.array_equal(ref._xs, want)
+    assert torch.equal(gb._staged_xs[0], ref._staged_xs[0])
+    assert not torch.equal(ref._staged_xs[0], want)
 
 
 def test_mixed_bucket_takes_a_row_after_its_first_render():
-    """A MixedGraphBatch bucket stages its members' own rows (written into
-    its host base rows before the first render); a row override after that
-    sends that row alone, and the render equals a batch with the row
-    written on the host."""
+    """A MixedGraphBatch bucket stages its members' own rows (row snapshots
+    its first render sends); a row override after that sends that row
+    alone, and the render equals a batch with the row written on the
+    host."""
     ramps = (0.3, 0.9)
     ctxs = [gain_graph(wt, 2048, ramp_to=r)[0] for r in ramps]
     mb = wt.MixedGraphBatch(ctxs)

@@ -174,9 +174,15 @@ def _two_rate_config3(mod):
     return reverb_graph(mod, 66150)
 
 
+def _rows(cg, frames):
+    """cg's dense rows over `frames`, padded to whole blocks."""
+    return tcomp.pack_dense_params(
+        cg, tcomp._pad_len(frames, cg.block_frames))
+
+
 def _walk_two(cg, frames):
     """The first two blocks of cg's eager walk over `frames`."""
-    states, frame0s, xs, res = tcomp.render_args(cg, frames)
+    states, frame0s, xs, res = tcomp.render_args(cg, _rows(cg, frames))
     assert len(frame0s) >= 2
     return tcomp.scan_render(cg, states, frame0s[:2], xs[:, :2], res)
 
@@ -313,7 +319,7 @@ REPLAYS = {
 def _replayed(cg, frames):
     """(the eager walk's output, block_fn traced at block 0 and replayed
     for every block) over `frames`."""
-    states, frame0s, xs, res = tcomp.render_args(cg, frames)
+    states, frame0s, xs, res = tcomp.render_args(cg, _rows(cg, frames))
     _, want = tcomp.scan_render(cg, states, frame0s, xs, res)
     gm = make_fx(lambda st, f0, x, r: cg.block_fn(st, f0, x, r),
                  tracing_mode="real")(

@@ -1553,7 +1553,13 @@ def test_online_states_held_are_not_overwritten(cuda):
     chunks, errors = [], []
     ctx, delay = _streaming(cuda, chunks, errors)
     try:
-        _wait_chunks(chunks, 6)               # the plan replays its graph
+        _wait_chunks(chunks, 6)
+        # the graph is built while the context streams, so its last plan
+        # may start some chunks late; it replays its graph from its third
+        # walk on
+        n = len(chunks)
+        while not ctx._cg.graphs and len(chunks) < n + 60:
+            _wait_chunks(chunks, len(chunks) + 1)
         assert ctx._cg.graphs
         with ctx._lock:
             held = ctx._states

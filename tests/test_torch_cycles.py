@@ -607,3 +607,82 @@ def test_port_finishes_a_jax_half_render(build, half):
     whole = build(wa, frames=2 * half).start_rendering_sync().to_array()
     _close(np.asarray(want)[:, :half], whole[:, half:], 1e-5)
     _close(got[:, :half].numpy(), whole[:, half:], 1e-5)
+
+
+
+def _failing_loop(inside, at, heard=None):
+    """Config 3's loop (a looping stereo buffer into a 0.31 s delay fed
+    back through 0.4, 44.1 kHz, 1.5 s) with a worklet that passes its input
+    through until the call whose frames reach frame `at`, then throws:
+    inside the loop (delay -> 0.4 -> worklet -> delay) or, `inside` False,
+    after it (delay -> 0.4 -> delay and 0.4 -> worklet).  The destination
+    hears the worklet and the source at 0.25.  `heard` collects the peak
+    of each input the worklet passed.  Returns (ctx, the worklet node, its
+    errors)."""
+    class FailsAt(wt.AudioWorkletProcessor):
+        def process(self, scope, state, inputs, params):
+            if int(scope.frame0) + scope.frames > at:
+                raise RuntimeError("process boom")
+            if heard is not None:
+                heard.append(float(inputs[0].abs().max()))
+            return state, [inputs[0]]
+
+    fs = REVERB_FS
+    ctx = _context(wt, 2, int(fs * 1.5), fs)
+    dry = np.sin(np.arange(int(fs)) * 0.03, dtype=np.float32)
+    src = ctx.create_buffer_source(loop=True)
+    src.buffer = wt.AudioBuffer.from_array(np.stack([dry, -0.5 * dry]), fs)
+    src.start()
+    d = ctx.create_delay(max_delay_time=1.0)
+    d.delay_time.value = 0.31
+    fb = ctx.create_gain(gain=0.4)
+    node = ctx.create_audio_worklet(FailsAt)
+    errors = []
+    node.set_onprocessorerror(errors.append)
+    dry_gain = ctx.create_gain(gain=0.25)
+    src.connect(d)
+    d.connect(fb)
+    fb.connect(node)
+    (node if inside else fb).connect(d)
+    node.connect(ctx.destination)
+    src.connect(dry_gain)
+    dry_gain.connect(ctx.destination)
+    return ctx, node, errors
+
+
+@pytest.mark.parametrize("inside", [True, False], ids=["group", "lone"])
+def test_a_processor_that_throws_is_isolated_for_its_block(monkeypatch,
+                                                           inside):
+    """A worklet that throws mid-render is isolated: listed as failed, its
+    onprocessorerror fired once, its output silent from the start of the
+    block it threw in, the rest of the graph rendering on (the destination
+    hears the source alone from there, as where the worklet throws at its
+    first call; finite throughout).  "group": the worklet is in config 3's
+    loop, a two-rate group stepped m >= 2 times a block, and throws at a
+    later sub-step than the first: the sub-steps it passed audio through
+    before are silent too.  "lone": after the loop, stepped once a block
+    of a single-rate walk (WEBAUDIO_TWO_RATE=0), throwing at its fourth
+    block."""
+    if not inside:
+        monkeypatch.setenv("WEBAUDIO_TWO_RATE", "0")
+    at = int(REVERB_FS)
+    heard = []
+    ctx, node, errors = _failing_loop(inside, at, heard)
+    cg = _plan(tcomp, ctx)
+    B = cg.block_frames
+    first = at // B * B                 # the block holding frame `at`
+    members = {nid for grp in cg.cycle_groups for nid, _ in grp}
+    if inside:
+        assert cg.two_rate_m >= 2 and cg.cycle_paths == ["stepped"]
+        assert node.node_id in members and at % B >= 2 * cg.inner_frames
+    else:
+        assert cg.two_rate_m == 1 and node.node_id not in members
+        assert first == 3 * B
+    out = ctx.start_rendering_sync().to_array()
+    assert node.node_id in ctx.render_stats["segments"][0]["failed"]
+    assert len(errors) == 1 and "process boom" in str(errors[0])
+    assert np.isfinite(out).all() and max(heard) > 0.01
+    ref = _failing_loop(inside, at=0)[0].start_rendering_sync().to_array()
+    np.testing.assert_array_equal(out[:, first:], ref[:, first:])
+    if first:
+        assert np.abs(out[:, :first] - ref[:, :first]).max() > 0.01

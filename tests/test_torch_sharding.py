@@ -155,7 +155,7 @@ def test_overrides_after_staging_restage_the_shards(graph):
 def test_overrides_after_the_first_render_land_in_every_shard(graph):
     """A row override after the first render is sent to each shard alone
     (its own slice, on its own device), and the sharded render equals an
-    unsharded batch with the row written into its host base rows."""
+    unsharded batch with the row written into its staged rows."""
     gb, _, node, param = _batch(graph, _mesh(4))
     gb.render()
     rows = _graph(wt, graph, gb.total_frames)[4][::-1].copy() * 0.5

@@ -21,7 +21,6 @@ from __future__ import annotations
 
 import json
 import os
-import time
 
 import numpy as np
 import torch
@@ -117,9 +116,7 @@ class RenderSession:
     shapes such as delay rings and FDLs depend on it) and every param as
     a dense row compiled for that step on the host (the online-loop
     pattern): the LTI biquad runs its a-rate scan, oscillators their
-    cumsum phase.  After a step, `host_ms` is its host time compiling the
-    dense rows and advancing the live timelines, and `walk_ms()` the time
-    of its block walk (CUDA events on the card, which it waits for).
+    cumsum phase.
 
     While a torch profiler records, a step's host work is traced as the
     spans `session.rows` (the dense rows compiled, laid out in blocks and
@@ -136,11 +133,8 @@ class RenderSession:
         self._states = None          # with the walk's instance axis of 1
         self._cg = None
         self._version = None
-        self._resources = None
         self._qpb = quanta_per_block
         self.block_frames = quanta_per_block * 128
-        self.host_ms = 0.0
-        self._walk = None            # (start, stop) events or wall ms
         self.stats = {"steps": 0, "saves": 0, "restores": 0,
                       "save_bytes": 0, "save_leaves": 0}
 
@@ -156,12 +150,6 @@ class RenderSession:
             start_frame=self._frame, quanta_per_block=self._qpb,
             force_dense_params=True)
         self._version = ctx._graph_version
-        if self._states is None:
-            self._states = batch_states(self._template_states(), 1)
-        self._resources = None
-
-    def _template_states(self):
-        return _compiler.zero_states(self._cg)
 
     def step_device(self, frames: int) -> torch.Tensor:
         """Render the next `frames` frames (a multiple of the session block
@@ -171,37 +159,19 @@ class RenderSession:
             raise ValueError(
                 f"frames must be a multiple of {self.block_frames}")
         self._ensure_compiled()
-        t0 = time.perf_counter()
         cg = self._cg
         ctx = self._context
-        # a cyclic graph may plan a smaller (delay-bounded) block that
-        # divides the requested session block (compile_graph's clamp)
-        B = cg.block_frames
-        nb = frames // B
         with span("session.rows"):
             rows = np.zeros((len(cg.dense_params), frames), np.float32)
             for i, key in enumerate(cg.dense_params):
                 plan = cg.param_objects[key].compile_for_render(
                     ctx.sample_rate, frames, self._frame, force_dense=True)
                 rows[i] = plan.dense
-            t1 = time.perf_counter()
-            xs = torch.from_numpy(
-                _compiler.block_rows(rows, B)[None].copy()).to(cg.device)
-        if self._resources is None:
-            self._resources = _compiler.stage_resources(
-                _compiler.collect_resources(cg), cg.device)
-        frame0s = [self._frame + b * B for b in range(nb)]
-        cuda = cg.device.type == "cuda"
-        if cuda:
-            events = [torch.cuda.Event(enable_timing=True) for _ in "ab"]
-            events[0].record()
+            # a cyclic graph may plan a smaller (delay-bounded) block that
+            # divides the requested session block (compile_graph's clamp)
+            args = _compiler.render_args(cg, rows, self._frame, self._states)
         with span("session.walk"):
-            self._states, out = _compiler.scan_render(
-                cg, self._states, frame0s, xs, self._resources)
-        if cuda:
-            events[1].record()
-        t2 = time.perf_counter()
-        self._walk = events if cuda else (t2 - t1) * 1e3
+            self._states, out = _compiler.scan_render(cg, *args)
         self._frame += frames
         ctx._current_time = self._frame / ctx.sample_rate
         # advance live timelines so control-side values stay coherent
@@ -210,17 +180,8 @@ class RenderSession:
                 for p in node.params.values():
                     p.advance_dense(ctx.sample_rate, frames,
                                     self._frame - frames)
-        self.host_ms = (t1 - t0 + time.perf_counter() - t2) * 1e3
         self.stats["steps"] += 1
         return out[0, :, :frames]
-
-    def walk_ms(self) -> float:
-        """The last step's block walk in ms: device time between CUDA
-        events on the card (waits for it), wall time on the CPU."""
-        if isinstance(self._walk, list):
-            self._walk[1].synchronize()
-            return self._walk[0].elapsed_time(self._walk[1])
-        return self._walk
 
     def step(self, frames: int) -> np.ndarray:
         """Render the next `frames` frames (a multiple of the session block
@@ -247,7 +208,7 @@ class RenderSession:
         with span("session.restore"):
             self._ensure_compiled()
             states, self._frame = load_states(
-                path, self._template_states(), self._cg.device)
+                path, _compiler.zero_states(self._cg), self._cg.device)
             self._states = batch_states(states, 1)
             self._context._current_time = \
                 self._frame / self._context.sample_rate

@@ -15,7 +15,6 @@ import time as _time
 from typing import Callable, Optional
 
 import numpy as np
-import torch
 
 from ..buffer import AudioBuffer
 from ..constants import (
@@ -127,15 +126,15 @@ class OfflineAudioContext(BaseAudioContext):
                 self._destination.node_id, self._device, start_frame=cursor)
             with span("render.stage"):
                 args = _compiler.render_args(
-                    cg, seg_len, start_frame=cursor,
-                    init_states=self._merge_states(states, cg))
-            final, seg_out = _compiler.scan_render(cg, *args)
+                    cg, _compiler.pack_dense_params(
+                        cg, _compiler._pad_len(seg_len, cg.block_frames)),
+                    cursor, states)
+            states, seg_out = _compiler.scan_render(cg, *args)
             with span("render.fetch"):
                 out[:, cursor:boundary] = \
                     seg_out[0, :self._number_of_channels, :seg_len].cpu() \
                     .numpy()
             with span("render.finish"):
-                states = _compiler.unbatch_states(final)
                 segments.append({"block_frames": cg.block_frames,
                                  "failed": dict(cg.failed)})
                 # keep the plan for diagnostics, without its staged
@@ -148,7 +147,7 @@ class OfflineAudioContext(BaseAudioContext):
                 self._advance_param_state(cursor)
                 # publish states (the buffer playhead) so suspend callbacks
                 # observe the graph's live state
-                self._publish_render_states(states)
+                self._publish_render_states(_compiler.unbatch_states(states))
 
             q = cursor // RENDER_QUANTUM_SIZE
             if q in self._suspend_callbacks:
@@ -242,18 +241,6 @@ class OfflineAudioContext(BaseAudioContext):
         s["realtime_factor"] = s["audio_seconds"] / max(s["wall_seconds"], 1e-12)
         return s
 
-    def _merge_states(self, states, cg):
-        """Carry states across re-plans: keep state for surviving nodes,
-        init fresh ones."""
-        init = _compiler.zero_states(cg)
-        if states is None:
-            return init
-        merged = {}
-        for k, v in init.items():
-            old = states.get(k)
-            merged[k] = old if old is not None and _same_structure(old, v) else v
-        return merged
-
     def _advance_param_state(self, frame: int):
         """Advance every param's control-side timeline to `frame` so events
         inserted during a suspend callback see the correct intrinsic value
@@ -283,12 +270,3 @@ class OfflineAudioContext(BaseAudioContext):
                 if st is not None:
                     hook(st)
 
-
-def _same_structure(a, b) -> bool:
-    """Same dict keys, tensor shapes and dtypes all the way down."""
-    if isinstance(a, dict) and isinstance(b, dict):
-        return a.keys() == b.keys() and all(
-            _same_structure(a[k], b[k]) for k in a)
-    if isinstance(a, torch.Tensor) and isinstance(b, torch.Tensor):
-        return a.shape == b.shape and a.dtype == b.dtype
-    return a is None and b is None

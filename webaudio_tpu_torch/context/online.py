@@ -29,13 +29,12 @@ import numpy as np
 import torch
 
 from ..constants import RENDER_QUANTUM_SIZE, InvalidStateError, NotSupportedError
-from ..convert import batch_states, tree_map, unbatch_states
+from ..convert import tree_map, unbatch_states
 from ..events import EventDispatch, EventLoop, EventType
 from ..graph import compiler as _compiler
 from ..io_backends import LATENCY_BUFFER_SIZES, build_backend
 from ..stats import AudioPlaybackStats, AudioRenderCapacity, AudioStats
 from .base import AudioContextState, BaseAudioContext
-from .offline import _same_structure
 
 
 class AudioContextOptions:
@@ -112,7 +111,6 @@ class AudioContext(BaseAudioContext):
         self._states: Optional[dict] = None   # instance axis of 1
         self._cg = None
         self._cg_version = -1
-        self._resources = None
         self._lock = threading.Lock()
         self._realtime = True
 
@@ -254,21 +252,12 @@ class AudioContext(BaseAudioContext):
             # params stream in per chunk from the live timelines; baking a
             # "constant" would go stale as the timeline advances
             force_dense_params=True)
-        init = batch_states(_compiler.zero_states(cg), 1)
-        if self._states is not None:
-            # states carry across the re-plan for every node whose state
-            # keeps its structure (context/offline.py's rule)
-            init = {k: old if (old := self._states.get(k)) is not None
-                    and _same_structure(old, v) else v
-                    for k, v in init.items()}
-        self._states = init
         if self._cg is not None:
             # the old plan's CUDA graphs go with it (their memory returns
             # to the device's graph pool for the new plan's)
             _compiler.drop_graphs(self._cg)
         self._cg = cg
         self._cg_version = version
-        self._resources = None
 
     def _render_one_chunk(self) -> np.ndarray:
         B = self._buffer_frames
@@ -290,19 +279,12 @@ class AudioContext(BaseAudioContext):
                 rows[i] = p.advance_dense(self.sample_rate, B, self._frame)
             states = self._states
         # a cyclic graph plans a delay-bounded block that divides the
-        # buffer (compile_graph's clamp): walk nb blocks a chunk
-        Bc = cg.block_frames
-        nb = B // Bc
-        xs = torch.from_numpy(
-            _compiler.block_rows(rows, Bc)[None].copy()).to(cg.device)
-        if self._resources is None:
-            self._resources = _compiler.stage_resources(
-                _compiler.collect_resources(cg), cg.device)
-        frame0s = [self._frame + b * Bc for b in range(nb)]
-        # a capture on this thread is thread-local: the control thread may
-        # use the card meanwhile
-        states, out = _compiler.scan_render(cg, states, frame0s, xs,
-                                            self._resources)
+        # buffer (compile_graph's clamp); the states carry across a
+        # re-plan at its first walk (`render_args`).  A capture on this
+        # thread is thread-local: the control thread may use the card
+        # meanwhile
+        states, out = _compiler.scan_render(
+            cg, *_compiler.render_args(cg, rows, self._frame, states))
         chunk = out[0].cpu().numpy()         # the chunk's one host copy
         with self._lock:
             self._states = states

@@ -6,7 +6,7 @@
 // It replaces no TPU kernel.  The two-rate compiler steps such a loop at
 // the delay-bounded inner block, m sub-steps a block
 // (webaudio_tpu/graph/compiler.py:652, run_group's inner `lax.scan`; on
-// the port graph/compiler.py::run_group, a Python loop of ~10 device
+// the port graph/compiler.py::run_step, a Python loop of ~10 device
 // operations a sub-step).  This kernel does the same arithmetic per frame in one launch
 // (ops/feedback.py::feedback_delay_reference is its plain version).  For
 // frame n of the block, t = frame0 + n, p = t - shift:

@@ -25,8 +25,10 @@ the JAX package's `vmap` over `scan_render` written out as a leading
 instance axis.  Signals are (N, C, B), dense params (N, 1, B), constant
 params shared 0-d tensors, every state leaf (N, ...), and every resource
 leaf (1, ...) when the instances share it or (N, ...) when each has its
-own (`convert.stage_resources`).  `render_compiled` and the offline
-context run it with N = 1; `parallel/batch.py::GraphBatch` with N instances.
+own (`convert.stage_resources`).  `render_args` stages a walk of one
+instance for every driver that renders one (the offline and online
+contexts, `RenderSession`, time segments, `render_compiled`);
+`parallel/batch.py::GraphBatch` stages N instances.
 
 Source fusion (`graph/fusion.py`) rewrites banks of same-buffer buffer
 sources into one node before planning, as the JAX package does.
@@ -223,7 +225,7 @@ class CompiledGraph:
     sample_rate: float
     in_counts: dict
     out_counts: dict
-    resource_cache: Any = None
+    resource_cache: Any = None   # the staged resources (`render_args`)
     failed: dict = field(default_factory=dict)
     dense_params: list = field(default_factory=list)  # packed row order
     param_alias: dict = field(default_factory=dict)   # fused (nid, p) remaps
@@ -551,28 +553,31 @@ def _plan(nodes, edges, sample_rate, total_frames, dest_id, device,
                     min(max(plan.scalar, p.min_value), p.max_value),
                     dtype=torch.float32, device=device)
 
-        # execution plan: vertices in topological order, each broken-SCC
-        # group collapsed into one ("g", gi) step at its first vertex (the
-        # groups are contiguous in ordered.order, graph/ir.py)
+        # execution plan: the vertices in topological order, each one
+        # stepped once at the block (members, 1, block_frames), except
+        # that two-rate collapses each broken-SCC group into one step at
+        # its first vertex (the groups are contiguous in ordered.order,
+        # graph/ir.py): its members stepped m times at the inner block,
+        # or, a group that is one constant feedback-delay loop, a `_Loop`
+        # walked in one launch a block (`run_loop`)
         group_of = {v: gi for gi, grp in enumerate(ordered.cycle_groups)
                     for v in grp} if two_rate_m > 1 else {}
         exec_plan = []
-        seen_groups: set = set()
+        loops: dict = {}        # group -> its _Loop, or None: it steps
         for v in ordered.order:
             gi = group_of.get(v)
             if gi is None:
-                exec_plan.append(("v", v))
-            elif gi not in seen_groups:
-                seen_groups.add(gi)
-                exec_plan.append(("g", gi))
-        # a group that is one constant feedback-delay loop runs as one
-        # launch a block (`run_loop`); any other steps (`run_group`)
-        loops = {gi: loop for gi in seen_groups
-                 if (loop := _constant_loop(
-                     ordered.cycle_groups[gi], nodes, kernels, edges,
-                     param_plan, in_counts, out_counts)) is not None}
-        cycle_paths = ["fused" if gi in loops else "stepped"
+                exec_plan.append(([v], 1, block_frames))
+            elif gi not in loops:
+                grp = ordered.cycle_groups[gi]
+                loops[gi] = _constant_loop(grp, nodes, kernels, edges,
+                                           param_plan, in_counts, out_counts)
+                exec_plan.append(loops[gi] or (grp, two_rate_m, inner_frames))
+        cycle_paths = ["fused" if loops.get(gi) else "stepped"
                        for gi in range(len(ordered.cycle_groups))]
+        # each vertex's input sources by port, (node id, output)
+        in_refs = {nid: [[(e.src, e.src_output) for e in port]
+                         for port in in_edges[nid]] for nid in nodes}
 
     def run_node(kern, role, scope, state, ins, prm, traced):
         """One vertex: (state', outputs); a writer has no outputs.  traced:
@@ -614,17 +619,6 @@ def _plan(nodes, edges, sample_rate, total_frames, dest_id, device,
         def silence(channels, frames=block_frames):
             return torch.zeros((n, channels, frames),
                                dtype=torch.float32, device=device)
-
-        def mix(nid, i, sigs, frames):
-            return sum_inputs(sigs, in_counts[nid][i], interp_of[nid],
-                              frames, device, batch=n)
-
-        def gather_inputs(nid, node):
-            return [mix(nid, i, [signals[(e.src, e.src_output)]
-                                 for e in in_edges[nid][i]
-                                 if (e.src, e.src_output) in signals],
-                        block_frames)
-                    for i in range(node.number_of_inputs)]
 
         def gather_params(nid, node):
             vp = getattr(kernels[nid], "vector_params", None)
@@ -671,71 +665,70 @@ def _plan(nodes, edges, sample_rate, total_frames, dest_id, device,
                 out[alias] = val
             return out
 
-        def run_group(grp):
-            """Two-rate inner loop: step one broken SCC's members at the
-            delay-bounded inner block, m sub-steps of this block.  Outside
-            signals and dense params are sliced per sub-step (views), in-
-            group signals resolve inside the sub-step, member states carry
-            from one sub-step to the next: the math of stepping these nodes
-            at the inner block, so cycle feedback is bit-equal to it."""
-            m, Bi = two_rate_m, inner_frames
-            members = {nid for nid, _ in grp}
-            built = []          # (nid, role, per-input sources, params)
-            for nid, role in grp:
-                if nid in ordered.muted or nid in failed:
-                    continue
-                node = nodes[nid]
-                try:
-                    srcs = [] if role == "reader" else [
-                        [("loc", (e.src, e.src_output)) if e.src in members
-                         else ("out", signals[(e.src, e.src_output)])
-                         for e in in_edges[nid][i]
-                         if e.src in members
-                         or (e.src, e.src_output) in signals]
-                        for i in range(node.number_of_inputs)]
-                    built.append((nid, role, srcs, gather_params(nid, node)))
-                except (NotSupportedError, KernelError):
-                    raise
-                except Exception as exc:
-                    if _capture_fault(exc):
-                        raise
-                    fail(nid, exc)
+        def part(val, s, frames):
+            # a dense (.., B) value's sub-step s of `frames` frames;
+            # constants pass as-is
+            if val is not None and val.dim() >= 1 and \
+                    val.shape[-1] == block_frames:
+                return val[..., s * frames:(s + 1) * frames]
+            return val
 
-            def step(val, s):
-                # a dense (.., B) value's sub-step s; constants pass as-is
-                if val is not None and val.dim() >= 1 and \
-                        val.shape[-1] == block_frames:
-                    return val[..., s * Bi:(s + 1) * Bi]
-                return val
-
-            carry = {_k(nid): states.get(_k(nid)) for nid, *_ in built}
-            outs: dict = {}
+        def run_step(members, m, frames):
+            """Step `members`, (node id, role) vertices in topological
+            order, m times at `frames` frames: a lone vertex once at the
+            block, a two-rate group's members m sub-steps of the block at
+            the delay-bounded inner block.  Outside signals and dense
+            params are sliced per sub-step (views), signals among the
+            members resolve inside the sub-step, and each member's state
+            carries through the block's running states: a delay's reader
+            sees the ring its writer wrote earlier in the block, and cycle
+            feedback is the math of stepping these nodes at the inner
+            block, bit-equal to it.  A member that throws is isolated and
+            silent for the whole block."""
+            prms: dict = {}         # each member's params, once a block
+            parts: dict = {}        # each output's sub-step signals
             # captured, the sub-steps take views of the block's t_idx
-            t_block = scope.t_idx if frame0_host is None else None
+            t_block = scope.t_idx if m > 1 and frame0_host is None else None
             for s in range(m):
-                if t_block is None:
-                    sc = BlockScope(None, Bi, n, device,
-                                    frame0_host + s * Bi)
+                if m == 1:
+                    # the block's scope; outputs go straight to its signals
+                    sc, local = scope, signals
+                elif t_block is None:
+                    sc, local = BlockScope(None, frames, n, device,
+                                           frame0_host + s * frames), {}
                 else:
-                    sc = BlockScope(t_block[s * Bi], Bi, n, device, None,
-                                    base(Bi), t_block[s * Bi:(s + 1) * Bi])
-                local: dict = {}
-                for nid, role, srcs, prm in built:
-                    if nid in failed:
+                    sc, local = BlockScope(
+                        t_block[s * frames], frames, n, device, None,
+                        base(frames), t_block[s * frames:(s + 1) * frames]), {}
+                for nid, role in members:
+                    if nid in ordered.muted or nid in failed:
                         continue
                     sc.node_resources = resources.get(_k(nid))
+                    # a processor that throws is isolated; capability
+                    # fences and kernel faults are not processor errors
+                    # and propagate
                     try:
-                        ins = [mix(nid, i, [local[ref] if kind == "loc"
-                                            else step(ref, s)
-                                            for kind, ref in src
-                                            if kind == "out" or ref in local],
-                                   Bi)
-                               for i, src in enumerate(srcs)]
-                        st, o = run_node(
-                            kernels[nid], role, sc, carry[_k(nid)], ins,
-                            {a: step(v, s) for a, v in prm.items()}, traced)
-                        carry[_k(nid)] = st
+                        ins = [] if role == "reader" else [
+                            sum_inputs([local[r] if r in local
+                                        else part(signals[r], s, frames)
+                                        for r in refs
+                                        if r in local or r in signals],
+                                       in_counts[nid][i], interp_of[nid],
+                                       frames, device, batch=n)
+                            for i, refs in enumerate(in_refs[nid])]
+                        prm = prms.get(nid)
+                        if prm is None:
+                            prm = prms[nid] = gather_params(nid, nodes[nid])
+                        if m > 1:
+                            prm = {a: part(v, s, frames)
+                                   for a, v in prm.items()}
+                        st, o = run_node(kernels[nid], role, sc,
+                                         new_states.get(_k(nid)), ins, prm,
+                                         traced)
+                        new_states[_k(nid)] = st
                         for oi, y in enumerate(o):
+                            # an output shared by all instances
+                            # broadcasts (a view)
                             local[(nid, oi)] = y.expand((n,) + y.shape[1:])
                     except (NotSupportedError, KernelError):
                         raise
@@ -743,27 +736,31 @@ def _plan(nodes, edges, sample_rate, total_frames, dest_id, device,
                         if _capture_fault(exc):
                             raise
                         fail(nid, exc)
-                for nid, role, *_ in built:
-                    if role == "writer" or nid in failed:
-                        continue
-                    for oi, c in enumerate(out_counts[nid]):
-                        outs.setdefault((nid, oi), []).append(
-                            local[(nid, oi)] if (nid, oi) in local
-                            else silence(c, Bi))
-            new_states.update(carry)
-            for key, parts in outs.items():
-                signals[key] = torch.cat(parts, dim=-1)     # (N, C, m * Bi)
+                if m > 1:
+                    for nid, role in members:
+                        if role == "writer" or nid in failed or \
+                                nid in ordered.muted:
+                            continue
+                        for oi, c in enumerate(out_counts[nid]):
+                            parts.setdefault((nid, oi), []).append(
+                                local[(nid, oi)] if (nid, oi) in local
+                                else silence(c, frames))
             # muted and failed members emit the block's silence
-            for nid, role in grp:
-                if role != "writer":
-                    for oi, c in enumerate(out_counts[nid]):
-                        if (nid, oi) not in signals or nid in failed:
-                            signals[(nid, oi)] = silence(c)
+            for nid, role in members:
+                if role == "writer":
+                    continue
+                for oi, c in enumerate(out_counts[nid]):
+                    key = (nid, oi)
+                    if nid in failed or key not in (parts if m > 1
+                                                    else signals):
+                        signals[key] = silence(c)
+                    elif m > 1:
+                        signals[key] = torch.cat(parts[key], dim=-1)
 
         def run_loop(loop):
             """A constant feedback-delay loop over the whole block in one
             call of `ops/feedback.py::feedback_delay`: the arithmetic of
-            `run_group`'s sub-steps, frame by frame, so bit-equal to it."""
+            `run_step`'s sub-steps, frame by frame, so bit-equal to it."""
             with span("walk.cycle"):
                 x = signals.get(loop.x) if loop.x is not None else None
                 if x is not None:
@@ -779,42 +776,11 @@ def _plan(nodes, edges, sample_rate, total_frames, dest_id, device,
                 signals[(loop.delay, 0)] = r
                 signals[(loop.tail, 0)] = y
 
-        for tag, payload in exec_plan:
-            if tag == "g":
-                if payload in loops:
-                    run_loop(loops[payload])
-                else:
-                    run_group(ordered.cycle_groups[payload])
-                continue
-            nid, role = payload
-            node = nodes[nid]
-            scope.node_resources = resources.get(_k(nid))
-            if nid in ordered.muted or nid in failed:
-                for oi, c in enumerate(out_counts[nid]):
-                    signals[(nid, oi)] = silence(c)
-                continue
-            # a processor that throws is isolated; capability fences and
-            # kernel faults are not processor errors and propagate
-            try:
-                ins = [] if role == "reader" else gather_inputs(nid, node)
-                prm = gather_params(nid, node)
-                # a delay's writer ran earlier in this block unless the
-                # delay breaks a cycle: its reader sees the written ring
-                st, outs = run_node(kernels[nid], role, scope,
-                                    new_states.get(_k(nid)), ins, prm,
-                                    traced)
-                new_states[_k(nid)] = st
-                for oi, o in enumerate(outs):
-                    # an output shared by all instances broadcasts (a view)
-                    signals[(nid, oi)] = o.expand((n,) + o.shape[1:])
-            except (NotSupportedError, KernelError):
-                raise
-            except Exception as exc:
-                if _capture_fault(exc):
-                    raise
-                fail(nid, exc)
-                for oi, c in enumerate(out_counts[nid]):
-                    signals[(nid, oi)] = silence(c)
+        for entry in exec_plan:
+            if isinstance(entry, _Loop):
+                run_loop(entry)
+            else:
+                run_step(*entry)
 
         return new_states, signals[(dest_id, 0)]
 
@@ -1413,24 +1379,40 @@ def drop_graphs(cg: CompiledGraph) -> None:
     cg.warm.clear()
 
 
-def render_args(cg: CompiledGraph, total_frames: int, start_frame: int = 0,
-                init_states: Optional[dict] = None):
-    """Stage (states, frame0s, xs, resources) for `scan_render` with one
-    instance: dense params as one (1, nb, P, B) f32 tensor on the device,
-    zero states for every kernel unless given (unbatched, as
-    `zero_states` returns them), resources staged once per compiled
-    graph."""
+def render_args(cg: CompiledGraph, rows: np.ndarray, frame0: int = 0,
+                states: Optional[dict] = None):
+    """Stage one instance's walk of `cg` for `scan_render`: -> (states,
+    frame0s, xs, resources).
+
+    rows: the (P, frames) f32 dense params over [frame0, frame0 + frames)
+    in `cg.dense_params` order, frames a multiple of the block; they go to
+    the device as one (1, nb, P, B) tensor.  states: the walk's (an
+    instance axis of 1) or None.  A plan's first walk starts from zero
+    states except for each node whose state in `states` has the zero
+    state's structure (a re-plan keeps the surviving nodes' states); its
+    later walks take `states` as they are, the states its walks returned.
+    resources: staged once per plan (`cg.resource_cache`)."""
     B = cg.block_frames
-    padded = _pad_len(total_frames, B)
-    nb = padded // B
-    xs = torch.from_numpy(block_rows(pack_dense_params(cg, padded), B)[None]
-                          .copy()).to(cg.device)
-    frame0s = [start_frame + b * B for b in range(nb)]
-    if init_states is None:
-        init_states = zero_states(cg)
+    xs = torch.from_numpy(block_rows(rows, B)[None].copy()).to(cg.device)
+    frame0s = [frame0 + b * B for b in range(rows.shape[-1] // B)]
+    if states is None or not cg.walks:
+        zero = batch_states(zero_states(cg), 1)
+        states = zero if states is None else {
+            k: old if (old := states.get(k)) is not None
+            and _same_structure(old, v) else v for k, v in zero.items()}
     if cg.resource_cache is None:
         cg.resource_cache = stage_resources(collect_resources(cg), cg.device)
-    return batch_states(init_states, 1), frame0s, xs, cg.resource_cache
+    return states, frame0s, xs, cg.resource_cache
+
+
+def _same_structure(a, b) -> bool:
+    """Same dict keys, tensor shapes and dtypes all the way down."""
+    if isinstance(a, dict) and isinstance(b, dict):
+        return a.keys() == b.keys() and all(
+            _same_structure(a[k], b[k]) for k in a)
+    if isinstance(a, torch.Tensor) and isinstance(b, torch.Tensor):
+        return a.shape == b.shape and a.dtype == b.dtype
+    return a is None and b is None
 
 
 def render_compiled(cg: CompiledGraph, total_frames: int,
@@ -1441,6 +1423,8 @@ def render_compiled(cg: CompiledGraph, total_frames: int,
     Returns `(output (C, padded_frames) tensor on the device, final_states)`
     where padded_frames rounds total_frames up to the block size and the
     states carry no instance axis."""
-    final, out = scan_render(cg, *render_args(cg, total_frames, start_frame,
-                                              init_states))
+    rows = pack_dense_params(cg, _pad_len(total_frames, cg.block_frames))
+    final, out = scan_render(cg, *render_args(
+        cg, rows, start_frame,
+        None if init_states is None else batch_states(init_states, 1)))
     return out[0], unbatch_states(final)

@@ -6,7 +6,7 @@ through k GainNodes of constant gain g1..gk back into the delay, with at
 most one signal x from outside the loop added at the delay's input.  Over
 a block of B frames from frame0, for frame n, t = frame0 + n,
 p = t - shift, in the stepped walk's f32 order
-(`graph/compiler.py::run_group`, `_DelayKernel.process_reader`,
+(`graph/compiler.py::run_step`, `_DelayKernel.process_reader`,
 `_GainKernel`, `sum_inputs`, `process_writer`):
 
     r = ring[p mod R] * wa + ring[(p + 1) mod R] * wb

@@ -77,12 +77,11 @@ class GraphBatch:
         self.frame0s = [b * B for b in range(self.nb)]
         self._shards = self._split(mesh)
 
-        # base param rows (shared across instances unless overridden),
-        # host (batch, nb, P, B), uploaded at the first stage; an
+        # base param rows, host (nb, P, B), shared by the instances: the
+        # first stage fills each shard's device rows from them; an
         # override_param's row goes to the device rows, not here
-        base = _compiler.block_rows(
+        self._base_xs = _compiler.block_rows(
             _compiler.pack_dense_params(self.cg, self.nb * B), B)
-        self._xs = np.broadcast_to(base[None], (batch,) + base.shape).copy()
         self._on_card = any(sh.device.type == "cuda" for sh in self._shards)
         # row index -> snapshot (batch, total_frames) of its last override,
         # sent at the next stage
@@ -229,9 +228,10 @@ class GraphBatch:
         device buffers that hold it, and return (states, xs, resources) for
         each shard's block walk, in shard order.
 
-        Rows: a shard's (k, nb, P, B) device array is made from the host
-        base rows at the first stage; an overridden row goes from its
-        snapshot into its slice, its pad filled on the device.  Resources:
+        Rows: a shard's (k, nb, P, B) device array is filled on the
+        device from the host base rows (nb, P, B), sent once, at the first
+        stage; an overridden row goes from its snapshot into its slice,
+        its pad filled on the device.  Resources:
         a per-instance leaf is written in place (`convert.upload_into`) at
         the first stage and after an override replaced it; a shared leaf
         once a device.  Each send is a `batch.upload` span.
@@ -262,8 +262,9 @@ class GraphBatch:
                 self._staged_xs = []
                 for sh in shards:
                     with span("batch.upload"):
-                        self._staged_xs.append(
-                            convert.upload(self._xs[sh.lo:sh.hi], sh.device))
+                        base = convert.upload(self._base_xs, sh.device)
+                        self._staged_xs.append(base.expand(
+                            (sh.hi - sh.lo,) + base.shape).contiguous())
             rows, self._rows = self._rows, {}
             names = [f"{_compiler._k(nid)}.{param}"
                      for nid, param in self.cg.dense_params]
@@ -565,12 +566,14 @@ class MixedGraphBatch:
                 bucket_mesh = None   # odd bucket: render unsharded
             gb = GraphBatch(leader_ctx, batch=len(members), mesh=bucket_mesh,
                             _cg=leader_cg)
-            B = gb.cg.block_frames
             # per-instance dense automation straight from each member's
-            # own compiled timelines (row order is part of the fingerprint)
-            for j, (_, _, cg) in enumerate(members):
-                gb._xs[j] = _compiler.block_rows(
-                    _compiler.pack_dense_params(cg, gb.nb * B), B)
+            # own compiled timelines (row order is part of the
+            # fingerprint): a snapshot a row, over the padded frames,
+            # that the first stage sends as it sends an override_param's
+            packed = np.stack([_compiler.pack_dense_params(
+                cg, gb.nb * gb.cg.block_frames) for _, _, cg in members])
+            for r in range(packed.shape[1]):
+                gb._rows[r] = convert.snapshot(packed[:, r], gb._on_card)
             # initial states stacked per member, not the leader's broadcast
             gb._states = convert.stack_states(
                 [_compiler.zero_states(cg) for _, _, cg in members])

@@ -104,23 +104,16 @@ def render_time_sharded(context, total_frames: int | None = None,
     # params: packed dense rows sliced per segment incl. halo; frames
     # outside the render use the edge value (sources are inactive there)
     nb_total = -(-total // B)
-    padded_total = nb_total * B
-    packed = _compiler.pack_dense_params(cg, padded_total)    # (P, padded)
+    packed = _compiler.pack_dense_params(cg, nb_total * B)    # (P, padded)
     outs = []
     for d, dev in enumerate(devices):
         seg = plan_on(dev)
-        xs = np.stack([packed[:, :1].repeat(B, 1) if f0 < 0
-                       else packed[:, -1:].repeat(B, 1)
-                       if f0 >= padded_total else packed[:, f0:f0 + B]
-                       for f0 in starts[d]])
-        if seg.resource_cache is None:
-            seg.resource_cache = _compiler.stage_resources(
-                _compiler.collect_resources(seg), dev)
-        states = _compiler.batch_states(_compiler.zero_states(seg), 1)
+        f0 = int(starts[d][0])          # the segment's blocks are consecutive
+        cols = np.clip(np.arange(f0, f0 + len(starts[d]) * B), 0,
+                       nb_total * B - 1)
+        args = _compiler.render_args(seg, packed[:, cols], f0)
         with on_device(dev):
-            _, out = _compiler.scan_render(
-                seg, states, [int(f) for f in starts[d]],
-                torch.from_numpy(xs[None]).to(dev), seg.resource_cache)
+            _, out = _compiler.scan_render(seg, *args)
         outs.append(out[0, :, halo_blocks * B:])     # (C, nb_net * B)
     flat = torch.cat([o.cpu() for o in outs], dim=-1)
     return flat[:, :total].numpy()
