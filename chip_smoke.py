@@ -264,6 +264,18 @@ through 0.4), each main path with every kernel's launch count from 0:
      many runs of one frame as the block has); a RenderSession of config 3
      stepped as the reverb session (16,384-frame steps, 128 quanta a
      block) must not launch it;
+ wp. the buffer source's automated-rate playhead kernel
+     (csrc/buffer_playhead.cu) at the reverb session's block (8,192
+     frames, config 3's source, every param a dense row as a
+     RenderSession plans it): against its plain version on the same card
+     tensors (1e-6 x peak, buffer_time 1e-9 samples) at 1 and 64
+     instances, frame0 on the host and on the card bit-equal; device time
+     warm (CUDA-graph replay) and cold L2 (a graph replayed after a 256 MB
+     write) at (1, 2, 8,192) and (64, 2, 8,192), the plain version's
+     ~155 operations replayed from a CUDA graph, the bytes bound and the
+     latency floor (one launch at its least block: 1 instance, 1 channel,
+     128 frames); one launch a block in a config 3 RenderSession, none in
+     config 3's bounce;
   x. one-quantum stepping: config 3 at 2 s with WEBAUDIO_CYCLE_BLOCKS=1
      (690 blocks of 128 frames, the convolver's FDL 690 partitions of
      128) within 3e-6 of its two-rate render (the JAX suite's bound); the
@@ -463,7 +475,9 @@ version's host time, the latency floors of one sequential chain, the
 step's cycles, the chunked path's time, 5b's and the sweep's times,
 and its launches on the online path; the feedback-delay kernel's its
 launches on config 3's, the reverb corpus's and the session's paths,
-phase wf's times, bound and latency floor; every row its launches a call
+phase wf's times, bound and latency floor; the playhead kernel's its
+launches on the session's and the bounce's paths and phase wp's times,
+bound and latency floor; every row its launches a call
 on each captured path of zk, the grain and feedback-delay kernels' how
 they read frame0)
 and the card's name and power limit, then as
@@ -511,6 +525,8 @@ DRIVE_VOICES = 64
 CPU_SECONDS = 2.0            # the CPU renders o and p are held to
 ORACLE_CHUNK = 16000         # frames per chunk of the f64 oracles
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM, NVIDIA data sheet
+SPIN_WARM = 64               # spin kernels opening each profiler window
+SPIN_CYCLES = 600_000        # clocks each (~0.3 ms at 1.98 GHz)
 F32_OPS_PER_S = 67e12        # f32 outside the tensor cores
 
 
@@ -1278,24 +1294,36 @@ def _profile(calls, kernels=None):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with profile(activities=activities) as prof:
+        # a window loses the device records of its first few ms of
+        # activity, whatever their kind (kernels, copies, annotations):
+        # two identical session steps traced an odd count of a dozen
+        # names, and a sleep or one small kernel first did not cure it
+        # (H100, torch 2.11; PERF.md §7).  SPIN_WARM spin kernels take
+        # that loss, and no figure counts them.
+        for _ in range(SPIN_WARM):
+            torch.cuda._sleep(SPIN_CYCLES)
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
         for fn in calls:
             fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
+
+    def device(e):
+        return e.device_type == DeviceType.CUDA and "spin_kernel" not in e.key
+
     rows = prof.key_averages()
-    busy_us = sum(e.self_device_time_total for e in rows
-                  if e.device_type == DeviceType.CUDA)
+    busy_us = sum(e.self_device_time_total for e in rows if device(e))
     # device time by the aten op that launched it
     ops = sorted((e for e in rows if e.device_type == DeviceType.CPU
                   and e.self_device_time_total > 0),
                  key=lambda e: -e.self_device_time_total)[:6]
-    launches = sum(e.count for e in rows if e.device_type == DeviceType.CUDA)
+    launches = sum(e.count for e in rows if device(e))
     if kernels is not None:
         for e in rows:
-            if e.device_type == DeviceType.CUDA:
+            if device(e):
                 kernels[e.key] = kernels.get(e.key, 0) + e.count
     return busy_us, wall_us, [(e.key, e.self_device_time_total / len(calls))
                               for e in ops], launches / len(calls)
@@ -3573,6 +3601,150 @@ def phase_wf(wt, fbk, loop, kernels):
     torch.cuda.empty_cache()
     return res
 
+PLAYHEAD_BATCH = 64          # phase wp's batch of the session's source
+
+
+def _cold_graph_ms(fn, reps=10):
+    """Median ms of one replay of a CUDA graph of fn between CUDA events,
+    a 256 MB write (five times the L2) before each: the graph's launch
+    costs the host a few us, where a launch through the wrapper would put
+    its Python in the timed window."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return _cold_events_ms(graph.replay, reps)
+
+
+def phase_wp(wt, ph, kernels):
+    """The buffer source's automated-rate playhead kernel
+    (csrc/buffer_playhead.cu) at the reverb session's block: config 3's
+    source planned as a RenderSession plans it, against its plain version
+    on the same card tensors at 1 and PLAYHEAD_BATCH instances (frame0 on
+    the host and on the card bit-equal); device time warm and cold L2 at
+    both sizes, the plain version's on the card, the bytes bound and the
+    latency floor; its launches in a config 3 session (one a block) and
+    in config 3's bounce (none).  Returns the row's numbers."""
+    from webaudio_tpu_torch.graph.compiler import BlockScope
+
+    label = "wp. playhead kernel at the session's block"
+    for k in kernels:
+        k.launches = 0
+    s = wt.RenderSession(reverb_context(wt, "cuda")[0],
+                         quanta_per_block=SESSION_STEP_QPB)
+    for _ in range(3):
+        s.step_device(SESSION_STEP)
+    torch.cuda.synchronize()
+    B = s._cg.block_frames
+    blocks = 3 * SESSION_STEP // B
+    res = {"launches_session_path": ph.buffer_playhead.launches}
+    (kern,) = [k for k in s._cg.kernels.values()
+               if type(k).__name__ == "_BufferSourceKernel"]
+    for k in kernels:
+        k.launches = 0
+    reverb_context(wt, "cuda")[0].start_rendering_sync()
+    res["launches_bounce_path"] = ph.buffer_playhead.launches
+    print(f"{label}: RenderSession of config 3, 3 steps of {SESSION_STEP} "
+          f"frames ({blocks} blocks of {B}): {res['launches_session_path']} "
+          f"launches; config 3's bounce: {res['launches_bounce_path']}",
+          flush=True)
+    if res["launches_session_path"] != blocks or res["launches_bounce_path"]:
+        raise AssertionError(f"{label}: not one launch a session block, or "
+                             "a launch in the bounce")
+    del s
+
+    host = kern.resources()
+    consts = kern.consts
+    C = host["edge_vals"].shape[0]
+    L = kern.buf_len
+    rng = np.random.default_rng(SEED + 23)
+
+    def inputs(n, R, channels=C, frames=B):
+        # the pair rows of the first `channels` channels
+        cols = list(range(channels)) + list(range(C, C + channels))
+        rows = torch.from_numpy(host["data_rows"][:, cols].copy())
+        edge = torch.from_numpy(host["edge_vals"][:channels].copy())
+        state = {"buffer_time": torch.from_numpy(rng.uniform(0.0, L, n)),
+                 "elapsed": torch.full((n,), 5.0e8, dtype=torch.float64),
+                 "entered": torch.ones(n, dtype=torch.bool)}
+        return (torch.ones((n, 1, frames), device="cuda"),
+                torch.zeros((n, 1, frames), device="cuda"),
+                {k: v.cuda() for k, v in state.items()},
+                rows.cuda()[None].expand(R, -1, -1).contiguous(),
+                edge.cuda()[None].expand(R, -1).contiguous())
+
+    frame0 = 476_000_000
+    for n in (1, PLAYHEAD_BATCH):
+        pr, dt, state, rows, edge = inputs(n, n)
+        scope = BlockScope(frame0, B, n, torch.device("cuda"))   # eager
+        scope.node_resources = {"data_rows": rows, "edge_vals": edge}
+        want_state, (want,) = kern._process_cumsum(
+            scope, state, {"playback_rate": pr, "detune": dt})
+        got, got_state = ph.buffer_playhead(pr, dt, state, rows, edge, B,
+                                            frame0, consts)
+        dev0 = torch.tensor(frame0, dtype=torch.int64, device="cuda")
+        again, again_state = ph.buffer_playhead(pr, dt, state, rows, edge, B,
+                                                dev0, consts)
+        torch.cuda.synchronize()
+        peak = float(want.abs().max())
+        err = float((got - want).abs().max()) / peak
+        bt_err = float((got_state["buffer_time"]
+                        - want_state["buffer_time"]).abs().max())
+        same = torch.equal(got, again) and all(
+            torch.equal(got_state[k], again_state[k]) for k in got_state)
+        print(f"{label}: ({n}, {C}, {B}) frame0 {frame0}: against the plain "
+              f"version {err:.3e} x peak, buffer_time {bt_err:.3e} samples, "
+              f"entered equal "
+              f"{torch.equal(got_state['entered'], want_state['entered'])}; "
+              f"frame0 on the card bit-equal {same}", flush=True)
+        if not (err <= 1e-6 and bt_err <= 1e-9 and same and peak > 0.1
+                and torch.equal(got_state["entered"],
+                                want_state["entered"])):
+            raise AssertionError(f"{label}: the kernel differs from its plain "
+                                 f"version at {n} instance(s)")
+        res.setdefault("max_abs_err", 0.0)
+        res["max_abs_err"] = max(res["max_abs_err"], err)
+
+        def fn():
+            return ph.buffer_playhead(pr, dt, state, rows, edge, B, frame0,
+                                      consts)
+
+        warm = _graph_ms(fn, 20)
+        cold = _cold_graph_ms(fn, 10)
+        plain = _graph_ms(lambda: kern._process_cumsum(
+            scope, state, {"playback_rate": pr, "detune": dt}), 5)
+        # rates in, the output out, the pair rows one rate-1 block reads
+        # (B + 1 of them) and the state in and out, each byte once
+        nbytes = n * (2 * B * 4 + C * B * 4 + (B + 1) * 2 * C * 4 + 2 * 17)
+        b_ms, b_by = _bound(nbytes, 0)
+        key = "" if n == 1 else f"_{n}"
+        res.update({f"ms{key}": warm, f"cold_ms{key}": cold,
+                    f"plain_ms{key}": plain, f"bound_ms{key}": b_ms,
+                    f"bound_by{key}": b_by, f"bytes{key}": nbytes})
+        print(f"{label}: ({n}, {C}, {B}): warm {warm * 1000:.2f} us, cold L2 "
+              f"{cold * 1000:.2f} us; plain version on the card (CUDA graph) "
+              f"{plain * 1000:.1f} us; bound {b_ms * 1000:.3f} us ({b_by}: "
+              f"{nbytes / 1e6:.3f} MB at 3.35 TB/s)", flush=True)
+        del pr, dt, state, rows, edge, want, got, again
+        torch.cuda.empty_cache()
+    # the latency floor: one launch at the kernel's least block
+    pr, dt, state, rows, edge = inputs(1, 1, 1, 128)
+    floor = _graph_ms(lambda: ph.buffer_playhead(
+        pr, dt, state, rows, edge, 128, frame0, consts), 20)
+    res["latency_bound_ms"] = floor
+    res["share_of_bound"] = max(res["bound_ms"], floor) / res["cold_ms"]
+    print(f"{label}: latency floor (1 instance, 1 channel, 128 frames) "
+          f"{floor * 1000:.2f} us; the cold time is "
+          f"{100 * res['share_of_bound']:.1f}% of the larger bound",
+          flush=True)
+    res["shape"] = [1, C, B]
+    return res
+
+
 def phase_x(wt, compiler, kernels):
     """One-quantum stepping (WEBAUDIO_CYCLE_BLOCKS=1): config 3 at 2 s
     against its two-rate render, and the modulated feedback delay (a
@@ -5534,7 +5706,9 @@ TRACE_NAMES = {"curve_lookup": ("curve_lookup_",),
                "grouped_lerp": ("grouped_lerp_kernel",),
                "dither_i16": ("quantize", "DitherI16"),
                "ulaw_u8": ("quantize", "UlawU8"),
-               "feedback_delay": ("feedback_delay_loop",)}
+               "feedback_delay": ("feedback_delay_loop",),
+               "buffer_playhead": ("buffer_playhead_block",)}
+
 
 
 def _traced_launches(label, kernels, traced):
@@ -5996,6 +6170,7 @@ def main() -> int:
     from webaudio_tpu_torch.ops import feedback as fbk
     from webaudio_tpu_torch.graph import fusion
     from webaudio_tpu_torch.ops import grain_read as gr
+    from webaudio_tpu_torch.ops import playhead as ph
     from webaudio_tpu_torch.ops import detector as det
     from webaudio_tpu_torch.ops import resample as rs
     from webaudio_tpu_torch.nodes import dynamics_compressor as dc
@@ -6043,6 +6218,7 @@ def main() -> int:
     gr._launchers()
     det._launcher()
     fbk._lib()
+    ph._lib()
     print(f"build: {', '.join(sources)} built and loaded in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
     marks = [t0]
@@ -6089,7 +6265,8 @@ def main() -> int:
     # oscillators and voice banks, o-r: each main path counts every
     # kernel's launches from 0
     every = (ck.curve_lookup, dither.dither_i16, dither.ulaw_u8,
-             gr.grain_bank, gr.grouped_lerp, fbk.feedback_delay)
+             gr.grain_bank, gr.grouped_lerp, fbk.feedback_delay,
+             ph.buffer_playhead)
     phase_o(wt, compiler, every)
     phase_p(wt, compiler, every)
     voice_launches, s7, s7_err = phase_q(wt, compiler, fusion, ck, every)
@@ -6109,11 +6286,12 @@ def main() -> int:
     lap("s-v")
 
     # config 3, w-y: delay, feedback cycles (the feedback-delay kernel,
-    # wf), the convolver, the IIR filter; each main path counts every
-    # kernel's launches from 0
+    # wf), the session's playhead kernel (wp), the convolver, the IIR
+    # filter; each main path counts every kernel's launches from 0
     every = every + (det.detector_scan,)
     w = phase_w(wt, compiler, every)
     wf = phase_wf(wt, fbk, w["loop"], every)
+    wp = phase_wp(wt, ph, every)
     phase_x(wt, compiler, every)
     y = phase_y(wt, compiler, dither, every)
     lap("w-y")
@@ -6301,6 +6479,17 @@ def main() -> int:
          "max_abs_err": 0.0,
          **{k: v for k, v in wf.items() if k != "launches_session_path"},
          "plain_on": "cuda", "library_ms": None},
+        {"name": "buffer_playhead", "route": "cuda",
+         "source": "webaudio_tpu_torch/csrc/buffer_playhead.cu",
+         "replaces": "no TPU kernel: the automated-rate playhead's tensor "
+                     "code, webaudio_tpu/nodes/buffer_source.py "
+                     "_process_cumsum",
+         "launches": wp["launches_session_path"],
+         "launches_captured_paths": captured("buffer_playhead"),
+         "frame0": "the block's first frame, a host int (eager) or a 0-d "
+                   "int64 tensor on the card read when the kernel runs "
+                   "(captured)",
+         **wp, "plain_on": "cuda (CUDA graph)", "library_ms": None},
     ]
     for row in rows:
         row.setdefault("share_of_bound", row["bound_ms"] / row["ms"])

@@ -9,7 +9,15 @@ packages and holds the port to 1e-5 x peak; the cumsum itself is held to
 the JAX package's to 1e-13 relative: its f32 part runs in XLA's order (an
 f32 cumsum in another order would be ~1e-7 off), and only the f64 sums
 of each quantum may round apart.
+
+The graphs are tests/playhead_cases.py's; tests/playhead_jax.npz keeps the
+JAX package's renders of them for machines without JAX (the card's tests
+in tests/test_torch_playhead_kernel.py), and the last test here holds it to
+JAX's renders.  Regenerate it with
+`JAX_PLATFORMS=cpu python tests/test_torch_playhead.py --regen`.
 """
+
+import sys
 
 import numpy as np
 import pytest
@@ -24,13 +32,13 @@ from webaudio_tpu.nodes import buffer_source as jbs
 from webaudio_tpu_torch.graph import compiler as tcomp
 from webaudio_tpu_torch.nodes import buffer_source as tbs
 
-FS = 48000.0
+import playhead_cases as cases
+
+FS = cases.FS
 
 
 def _context(mod, channels, length, fs=FS):
-    if mod is wt:
-        return wt.OfflineAudioContext(channels, length, fs, device="cpu")
-    return wa.OfflineAudioContext(channels, length, fs)
+    return cases.context(mod, channels, length, fs)
 
 
 def _assert_close(got, want, rel=1e-5):
@@ -40,18 +48,8 @@ def _assert_close(got, want, rel=1e-5):
                                atol=rel * max(np.abs(want).max(), 1e-6))
 
 
-def _data(channels, frames, seed):
-    rng = np.random.default_rng(seed)
-    t = np.arange(frames)
-    x = np.sin(t * rng.uniform(0.01, 0.2, (channels, 1)))
-    return (0.8 * x + 0.1 * rng.standard_normal((channels, frames))
-            ).astype(np.float32)
-
-
-def _source(mod, ctx, data, rate, **kw):
-    src = ctx.create_buffer_source(**kw)
-    src.buffer = mod.AudioBuffer.from_array(data, rate)
-    return src
+_data = cases.data
+_source = cases.source
 
 
 def _render_both(graph_fn, *args, rel=1e-5):
@@ -80,36 +78,10 @@ def test_masked_cumsum_equals_jax(seed):
 
 # --- automation of the rate --------------------------------------------------
 
-def _automated(mod, case, length=6000):
-    ctx = _context(mod, 2, length)
-    data = _data(2, 2500, 7)
-    src = _source(mod, ctx, data, 44100.0, loop=True)
-    pr, dt = src.playback_rate, src.detune
-    if case == "rate_ramp":
-        pr.linear_ramp_to_value_at_time(2.5, length / FS)
-    elif case == "rate_exp_ramp":
-        pr.set_value_at_time(0.5, 0.0)
-        pr.exponential_ramp_to_value_at_time(1.7, 0.1)
-    elif case == "detune_ramp":
-        dt.set_value_at_time(-700.0, 0.0)
-        dt.linear_ramp_to_value_at_time(1200.0, 0.11)
-    elif case == "set_value_at_time":
-        pr.set_value_at_time(1.5, 0.02)
-        pr.set_value_at_time(0.25, 0.05)
-        dt.set_value_at_time(300.0, 0.07)
-    elif case == "through_zero_into_reverse":
-        pr.set_value_at_time(1.0, 0.0)
-        pr.linear_ramp_to_value_at_time(-1.5, 0.1)
-    elif case == "set_target":
-        pr.set_target_at_time(0.3, 0.01, 0.02)
-    src.connect(ctx.destination)
-    src.start()
-    return ctx
+_automated = cases.automated
 
 
-@pytest.mark.parametrize("case", ["rate_ramp", "rate_exp_ramp", "detune_ramp",
-                                  "set_value_at_time",
-                                  "through_zero_into_reverse", "set_target"])
+@pytest.mark.parametrize("case", cases.AUTOMATED)
 def test_automated_rate_matches_jax(case):
     got, _, _ = _render_both(_automated, case)
     assert np.abs(got).max() > 0.1
@@ -122,60 +94,25 @@ def test_automated_rate_matches_jax(case):
     assert src.const_rate is None and src.read_mode == "gather"
 
 
-def _looped(mod, loop_start, loop_end, start, offset, duration, rate_to):
-    ctx = _context(mod, 1, 8192)
-    src = _source(mod, ctx, _data(1, 3000, 3), FS, loop=True,
-                  loop_start=loop_start, loop_end=loop_end)
-    src.playback_rate.set_value_at_time(0.8, 0.0)
-    src.playback_rate.linear_ramp_to_value_at_time(rate_to, 8192 / FS)
-    src.connect(ctx.destination)
-    src.start(start, offset, duration)
-    return ctx
+_looped = cases.looped
 
 
-@pytest.mark.parametrize("args", [
-    (0.01, 0.04, 0.0, None, None, 2.0),        # loop points, forward
-    (0.01, 0.04, 0.0, 0.05, None, -1.5),       # offset past the loop, reverse
-    (0.0, 0.0, 0.0, None, None, 1.3),          # whole-buffer loop
-    (0.02, 0.03, 1001.37 / FS, 0.001, None, 1.6),   # sub-sample start
-    (0.01, 0.05, 0.003, 0.0, 0.07, 2.2),       # the duration limit
-])
+@pytest.mark.parametrize("args", cases.LOOPED)
 def test_loops_start_and_duration_match_jax(args):
     _render_both(_looped, *args)
 
 
-def _one_shot(mod, start, offset, duration):
-    ctx = _context(mod, 2, 6144)
-    src = _source(mod, ctx, _data(2, 2000, 5), 22050.0)
-    src.detune.set_value_at_time(-1200.0, 0.0)
-    src.detune.linear_ramp_to_value_at_time(900.0, 0.1)
-    src.connect(ctx.destination)
-    src.start(start, offset, duration)
-    return ctx
+_one_shot = cases.one_shot
 
 
-@pytest.mark.parametrize("args", [(0.0, None, None), (333.5 / FS, 0.01, None),
-                                  (0.002, 0.0, 0.03)])
+@pytest.mark.parametrize("args", cases.ONE_SHOT)
 def test_one_shot_end_of_buffer_matches_jax(args):
     _render_both(_one_shot, *args)
 
 
 # --- blocks and suspends ------------------------------------------------------
 
-def _two_blocks(mod, length=48000 * 3 + 77):
-    """A lowpass after the source makes the plan prefer power-of-two
-    blocks, so the render spans two."""
-    ctx = _context(mod, 2, length)
-    src = _source(mod, ctx, _data(2, 9000, 9), 44100.0, loop=True,
-                  loop_start=0.05, loop_end=0.18)
-    src.playback_rate.set_value_at_time(0.7, 0.0)
-    src.playback_rate.linear_ramp_to_value_at_time(1.9, 2.0)
-    src.detune.set_value_at_time(150.0, 1.1)
-    filt = ctx.create_biquad_filter(frequency=5000.0)
-    src.connect(filt)
-    filt.connect(ctx.destination)
-    src.start(0.01)
-    return ctx
+_two_blocks = cases.two_blocks
 
 
 def _reference_wrap(pos, ls, le, loop_len):
@@ -200,21 +137,7 @@ def test_render_over_two_blocks_matches_jax(monkeypatch):
     assert tcomp._pad_len(ctx.length, cg.block_frames) >= 2 * cg.block_frames
 
 
-def _suspended(mod):
-    ctx = _context(mod, 1, 12000)
-    src = _source(mod, ctx, _data(1, 4000, 13), FS, loop=True,
-                  loop_start=0.02, loop_end=0.07)
-    src.playback_rate.set_value_at_time(1.2, 0.0)
-    src.playback_rate.linear_ramp_to_value_at_time(0.6, 0.1)
-
-    def bend(c):
-        src.playback_rate.linear_ramp_to_value_at_time(-0.9, 0.24)
-        src.detune.set_value_at_time(200.0, 0.15)
-
-    ctx.suspend_sync(0.08, bend)
-    src.connect(ctx.destination)
-    src.start(0.004)
-    return ctx
+_suspended = cases.suspended
 
 
 def test_render_across_a_suspend_matches_jax():
@@ -305,3 +228,46 @@ def test_looping_or_automated_buffer_sources_not_fused(monkeypatch):
     assert not any(nid < 0 for nid in cg.kernels)
     assert sorted(cg.kernels) == sorted(jcg.kernels)
     _render_both(build)
+
+
+# --- the kept JAX renders -------------------------------------------------------
+
+def _jax_render(name):
+    """The JAX package's render of a case of tests/playhead_cases.py and
+    its playhead after it; the two-block case with the reference's loop
+    tolerance, as test_render_over_two_blocks_matches_jax holds it."""
+    saved = jbs._loop_wrap
+    if name == "two_blocks":
+        jbs._loop_wrap = _reference_wrap
+    try:
+        return cases.render(wa, name)
+    finally:
+        jbs._loop_wrap = saved
+
+
+@pytest.mark.parametrize("name", sorted(cases.CASES))
+def test_kept_jax_renders_are_current(name):
+    """tests/playhead_jax.npz, which the card's kernel is held to where
+    there is no JAX, is the JAX package's render of each case: within
+    1e-6 x peak (a tenth of what the port is held to), the playhead
+    within 1e-9 samples."""
+    out, position = _jax_render(name)
+    with np.load(cases.JAX_RENDERS) as kept:
+        want, want_position = kept[name], float(kept[name + ".position"])
+    assert want.shape == out.shape and np.abs(want).max() > 0.1
+    np.testing.assert_allclose(want, out, rtol=0,
+                               atol=1e-6 * np.abs(out).max())
+    assert want_position == pytest.approx(position, rel=0, abs=1e-9)
+
+
+if __name__ == "__main__" and "--regen" in sys.argv:
+    import jax
+
+    jax.config.update("jax_platforms", "cpu")
+    kept = {}
+    for name in sorted(cases.CASES):
+        out, position = _jax_render(name)
+        kept[name] = out.astype(np.float32)
+        kept[name + ".position"] = np.float64(position)
+    np.savez_compressed(cases.JAX_RENDERS, **kept)
+    print(f"wrote {cases.JAX_RENDERS}")

@@ -1,7 +1,7 @@
-"""A RenderSession far into a long render, on the CPU: a looping source's
-reads, its carried playhead, and save and restore, at frames from 2^26 (25.4
-minutes at 44.1 kHz) up to 2^31 - 2^17, where the block walk's frame
-numbers still hold.
+"""A RenderSession far into a long render, on the CPU (the resume on a card
+too): a looping source's reads, its carried playhead, and save and
+restore, at frames from 2^26 (25.4 minutes at 44.1 kHz) up to 2^31 - 2^17,
+where the block walk's frame numbers still hold.
 
 A session is restored from a checkpoint whose frame cursor is F and whose
 source has played F frames' worth of its buffer (its playhead at F times
@@ -17,7 +17,13 @@ compared with what the reference's playback reads there:
 - a small config-3 reverb (the looping source into a convolver and a
   0.31 s feedback delay) stepped on from F, and the same steps after a
   save and a restore into a fresh context: bit-equal, as the same plan
-  and kernels run on the same states.
+  and kernels run on the same states; on a card too, where the session's
+  source runs its playhead kernel (csrc/buffer_playhead.cu) eagerly in
+  the restored steps and from CUDA graphs in the uninterrupted ones.
+
+The file imports no JAX, so on a GPU machine without it:
+
+    python -m pytest tests/test_torch_session_longform.py --noconftest -q
 
 A wrap tolerance that grows with the playhead (1.5e-8 x its unwrapped
 value: one sample at 2^26) reads each loop's last samples as its first,
@@ -28,9 +34,11 @@ import json
 
 import numpy as np
 import pytest
+import torch
 
 import webaudio_tpu_torch as wt
 from webaudio_tpu_torch.checkpoint import RenderSession
+from webaudio_tpu_torch.ops.playhead import buffer_playhead
 
 FS = 44100.0
 L = 88200                      # a 2 s loop at 44.1 kHz
@@ -53,10 +61,10 @@ def _loop(dry, rate, frames):
     return ctx
 
 
-def _reverb(dry, frames):
+def _reverb(dry, frames, device="cpu"):
     """Config 3's graph, short: the loop into a normalized convolver and a
     0.31 s delay fed back through 0.4."""
-    ctx = wt.OfflineAudioContext(2, frames, FS, device="cpu")
+    ctx = wt.OfflineAudioContext(2, frames, FS, device=device)
     src = ctx.create_buffer_source(loop=True)
     src.buffer = wt.AudioBuffer.from_array(dry, FS)
     src.start()
@@ -161,12 +169,30 @@ def test_carried_playhead_stays_in_the_loop(tmp_path):
 def test_reverb_session_resumes_bit_equal(frame, tmp_path):
     """Tolerance 0: the steps after a save, restored into a fresh context,
     run the same plan and kernels on the same states."""
+    _resumes_bit_equal(frame, tmp_path, "cpu")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("frame", [0, 2**26, 476_000_000])
+def test_reverb_session_resumes_bit_equal_on_the_card(frame, tmp_path):
+    """The same on the card: the uninterrupted session replays its later
+    steps from CUDA graphs while the restored one walks its first steps
+    eagerly, and the source's playhead kernel reads frame0 from the host
+    in one and from the card in the other."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with CUDA")
+    before = buffer_playhead.launches
+    _resumes_bit_equal(frame, tmp_path, "cuda")
+    assert buffer_playhead.launches > before
+
+
+def _resumes_bit_equal(frame, tmp_path, device):
     dry = _dry(2)
     qpb = 16
     step = qpb * 128
 
     def make():
-        return _reverb(dry, frame + 4 * step)
+        return _reverb(dry, frame + 4 * step, device)
 
     s = _restored_at(make, frame, float(frame % L), tmp_path, qpb)
     whole = [s.step(step) for _ in range(4)]

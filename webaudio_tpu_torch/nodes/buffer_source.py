@@ -12,7 +12,9 @@ math over the block, on the compound rate
   sums across quanta (`_masked_cumsum_f64`), carried across blocks; the
   within-quantum cumsum runs in XLA's summation order
   (`ops/oscillator.py::cumsum_f32`), so the card, the CPU and the JAX
-  package round it alike;
+  package round it alike; on the card the whole block is one launch of
+  `ops/playhead.py::buffer_playhead` (`csrc/buffer_playhead.cu`), whose
+  contract this tensor code is;
 - loop wrapping (`while bt >= loop_end: bt -= len`) is `mod` arithmetic on
   the playhead, and the cumsum's carried playhead is kept wrapped once it
   entered the loop;
@@ -46,6 +48,7 @@ from ..graph.compiler import Kernel
 from ..ops.bufread import edge_vals, gather_lanes, gather_pairs, pair_rows
 from ..ops.grain_read import EDGE_FRAC, grouped_lerp, pick_group, pick_window
 from ..ops.oscillator import cumsum_f32
+from ..ops.playhead import Constants, buffer_playhead
 from ..param import AudioParamDescriptor, AutomationRate
 from .scheduled_source import AudioScheduledSourceNode
 
@@ -127,7 +130,28 @@ class _BufferSourceKernel(Kernel):
             self.loop_start, self.loop_end = ls, le
         else:
             self.loop_start, self.loop_end = 0.0, self.buf_duration
+        self.consts = self._playhead_constants()
         self._pick_read_mode(rc)
+
+    def _playhead_constants(self) -> Constants:
+        """The automated-rate playhead's constants, fixed when the plan is
+        compiled: `_process_cumsum` reads them, and the card's kernel
+        takes them as they are (ops/playhead.py)."""
+        fs = self.sample_rate
+        start_ok = self.start_frame < 2**31 - 1
+        ls = self.loop_start * self.buf_rate
+        le = self.loop_end * self.buf_rate
+        return Constants(
+            ratio=self.buf_rate / fs, fs=fs, buf_rate=self.buf_rate,
+            buf_duration=self.buf_duration, offset=self.offset,
+            delta=self.start_frame * (1.0 / fs) - self.start_time
+            if start_ok else 0.0,
+            dur_fs=self.duration * fs, loop_start=self.loop_start,
+            loop_end=self.loop_end, ls=ls, le=le, loop_len=le - ls,
+            tol=1.5e-8 * max(abs(le), 1.0), start_frame=self.start_frame,
+            start_i=min(self.start_frame, 2**31 - 1),
+            stop_i=min(self.stop_frame, 2**31 - 1), length=self.buf_len,
+            loop=int(self.loop), cond_ge=int(self.offset * self.buf_rate < le))
 
     def _pick_read_mode(self, rc):
         """ALIGNED unit-step fast path, the reference's own fast track
@@ -258,6 +282,8 @@ class _BufferSourceKernel(Kernel):
                                        dtype=torch.float32, device=scope.device)]
         if self.const_rate is not None:
             return self._process_closed_form(scope, state)
+        if scope.device.type == "cuda":
+            return self._process_kernel(scope, state, params)
         return self._process_cumsum(scope, state, params)
 
     def _entered(self, pos, offset_pos, ls, le, rate):
@@ -350,10 +376,11 @@ class _BufferSourceKernel(Kernel):
         Whether the start falls in this block is known on the host in an
         eager walk; in a captured one it is device data (frame0 is), and
         the start's branch is a `where`.  Nothing here waits for the
-        device."""
+        device.  The CPU path, and the contract of the card's kernel
+        (`_process_kernel`)."""
         B = scope.frames
         fs = self.sample_rate
-        dt = 1.0 / fs
+        c = self.consts
         # k-rate compound rate (reference: audio_buffer_source.rs:489-493)
         rate = params["playback_rate"].to(torch.float64) * torch.exp2(
             params["detune"].to(torch.float64) / 1200.0)
@@ -361,15 +388,12 @@ class _BufferSourceKernel(Kernel):
         sched = scope.active_mask(self.start_frame, self.stop_frame)
 
         # all playhead math runs in buffer-sample units
-        ratio = self.buf_rate / fs
+        ratio = c.ratio
         L = float(self.buf_len)
 
         # sub-sample start: the first active sample advances the offset by
         # delta * rate (reference: audio_buffer_source.rs:672-690)
-        if self.start_frame < 2**31 - 1:
-            delta = self.start_frame * dt - self.start_time
-        else:
-            delta = 0.0
+        delta = c.delta
         if scope.eager:
             in_block = (scope.frame0_host <= self.start_frame
                         < scope.frame0_host + B)
@@ -402,7 +426,7 @@ class _BufferSourceKernel(Kernel):
             delta_elapsed = torch.where(
                 in_block, torch.abs(delta * rate_n0) * fs, 0.0)
         elapsed0 = state["elapsed"] + delta_elapsed
-        active = sched & (elapsed0[:, None] + excl_abs < self.duration * fs)
+        active = sched & (elapsed0[:, None] + excl_abs < c.dur_fs)
 
         excl, total = _masked_cumsum_f64(rate * ratio, active)
         if scope.eager:
@@ -412,17 +436,15 @@ class _BufferSourceKernel(Kernel):
         pos = pos0[:, None] + excl
 
         if self.loop:
-            ls = self.loop_start * self.buf_rate
-            le = self.loop_end * self.buf_rate
+            ls, le = c.ls, c.le
             # the reference's entered_loop flag is sticky
             # (audio_buffer_source.rs:700-717): once playback crosses into
             # the loop region the wrap applies, carried across blocks
-            cond = (pos >= ls) if self.offset * self.buf_rate < le \
-                else (pos < le)
+            cond = (pos >= ls) if c.cond_ge else (pos < le)
             entered = state["entered"][:, None] | (
                 torch.cumsum((cond & active).to(torch.int32), dim=-1) > 0)
-            pos_eff = torch.where(entered, _loop_wrap(pos, ls, le, le - ls),
-                                  pos)
+            pos_eff = torch.where(entered,
+                                  _loop_wrap(pos, ls, le, c.loop_len), pos)
             entered_end = entered[:, -1]
         else:
             pos_eff = pos
@@ -437,12 +459,25 @@ class _BufferSourceKernel(Kernel):
             # reference's buffer_time is: the f64 playhead's rounding then
             # stays that of the loop's length however long the render
             pos_end = torch.where(
-                entered_end, ls + _floor_mod(pos_end - ls, le - ls), pos_end)
+                entered_end, ls + _floor_mod(pos_end - ls, c.loop_len),
+                pos_end)
         new_state = {
             "buffer_time": pos_end.expand(n).clone(),
             "elapsed": (elapsed0 + total_abs).expand(n).clone(),
             "entered": entered_end.expand(n).clone(),
         }
+        return new_state, [out]
+
+    def _process_kernel(self, scope, state, params):
+        """`_process_cumsum` on the card: one launch of
+        `ops/playhead.py::buffer_playhead` a block, frame0 read on the
+        host in an eager walk and from the device scalar in a captured
+        one."""
+        res = scope.node_resources
+        out, new_state = buffer_playhead(
+            params["playback_rate"], params["detune"], state,
+            res["data_rows"], res["edge_vals"], scope.frames,
+            scope.frame0_host if scope.eager else scope.frame0, self.consts)
         return new_state, [out]
 
     def _fetch(self, scope, playhead, valid):

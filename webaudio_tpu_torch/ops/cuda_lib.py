@@ -92,8 +92,10 @@ def launch_counters() -> tuple:
     plain integer `launches` that it raises by one where it launches its
     kernel; a captured block walk adds its graph's launches on every
     replay (graph/compiler.py)."""
-    from . import curve_kernel, detector, dither, feedback, grain_read
+    from . import curve_kernel, detector, dither, feedback, grain_read, \
+        playhead
 
     return (curve_kernel.curve_lookup, detector.detector_scan,
             dither.dither_i16, dither.ulaw_u8, feedback.feedback_delay,
-            grain_read.grain_bank, grain_read.grouped_lerp)
+            grain_read.grain_bank, grain_read.grouped_lerp,
+            playhead.buffer_playhead)
