@@ -26,6 +26,7 @@ SPANS = (
     "plan.params",            # the dense param timelines
     "plan.kernels",           # node kernels and the block's closure
     "render.stage",           # a fresh render's states, rows, resources
+    "render.resources",       # a plan's resources staged, once a plan
     "walk.block",             # one eager block of the walk
     "walk.node",              # one node of an eager block
     "walk.cycle",             # one constant feedback-delay loop, one launch
@@ -147,7 +148,8 @@ class profile_render:
     port's host spans (`span`, named in `SPANS`) beside the kernels:
     `webaudio.plan` (compile_graph) with `plan.fuse`, `plan.order`,
     `plan.params` and `plan.kernels` inside it; an offline render's
-    `render.stage`, `render.fetch` and `render.finish`; the walk's
+    `render.stage` (with `render.resources` where a plan stages its
+    resources), `render.fetch` and `render.finish`; the walk's
     `walk.block` and its `walk.node.<kernel class>` a node and
     `walk.cycle` a constant feedback-delay loop, or `walk.replay` a
     captured block, and `capture`; a GraphBatch's

@@ -1401,7 +1401,9 @@ def render_args(cg: CompiledGraph, rows: np.ndarray, frame0: int = 0,
             k: old if (old := states.get(k)) is not None
             and _same_structure(old, v) else v for k, v in zero.items()}
     if cg.resource_cache is None:
-        cg.resource_cache = stage_resources(collect_resources(cg), cg.device)
+        with span("render.resources"):
+            cg.resource_cache = stage_resources(collect_resources(cg),
+                                                cg.device)
     return states, frame0s, xs, cg.resource_cache
 
 
